@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of SCOPe once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port once on one NVIDIA GPU: SCOPe's placement
+path and zamba2-2.7b serving.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -8,35 +9,58 @@ non-zero (with no result line):
 
 1. device   the card's name and count, and ``nvidia-smi``'s name and power
             limit; no card is a failure.
-2. build    both kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-            (``-Xptxas -v`` register/shared-memory lines, build seconds).
+2. build    all five kernels from ``src/repro_torch/kernels/csrc``, one
+            nvcc per source, all started together (``-Xptxas -v``
+            register/shared-memory lines, build seconds).
 3. main     TPC-H SF0.1 (600,000 lineitem rows, 440 queries, 500 rows per
             file), an SVR COMPREDICT predictor fitted on 80 query samples,
             and three ``paper_variants`` rows on ``device="cuda"`` with
             ``partition_backend="device"`` and ``feature_backend="device"``:
             Default, SCOPe without capacities (greedy solver) and SCOPe
             total-cost focused (capacitated solver). Launch counts are zeroed
-            just before and read just after; both kernels must have run.
+            just before and read just after; K1 and K2 must have run.
 4. cpu      the same path with ``device="cpu"`` (plain tensor versions):
             identical G-PART partitions, identical Default and greedy plans,
             capacitated cents within rel 1e-6; a second CUDA run of the
             capacitated plan identical to the first; the capacitated solver
             again with capacities that bind, on the card and on the CPU.
+6. serve    zamba2-2.7b at full width and depth (54 Mamba2 layers, one
+            shared attention block used 9 times), bfloat16, random weights
+            from ``torch.Generator(device="cuda").manual_seed(0)``, 4 random
+            prompts of 512 tokens. Prefill (``make_prefill_step``) must
+            launch K5 exactly 9 and K7 exactly 54 times. The serve loop of
+            ``repro_torch.launch.serve`` feeds the 512 prompt tokens one per
+            step and takes 32 greedy steps (33 tokens out): K6 must launch
+            9 x 544 times. torch.profiler then reads the card's busy
+            share over 4 decode steps and one prefill. Checks, each with
+            its tolerance printed: in float32 (the same weights cast), the
+            prefill with the kernels against the prefill with their plain
+            versions, and 64 decode steps against the prefill's first 64
+            positions, both within 1e-3; in bfloat16, the prefill's
+            last-position logits against the decode loop's at the same
+            position and the kernel prefill against the plain one, within
+            0.15 (bf16 noise over 63 blocks; see TOL_BF16); greedy tokens
+            of kernel and plain prefills identical except where the plain
+            logits of the two picks lie within twice the logits' error.
+            This phase runs before phase 5, which uses the shapes it saw.
 5. kernels  each kernel against its plain version on the card, at the
-            shapes the main path gave it (recorded during phase 3) plus
-            edge cases: K1 abs error <= 1e-5 and an identical ``w > 0``
-            pattern; K2 normwise relative error against a float64 plain
-            evaluation <= 1e-5 and at most twice the float32 plain version's
-            (floored at float32's epsilon, 1.2e-7). Then each kernel's time
-            (CUDA events, warm-up first), the plain version's time and the
-            bound (bytes at 3.35 TB/s against float32 operations at 67
-            TFLOP/s, the H100 SXM data-sheet rates). The bytes are those the
-            function needs: the valid codes, not the rows' padding, each
-            length or size that is used, and the outputs; each count is
-            printed beside its bound.
+            shapes the main and serve paths gave it (recorded during phases
+            3 and 6) plus edge cases: K1 abs error <= 1e-5 and an identical
+            ``w > 0`` pattern; K2 normwise relative error against a float64
+            plain evaluation <= 1e-5 and at most twice the float32 plain
+            version's (floored at float32's epsilon, 1.2e-7); K5 and K6 the
+            JAX suite's tolerances (2e-5 in float32, 2e-2 in bfloat16), K7
+            1e-4 in float32 (2e-2 for bfloat16 outputs). Then each kernel's
+            time (CUDA events, warm-up first), the plain version's time, one
+            PyTorch library call's time where one computes the same function
+            (``scaled_dot_product_attention`` for K5 and K6), and the bound:
+            the bytes the function needs at 3.35 TB/s against its operations
+            at the H100 SXM data-sheet rate for the inputs' type (67 TFLOP/s
+            float32, 989 TFLOP/s bfloat16); each count is printed beside its
+            bound.
 
-The script takes no arguments: the size is fixed at SF0.1. The last three
-lines are the kernel JSON line, the ``nvidia-smi`` line and
+The script takes no arguments: the sizes are fixed. The last three lines
+are the kernel JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -58,13 +82,22 @@ SCALE_ROWS = 600_000               # TPC-H SF0.1 lineitem rows (SF1 = 6,000,000)
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32, outside tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bfloat16 tensor cores, dense
+ARCH = "zamba2-2.7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 512, 32   # 33 tokens out
 VARIANTS = ("Default (store on premium)", "SCOPe (No capacity constraint)",
             "SCOPe (Total cost focused)")
 CARD = "cuda"                      # the device the main path runs on
 SOURCES = {"overlap": ("src/repro_torch/kernels/csrc/overlap.cu",
                        "src/repro/kernels/overlap.py:137"),
            "entropy_features": ("src/repro_torch/kernels/csrc/entropy_features.cu",
-                                "src/repro/kernels/entropy_features.py:183")}
+                                "src/repro/kernels/entropy_features.py:183"),
+           "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention.py:103"),
+           "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                "src/repro/kernels/decode_attention.py:84"),
+           "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                        "src/repro/kernels/ssd_scan.py:97")}
 
 
 def check(cond: bool, what: str) -> None:
@@ -93,9 +126,9 @@ def cuda_ms(fn, torch, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -144,8 +177,8 @@ def phase_build(build):
                                          or "Compiling" in line):
                 say("build", f"{name}: {line.strip()}")
         say("build", f"{name}: nvcc {secs[name]:.1f} s")
-    say("build", f"both kernels built in {time.perf_counter() - t0:.1f} s "
-        f"(parallel nvcc)")
+    say("build", f"{len(build.SOURCES)} kernels built in "
+        f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
 
 
 def make_inputs():
@@ -244,7 +277,7 @@ def phase_main(torch, parts, rows, pred, total_gb, recorded):
         f"against Default; capacitated dual ascent ran {len(scans)} time(s) "
         f"(0 when the unconstrained optimum already fits)")
     say("main", f"launches in the main path: {launches}")
-    for k in SOURCES:
+    for k in ("overlap", "entropy_features"):
         check(launches.get(k, 0) > 0, f"kernel {k} was not launched by the "
               f"main path")
     return table, cfgs, cuda_runs, launches
@@ -464,6 +497,459 @@ def phase_kernels(torch, recorded, launches):
     return rows
 
 
+# ------------------------------------------------------------- serve phase
+# bf16 keeps 8 significant bits; over 63 blocks two bf16 evaluations that
+# round in other places give logits up to ~7% apart (7.2e-2 between prefill
+# and decode in the first full run), so the bf16 checks catch gross faults
+# only. The float32 checks, where only the order of sums differs, are tight.
+TOL_BF16 = 0.15
+TOL_F32 = 1e-3
+N_DECODE_F32 = 64           # prompt tokens decoded in float32 for the check
+N_PROFILED = 4              # decode steps under torch.profiler
+
+
+def _swap(ops, fns):
+    """Replace functions of ``ops`` by ``fns``; returns the originals."""
+    orig = {k: getattr(ops, k) for k in fns}
+    for k, fn in fns.items():
+        setattr(ops, k, fn)
+    return orig
+
+
+def _near_ties(got, ref):
+    """Positions whose argmax differs between logits ``got`` and ``ref``
+    (..., V), each with the gap between the two picks in ``ref`` and the
+    largest |got - ref| at that position."""
+    a_g, a_r = got.argmax(-1), ref.argmax(-1)
+    out = []
+    for ix in (a_g != a_r).nonzero().tolist():
+        g, r = got[tuple(ix)], ref[tuple(ix)]
+        gap = float(r[a_r[tuple(ix)]] - r[a_g[tuple(ix)]])
+        out.append((tuple(ix), gap, float((g - r).abs().max())))
+    return out
+
+
+def _check_ties(ties, what):
+    for ix, gap, err in ties:
+        check(gap <= 2 * err, f"{what}: greedy token at {ix} differs by a "
+              f"logit gap {gap:.3e}, beyond twice the error {err:.3e} there")
+
+
+def _busy_share(torch, fn):
+    """(device busy share, device operations: kernels, copies and fills)
+    of ``fn`` under torch.profiler; (None, None) when the trace holds no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only: a CPU op's entry also carries the time of
+    # the kernels it launched, which would count them twice
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev) * 1e-6
+    if busy <= 0:
+        return None, None
+    return busy / wall, len(dev)
+
+
+def phase_serve(torch, recorded):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.decode import make_decode_step, make_prefill_step
+
+    dev = torch.device(CARD)
+    cfg = get_config(ARCH)
+    B, P, T = SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS + 1
+    steps = P + T - 1
+    per_kind = lambda kinds: sum(s.repeats * sum(k in kinds for k in s.unit)
+                                 for s in cfg.stages)
+    n_attn = per_kind(("attn", "attn_local", "shared_attn"))   # 9 for zamba2
+    n_mamba = per_kind(("mamba",))                             # 54
+    t0 = time.perf_counter()
+    params = tr.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                            cfg, device=CARD)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    leaves = tr.tree_leaves(params)
+    say("serve", f"{cfg.name}: {tr.param_count(params):,} parameters, "
+        f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} GB "
+        f"in {cfg.dtype}, {n_mamba + n_attn} blocks ({n_mamba} mamba, "
+        f"{n_attn} attention), d_model {cfg.d_model}, {cfg.n_heads} heads "
+        f"of {cfg.head_dim}; random weights from seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f} s; batch {B}, prompt {P}")
+    prefill = make_prefill_step(cfg)
+    prefill(params, prompts[:, :128])      # warm-up: library handles, loads
+    torch.cuda.synchronize()
+
+    def recorder(name, keep_first):
+        def wrapped(*a, **k):
+            if not keep_first or name not in recorded:
+                recorded[name] = (a, k)
+            return orig[name](*a, **k)
+        return wrapped
+
+    names = ("flash_attention", "ssd_scan", "decode_attention")
+    orig = _swap(ops, {n: recorder(n, n != "decode_attention") for n in names})
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = prefill(params, prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        prefill_launches = dict(ops.launch_counts)
+        cache = tr.init_cache(cfg, B, max_seq=P + T + 1, device=CARD)
+        ops.reset_launch_counts()
+        res = serve(make_decode_step(cfg), params, cache, prompts, T)
+        serve_launches = dict(ops.launch_counts)
+    finally:
+        _swap(ops, orig)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    V = tr.padded_vocab(cfg)
+    check(tuple(logits.shape) == (B, P, V) and bool(logits.isfinite().all()),
+          f"prefill logits {tuple(logits.shape)} not finite of ({B}, {P}, {V})")
+    check(tuple(res.tokens.shape) == (B, T)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          f"serve tokens {tuple(res.tokens.shape)} out of range")
+    say("serve", f"prefill (make_prefill_step): {prefill_s:.4f} s, "
+        f"{B * P / prefill_s:.1f} tokens/s; launches {prefill_launches}")
+    check(prefill_launches == {"flash_attention": n_attn, "ssd_scan": n_mamba},
+          f"prefill launches {prefill_launches}, want flash_attention "
+          f"{n_attn} and ssd_scan {n_mamba}")
+    loop_s = res.prompt_s + res.decode_s
+    step_ms = loop_s / steps * 1e3
+    say("serve", f"serve loop: {steps} decode steps ({P} prompt + {T - 1} "
+        f"generation) in {loop_s:.3f} s, {step_ms:.3f} ms per step; prompt "
+        f"steps {B * P / res.prompt_s:.1f} tokens/s, generation "
+        f"{B * (T - 1) / res.decode_s:.1f} tokens/s, whole loop "
+        f"{B * T / loop_s:.1f} tokens/s as launch/serve.py counts "
+        f"({B * T} tokens out); launches {serve_launches}; peak device "
+        f"memory {peak:.3f} GB")
+    check(serve_launches == {"decode_attention": n_attn * steps},
+          f"serve launches {serve_launches}, want decode_attention "
+          f"{n_attn * steps}")
+
+    # where a decode step's time goes: the card's busy share over a few
+    # steps (a fresh small cache; the profiler's own cost lowers the share)
+    step = make_decode_step(cfg)
+    small = tr.init_cache(cfg, B, max_seq=N_PROFILED + 1, device=CARD)
+
+    def few_steps():
+        for i in range(N_PROFILED):
+            step(params, small, prompts[:, i:i + 1],
+                 torch.full((B,), i, dtype=torch.int32, device=dev))
+
+    few_steps()
+    busy, n_kern = _busy_share(torch, few_steps)
+    pbusy, p_kern = _busy_share(torch, lambda: prefill(params, prompts))
+    say("serve", "torch.profiler: decode steps keep the card busy "
+        + (f"{100 * busy:.2f}% of the time, {n_kern / N_PROFILED:.0f} device "
+           f"operations per step" if busy is not None else "not measured (no device "
+                                                 "time in the trace)")
+        + "; prefill keeps it busy "
+        + (f"{100 * pbusy:.2f}% ({p_kern} device operations)"
+           if pbusy is not None
+           else "not measured"))
+    del small
+
+    # the same prefill with the kernels' plain versions on the card
+    plain = {"flash_attention": fa.flash_attention_plain,
+             "ssd_scan": lambda *a, **k: ssd.ssd_scan_plain(*a, **k)}
+
+    def run(p, c, use_plain):
+        orig_p = _swap(ops, plain) if use_plain else None
+        try:
+            ops.reset_launch_counts()
+            out = make_prefill_step(c)(p, prompts)
+            torch.cuda.synchronize()
+            n = sum(ops.launch_counts.values())
+        finally:
+            if orig_p:
+                _swap(ops, orig_p)
+        check(n == (0 if use_plain else n_attn + n_mamba), f"{n} launches "
+              f"in a {'plain' if use_plain else 'kernel'} prefill")
+        return out
+
+    logits_p = run(params, cfg, True)
+    e_bf = _normwise(logits, logits_p)
+    ties = _near_ties(logits, logits_p)
+    del logits_p
+
+    # float32: the same weights cast; kernels vs plain, prefill vs decode
+    cfg32 = cfg.scaled(dtype="float32")
+    params32 = tr.tree_map(lambda t: t.float(), params)
+    l32_k = run(params32, cfg32, False)
+    l32_p = run(params32, cfg32, True)
+    e_32 = _normwise(l32_k, l32_p)
+    ties32 = _near_ties(l32_k, l32_p)
+    del l32_p
+    step32 = make_decode_step(cfg32)
+    cache32 = tr.init_cache(cfg32, B, max_seq=N_DECODE_F32 + 1, device=CARD)
+    dec32 = torch.cat([step32(params32, cache32, prompts[:, i:i + 1],
+                              torch.full((B,), i, dtype=torch.int32,
+                                         device=dev))[0]
+                       for i in range(N_DECODE_F32)], dim=1)
+    del params32, cache32
+    e_pd32 = _normwise(dec32, l32_k[:, :N_DECODE_F32])
+
+    lp, ld = logits[:, -1], res.prompt_logits[:, 0]
+    e_pd = _normwise(ld, lp)
+    e_pre = _normwise(lp, l32_k[:, -1])
+    e_dec = _normwise(ld, l32_k[:, -1])
+    same_next = int((lp.argmax(-1) == ld.argmax(-1)).sum())
+    agree = float((logits.argmax(-1) == l32_k.argmax(-1)).float().mean())
+    say("serve", f"float32 (weights cast): prefill with kernels vs plain "
+        f"versions normwise err {e_32:.3e}, greedy tokens differ at "
+        f"{len(ties32)} of {B * P} positions; decode steps vs prefill over "
+        f"the first {N_DECODE_F32} positions {e_pd32:.3e} (tolerance "
+        f"{TOL_F32} each: only the order of float32 sums differs)")
+    check(e_32 <= TOL_F32, f"f32 kernel vs plain err {e_32:.3e}")
+    _check_ties(ties32, "f32 kernel vs plain")
+    check(e_pd32 <= TOL_F32, f"f32 prefill vs decode err {e_pd32:.3e}")
+    say("serve", f"bfloat16: prefill vs decode loop at position {P - 1} "
+        f"normwise err {e_pd:.3e}, greedy next token equal for "
+        f"{same_next}/{B}; against the float32 prefill the bfloat16 prefill "
+        f"is off by {e_pre:.3e} and the decode loop by {e_dec:.3e}; prefill "
+        f"with kernels vs plain versions {e_bf:.3e}, greedy next tokens "
+        f"differ at {len(ties)} of {B * P} positions"
+        + (" (" + ", ".join(f"{ix} gap {g:.2e} vs err {e:.2e}"
+                            for ix, g, e in ties[:6]) + ")" if ties else "")
+        + f"; bfloat16 greedy tokens agree with float32 at "
+        f"{100 * agree:.2f}% of positions (tolerance {TOL_BF16}: see "
+        f"TOL_BF16)")
+    check(e_pd <= TOL_BF16, f"bf16 prefill vs decode err {e_pd:.3e}")
+    check(e_bf <= TOL_BF16, f"bf16 kernel vs plain err {e_bf:.3e}")
+    _check_ties(ties, "bf16 kernel vs plain")
+    if ties:
+        say("serve", "each differing position is a near-tie: the plain "
+            "logits of the two picks lie within twice the bf16 error there")
+    return {"prefill": prefill_launches, "serve": serve_launches,
+            "prefill_s": prefill_s, "step_ms": step_ms, "n_attn": n_attn}
+
+
+# ------------------------------------------------------ model kernels (5)
+def _allclose(torch, got, want, tol) -> float:
+    """max |got - want|, after checking |got - want| <= tol (1 + |want|)."""
+    d = (got.float() - want.float()).abs()
+    ok = bool((d <= tol * (1 + want.float().abs())).all())
+    err = float(d.max()) if d.numel() else 0.0
+    check(ok, f"max abs err {err:.3e} beyond tolerance {tol}")
+    return err
+
+
+def _rate(torch, dtype):
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+
+
+def _flash_pairs(Sq, Sk, causal, window) -> int:
+    """Visible (query, key) pairs of one head."""
+    if not causal:
+        return Sq * Sk
+    n = 0
+    for i in range(Sq):
+        pos = i + Sk - Sq
+        lo = 0 if window is None else max(0, pos - window + 1)
+        n += max(0, min(pos, Sk - 1) - lo + 1)
+    return n
+
+
+def phase_model_kernels(torch, recorded, launches):
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = torch.device(CARD)
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rnd = lambda *shape, dtype=torch.float32, scale=1.0: (
+        torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    attn_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+    # ---- edge cases, float32 and bfloat16
+    n_edge = 0
+    for dt in (torch.float32, torch.bfloat16):
+        for B, Sq, Sk, Hq, Hkv, D, Dv, causal, window, cap in (
+                (2, 96, 96, 8, 2, 32, 32, True, None, None),
+                (1, 256, 256, 4, 1, 64, 64, True, 64, None),
+                (1, 128, 128, 2, 2, 64, 64, True, None, 50.0),
+                (2, 64, 64, 4, 2, 48, 32, False, None, None),
+                (1, 40, 150, 4, 2, 80, 80, True, 70, 30.0),
+                (1, 64, 64, 2, 1, 256, 256, True, None, None)):
+            q, k, v = rnd(B, Sq, Hq, D, dtype=dt), rnd(B, Sk, Hkv, D, dtype=dt), \
+                rnd(B, Sk, Hkv, Dv, dtype=dt)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            _allclose(torch, fa.flash_attention_kernel(q, k, v, **kw),
+                      fa.flash_attention_plain(q, k, v, **kw), attn_tol[dt])
+            n_edge += 1
+        for B, S, Hq, Hkv, D, window, cap in (
+                (2, 256, 8, 2, 64, None, None), (1, 512, 4, 1, 128, None, None),
+                (3, 200, 8, 8, 32, 64, None), (2, 100, 12, 2, 80, 30, 50.0)):
+            q, k, v = rnd(B, Hq, D, dtype=dt), rnd(B, S, Hkv, D, dtype=dt), \
+                rnd(B, S, Hkv, D, dtype=dt)
+            lens = torch.randint(window or 1, S + 1, (B,), generator=g,
+                                 device=dev, dtype=torch.int32)
+            lens[0] = S
+            kw = dict(window=window, softcap=cap)
+            _allclose(torch, da.decode_attention_kernel(q, k, v, lens, **kw),
+                      da.decode_attention_plain(q, k, v, lens, **kw),
+                      attn_tol[dt])
+            n_edge += 1
+        for b, s, h, p, grp, n, chunk, skip in (
+                (2, 48, 4, 16, 2, 8, 16, True), (1, 100, 3, 8, 1, 8, 32, True),
+                (2, 300, 4, 64, 1, 64, 128, True),
+                (1, 256, 2, 64, 1, 128, 128, False)):
+            x = rnd(b, s, h, p, dtype=dt)
+            Bm, Cm = rnd(b, s, grp, n, dtype=dt, scale=0.5), \
+                rnd(b, s, grp, n, dtype=dt, scale=0.5)
+            dtv = F.softplus(rnd(b, s, h)) * 0.5
+            A = -torch.exp(rnd(h, scale=0.3))
+            Dk = torch.ones(h, device=dev) if skip else None
+            y_k, st_k = ssd.ssd_scan_kernel(x, dtv, A, Bm, Cm, Dk, chunk=chunk)
+            y_p, st_p = ssd.ssd_scan_plain(x, dtv, A, Bm, Cm, Dk, chunk=chunk)
+            _allclose(torch, y_k, y_p, 1e-4 if dt == torch.float32 else 2e-2)
+            _allclose(torch, st_k, st_p, 1e-4)
+            n_edge += 1
+    torch.cuda.synchronize()
+    say("kernels", f"K5/K6/K7 edge cases: {n_edge} shapes (GQA, MQA, windows, "
+        f"softcaps, Dv != D, heads of 80 and 256, Sq < Sk, ragged kv_len, "
+        f"grouped B/C, tail chunks, n = 128, no skip) in float32 and "
+        f"bfloat16, all within tolerance of the plain versions")
+
+    rows = []
+    # ---- K5 at the prefill's shape
+    (q, k, v), kw = recorded["flash_attention"]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    out = fa.flash_attention_kernel(q, k, v, **kw)
+    err = _allclose(torch, out, fa.flash_attention_plain(q, k, v, **kw),
+                    attn_tol[q.dtype])
+    ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, **kw), torch)
+    plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), torch)
+    lib = None
+    if kw.get("window") is None and kw.get("softcap") is None and Sq == Sk:
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=kw.get("causal", True),
+            enable_gqa=Hq != Hkv)
+        _allclose(torch, sdpa().transpose(1, 2), out, attn_tol[q.dtype])
+        lib = cuda_ms(sdpa, torch)
+    el = q.element_size()
+    need = {"q": q.numel() * el, "k": k.numel() * el, "v": v.numel() * el,
+            "o": out.numel() * el}
+    pairs = _flash_pairs(Sq, Sk, kw.get("causal", True), kw.get("window"))
+    n_ops = float(B * Hq * pairs * (2 * D + 2 * Dv))
+    b5, by5 = bound_ms(float(sum(need.values())), n_ops, _rate(torch, q.dtype))
+    say("kernels", f"K5 flash_attention at the prefill's shape q "
+        f"{tuple(q.shape)} k/v {tuple(k.shape)} {str(q.dtype)[6:]} {kw}: max "
+        f"abs err {err:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"scaled_dot_product_attention {lib if lib is None else f'{lib:.4f}'}"
+        f" ms, bound {b5:.5f} ms ({by5}; {_counts(need)} bytes, "
+        f"{n_ops:.0f} ops)")
+    rows.append(("flash_attention", err, ms, plain, b5, by5, lib))
+
+    # ---- K6 at the last decode step's shape
+    (q, k, v, kv_len), kw = recorded["decode_attention"]
+    lens = kv_len.to(torch.int32).contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    B, Hq, D = q.shape
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    out = da.decode_attention_kernel(q, k, v, lens, **kw)
+    err = _allclose(torch, out, da.decode_attention_plain(q, k, v, lens, **kw),
+                    attn_tol[q.dtype])
+    ms = cuda_ms(lambda: da.decode_attention_kernel(q, k, v, lens, **kw), torch)
+    plain = cuda_ms(lambda: da.decode_attention_plain(q, k, v, lens, **kw),
+                    torch)
+    lib = None
+    if kw.get("window") is None and kw.get("softcap") is None:
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv)
+        _allclose(torch, sdpa()[:, :, 0], out, attn_tol[q.dtype])
+        lib = cuda_ms(sdpa, torch)
+    el = q.element_size()
+    visible = int(lens.clamp(0, S).sum())
+    need = {"q": q.numel() * el, "k/v rows": visible * Hkv * (D + Dv) * el,
+            "kv_len": 4 * B, "o": out.numel() * el}
+    n_ops = float(visible * Hq * (2 * D + 2 * Dv))
+    b6, by6 = bound_ms(float(sum(need.values())), n_ops, _rate(torch, q.dtype))
+    say("kernels", f"K6 decode_attention at the last serve step's shape q "
+        f"{tuple(q.shape)} cache {tuple(k.shape)} kv_len {lens.tolist()}: max "
+        f"abs err {err:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"scaled_dot_product_attention with a kv_len mask "
+        f"{lib if lib is None else f'{lib:.4f}'} ms, bound {b6:.5f} ms "
+        f"({by6}; {_counts(need)} bytes, {n_ops:.0f} ops)")
+    rows.append(("decode_attention", err, ms, plain, b6, by6, lib))
+
+    # ---- K7 at the prefill's shape
+    (x, dtv, A, Bm, Cm, Dk), kw = recorded["ssd_scan"]
+    f32 = lambda t: t.float().contiguous()
+    x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dtv, A, Dk = f32(dtv), f32(A), f32(Dk)
+    chunk = kw.get("chunk", 128)
+    y_k, st_k = ssd.ssd_scan_kernel(x, dtv, A, Bm, Cm, Dk, chunk=chunk)
+    y_p, st_p = ssd.ssd_scan_plain(x, dtv, A, Bm, Cm, Dk, chunk=chunk)
+    err = _allclose(torch, y_k, y_p, 2e-2 if x.dtype == torch.bfloat16
+                    else 1e-4)
+    err_st = _allclose(torch, st_k, st_p, 1e-4)
+    ms = cuda_ms(lambda: ssd.ssd_scan_kernel(x, dtv, A, Bm, Cm, Dk,
+                                             chunk=chunk), torch)
+    plain = cuda_ms(lambda: ssd.ssd_scan_plain(x, dtv, A, Bm, Cm, Dk,
+                                               chunk=chunk), torch, iters=5)
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    el = x.element_size()
+    need = {"x": x.numel() * el, "dt": dtv.numel() * 4, "A, D": 8 * h,
+            "B, C": 2 * Bm.numel() * el, "y": y_k.numel() * el,
+            "state": st_k.numel() * 4}
+    n_ops = 0.0
+    for c0 in range(0, s, chunk):
+        L = min(chunk, s - c0)
+        tri = L * (L + 1) // 2
+        n_ops += tri * 2 * n + tri * 2 * p + L * p * 2 * n + L * p * n * 2
+    n_ops *= b * h
+    b7, by7 = bound_ms(float(sum(need.values())), n_ops, _rate(torch, x.dtype))
+    say("kernels", f"K7 ssd_scan at the prefill's shape x {tuple(x.shape)} "
+        f"B/C {tuple(Bm.shape)} chunk {chunk}: max abs err y {err:.3e}, "
+        f"state {err_st:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, no "
+        f"single PyTorch call computes it; bound {b7:.5f} ms ({by7}; "
+        f"{_counts(need)} bytes, {n_ops:.0f} ops)")
+    rows.append(("ssd_scan", err, ms, plain, b7, by7, None))
+
+    k5, k6, k7 = (r[2] for r in rows)
+    pre = (launches["prefill"]["flash_attention"] * k5
+           + launches["prefill"]["ssd_scan"] * k7) * 1e-3
+    say("kernels", f"shares: K5 and K7 take {pre:.4f} s of the "
+        f"{launches['prefill_s']:.4f} s prefill "
+        f"({100 * pre / launches['prefill_s']:.1f}%); K6 takes "
+        f"{launches['n_attn'] * k6:.4f} ms of a {launches['step_ms']:.3f} "
+        f"ms decode step at its last, longest cache "
+        f"({100 * launches['n_attn'] * k6 / launches['step_ms']:.2f}%)")
+    out_rows = []
+    for name, err, ms, plain, b, by, lib in rows:
+        n = launches["prefill" if name != "decode_attention" else "serve"]
+        out_rows.append({"name": name, "route": "cuda",
+                         "source": SOURCES[name][0],
+                         "replaces": SOURCES[name][1],
+                         "launches": int(n.get(name, 0)),
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "bound_ms": b, "bound_by": by, "library_ms": lib})
+    return out_rows
+
+
 def main() -> int:
     import torch
     device, smi_line = phase_device(torch)
@@ -480,7 +966,10 @@ def main() -> int:
     table, cfgs, cuda_runs, launches = phase_main(
         torch, parts, rows, pred, total_gb, recorded)
     phase_cpu(torch, parts, rows, table, cfgs, cuda_runs)
+    served = {}
+    serve_launches = phase_serve(torch, served)
     kernels = phase_kernels(torch, recorded, launches)
+    kernels += phase_model_kernels(torch, served, serve_launches)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -1,11 +1,13 @@
-"""SCOPe batch placement on PyTorch and CUDA.
+"""SCOPe batch placement and model serving on PyTorch and CUDA.
 
-A port of ``repro``'s placement pipeline (G-PART -> COMPREDICT ->
-OPTASSIGN -> billing) that runs on one NVIDIA GPU. The package mirrors
-``repro``'s layout (``core/``, ``data/``, ``storage/``, ``kernels/``) and
-takes and returns numpy at module boundaries, so both packages can be fed
-the same inputs. The fractional-overlap matrix and the batched
-weighted-entropy features run as hand-written CUDA kernels
-(``kernels/csrc``); every entry point runs on the card unless the caller
-passes ``device="cpu"``.
+A port of two paths of ``repro`` to one NVIDIA GPU: the placement
+pipeline (G-PART -> COMPREDICT -> OPTASSIGN -> billing, ``core/``) and the
+model zoo's serving path (``models/``, ``serving/``, ``launch/serve.py``).
+The package mirrors ``repro``'s layout; the placement modules take and
+return numpy at their boundaries, the model modules tensors, so both
+packages can be fed the same inputs. The overlap matrix, the batched
+weighted-entropy features, flash attention, decode attention and the
+Mamba2 SSD scan run as hand-written CUDA kernels (``kernels/csrc``);
+every entry point runs on the card unless the caller passes
+``device="cpu"``.
 """

@@ -1,4 +1,6 @@
-"""Carry a fitted COMPREDICT predictor across as plain numpy arrays.
+"""Carry learned state across as plain numpy arrays: a fitted COMPREDICT
+predictor (:func:`predictor_from_arrays`) and model weights
+(:func:`model_params_from_arrays`).
 
 The placement path's only learned state is the fitted
 :class:`~repro_torch.core.compredict.CompressionPredictor`: one regression
@@ -17,12 +19,17 @@ so differ from fit to fit) can be used here unchanged. Each entry of
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Any, Mapping, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import ml
 from repro_torch.core.compredict import CompressionPredictor
+from repro_torch.device import DeviceLike, resolve
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.mamba2 import FLOAT32_PARAMS
 
 Key = Tuple[str, str, str]          # (scheme, layout, 'ratio' | 'dspeed')
 
@@ -64,3 +71,27 @@ def predictor_from_arrays(arrays: Mapping[Key, Mapping[str, object]], *,
     pred.models = {tuple(k): model_from_arrays(a) for k, a in arrays.items()}
     return pred
 
+
+def model_params_from_arrays(tree: Any, cfg: ModelConfig,
+                             device: DeviceLike = "cuda") -> Any:
+    """Model parameters for :mod:`repro_torch.models.transformer` from a
+    tree of nested dicts and tuples of float32 numpy arrays, laid out as
+    ``repro``'s ``init_params`` pytree (stages as tuples of per-unit dicts
+    stacked on the repeats axis, ``{}`` for a shared block's slot). Leaves
+    are cast to ``cfg.dtype``, except the Mamba2 leaves that are float32 in
+    every config (:data:`repro_torch.models.mamba2.FLOAT32_PARAMS`)."""
+    dev = resolve(device)
+    dt = dtype_of(cfg.dtype)
+
+    def conv(node, name=""):
+        if isinstance(node, Mapping):
+            return {k: conv(v, k) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(conv(v, name) for v in node)
+        arr = np.asarray(node)
+        if arr.dtype != np.float32:
+            raise TypeError(f"leaf {name!r}: expected float32, got {arr.dtype}")
+        t = torch.as_tensor(arr, device=dev)
+        return t if name in FLOAT32_PARAMS else t.to(dt)
+
+    return conv(tree)

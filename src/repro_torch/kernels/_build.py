@@ -1,9 +1,11 @@
 """Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers, so
-it compiles in seconds into ``lib<name>-<hash>.so`` under the build
-directory (``<repo>/build/repro_torch`` unless ``REPRO_TORCH_BUILD_DIR``
-says otherwise). The hash is of the source, so an edited source is rebuilt
+Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers;
+``nvcc`` builds it into ``lib<name>-<hash>.so`` (seconds for the placement
+kernels, about half a minute for the attention kernels, which instantiate
+one kernel per dtype and head-width class) under the build directory
+(``<repo>/build/repro_torch`` unless ``REPRO_TORCH_BUILD_DIR`` says
+otherwise). The hash is of the source, so an edited source is rebuilt
 on its next use. Libraries are loaded with ``ctypes``; pointers and the
 stream are passed as ``ctypes.c_void_p``, and every C entry returns
 ``cudaGetLastError()`` for the wrapper to check.
@@ -25,15 +27,21 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("overlap", "entropy_features")
+SOURCES = ("overlap", "entropy_features", "flash_attention",
+           "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel name -> launches since the last reset
 launch_counts: "collections.Counter[str]" = collections.Counter()
-#: source name -> nvcc's stderr (the ``-Xptxas -v`` register/smem report)
+#: source name -> nvcc's output (the ``-Xptxas -v`` register/smem report)
 build_log: Dict[str, str] = {}
+
+#: the ``dtype`` argument of the attention and SSD entries
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -81,20 +89,29 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        log = tmp.with_suffix(".log").open("w+")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True),
-                       tmp, lib, time.perf_counter())
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT),
+                       log, tmp, lib, time.perf_counter())
     failed = []
-    for name, (proc, tmp, lib, t0) in procs.items():
-        stdout, stderr = proc.communicate()
-        secs[name] = time.perf_counter() - t0
-        build_log[name] = stdout + stderr
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n"
-                          f"{stdout}{stderr}")
-            continue
-        os.replace(tmp, lib)
+    pending = dict(procs)
+    while pending:                  # poll, so each build is timed alone
+        for name, (proc, log, tmp, lib, t0) in list(pending.items()):
+            if proc.poll() is None:
+                continue
+            secs[name] = time.perf_counter() - t0
+            del pending[name]
+            with log:
+                log.seek(0)
+                build_log[name] = log.read()
+            os.remove(log.name)
+            if proc.returncode != 0:
+                failed.append(f"{name}: nvcc exited {proc.returncode}\n"
+                              f"{build_log[name]}")
+                continue
+            os.replace(tmp, lib)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return secs

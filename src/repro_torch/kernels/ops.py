@@ -1,28 +1,37 @@
 """Kernel API with dispatch by device.
 
-Each function takes numpy arrays or tensors, moves them to ``device`` (the
-card unless the caller passes ``device="cpu"``), and runs the hand-written
-CUDA kernel when that device is CUDA, or the kernel's plain tensor-op
-version when it is the CPU. Asking for CUDA where there is none raises
-(:func:`repro_torch.device.resolve`); a CUDA launch that fails raises too.
-There is no fallback from one to the other.
+The placement kernels (:func:`fractional_overlap_matrix`,
+:func:`weighted_entropy_features`) take numpy arrays or tensors and move
+them to ``device`` (the card unless the caller passes ``device="cpu"``).
+The model kernels (:func:`flash_attention`, :func:`decode_attention`,
+:func:`ssd_scan`) take tensors and run where the tensors lie. Either way a
+CUDA device runs the hand-written CUDA kernel and the CPU runs the
+kernel's plain tensor-op version. Asking for CUDA where there is none
+raises (:func:`repro_torch.device.resolve`); a CUDA launch that fails
+raises too. There is no fallback from one to the other. :func:`ssd_step`
+is plain tensor ops on every device, as in the JAX package.
 
 ``launch_counts`` (re-exported from :mod:`repro_torch.kernels._build`)
-counts kernel launches by name: ``"overlap"`` and ``"entropy_features"``.
+counts kernel launches by name: ``"overlap"``, ``"entropy_features"``,
+``"flash_attention"``, ``"decode_attention"`` and ``"ssd_scan"``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import entropy_features as _ef
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import overlap as _ov
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 
 __all__ = ["fractional_overlap_matrix", "weighted_entropy_features",
+           "flash_attention", "decode_attention", "ssd_scan", "ssd_step",
            "launch_counts", "reset_launch_counts"]
 
 
@@ -60,3 +69,60 @@ def weighted_entropy_features(codes, n_valid, n_rows, n_cols, lengths, *,
     if dev.type == "cuda":
         return _ef.weighted_entropy_features_kernel(*args, n_buckets=n_buckets)
     return _ef.weighted_entropy_features_plain(*args, n_buckets=n_buckets)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor (the
+    plain version runs); anything else raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"tensors must be on 'cuda' or 'cpu', got {t.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """(B, Sq, Hq, Dv) attention of q (B, Sq, Hq, D) over k/v (B, Sk, Hkv,
+    D/Dv) (see :mod:`repro_torch.kernels.flash_attention`)."""
+    if _on_card(q):
+        return _fa.flash_attention_kernel(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, softcap=softcap)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, *, window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """(B, Hq, Dv) attention of one query per sequence over its cache
+    prefix of ``kv_len`` rows (see
+    :mod:`repro_torch.kernels.decode_attention`)."""
+    if _on_card(q):
+        return _da.decode_attention_kernel(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            kv_len.to(torch.int32).contiguous(), window=window,
+            softcap=softcap)
+    return _da.decode_attention_plain(q, k, v, kv_len, window=window,
+                                      softcap=softcap)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor,
+             D: Optional[torch.Tensor] = None, *, chunk: int = 128,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan: (y (b, s, h, p), final state (b, h, p, n) float32)
+    (see :mod:`repro_torch.kernels.ssd_scan`)."""
+    if _on_card(x):
+        f32 = lambda t: t.float().contiguous()
+        return _ssd.ssd_scan_kernel(
+            x.contiguous(), f32(dt), f32(A), B.contiguous(), C.contiguous(),
+            None if D is None else f32(D), chunk=chunk)
+    return _ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
+
+
+def ssd_step(state, x_t, dt_t, A, B_t, C_t, D=None):
+    """One Mamba2 decode step (plain tensor ops on every device)."""
+    return _ssd.ssd_step(state, x_t, dt_t, A, B_t, C_t, D)

@@ -1,0 +1,163 @@
+"""Mamba2 SSD chunked scan: CUDA kernel wrapper + plain version, and the
+single-step recurrence that decode uses.
+
+Port of ``repro/kernels/ssd_scan.py`` and of ``ssd_scan_ref`` /
+``ssd_step_ref`` in ``repro/kernels/ref.py``. Shapes:
+
+    x  (b, s, h, p)   per-head inputs             (model dtype)
+    dt (b, s, h)      softplus-ed step sizes > 0  (float32)
+    A  (h,)           negative decay rates        (float32)
+    B  (b, s, g, n)   input maps, head h reads group h // (h / g)
+    C  (b, s, g, n)   output maps
+    D  (h,) or None   skip connection             (float32)
+
+and the scan returns (y (b, s, h, p) in x's dtype, final state
+(b, h, p, n) float32); D is added before the cast.
+
+* :func:`ssd_scan_kernel` launches ``csrc/ssd_scan.cu`` on CUDA tensors
+  (it raises for anything else);
+* :func:`ssd_scan_plain` is the chunked algorithm in tensor ops, used for
+  CPU tensors and as the kernel's yardstick on the card;
+* :func:`ssd_step` is one decode step, plain tensor ops on any device (the
+  JAX package has no kernel for it either).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import check_operands
+
+_MAX_SMEM = 227 * 1024          # per-block shared memory on Hopper
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor,
+                   D: Optional[torch.Tensor] = None, *, chunk: int = 128,
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    pad = (-s) % chunk
+    if pad:     # zero steps (dt = 0) neither decay nor feed the state
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    S = x.shape[1]
+    nc = S // chunk
+    xq = x.reshape(b, nc, chunk, h, p).float()
+    dtq = dt.reshape(b, nc, chunk, h).float()
+    Bq = B.reshape(b, nc, chunk, g, n).float().repeat_interleave(rep, dim=3)
+    Cq = C.reshape(b, nc, chunk, g, n).float().repeat_interleave(rep, dim=3)
+    A32 = A.float()
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=x.device).tril()[None, :, :, None]
+    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xb, dtb, Bh, Ch = xq[:, c], dtq[:, c], Bq[:, c], Cq[:, c]
+        cum = torch.cumsum(dtb * A32, dim=1)                  # (b,q,h)
+        li = cum[:, :, None, :] - cum[:, None, :, :]          # (b,q,q,h)
+        # exp(li) overflows above the diagonal; where() keeps it out
+        Lmat = torch.where(causal, torch.exp(li), torch.zeros((), device=x.device))
+        cb = torch.einsum("bihn,bjhn->bijh", Ch, Bh)
+        w = cb * Lmat * dtb[:, None, :, :]
+        y = torch.einsum("bijh,bjhp->bihp", w, xb)
+        y = y + torch.einsum("bihn,bhpn->bihp", Ch, state) * torch.exp(cum)[..., None]
+        decay = torch.exp(cum[:, -1:, :] - cum)              # (b,q,h)
+        contrib = torch.einsum("bjh,bjhp,bjhn->bhpn", decay * dtb, xb, Bh)
+        state = torch.exp(cum[:, -1, :])[..., None, None] * state + contrib
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(b, S, h, p)[:, :s]
+    if D is not None:
+        y = y + x[:, :s].float() * D.float()[None, None, :, None]
+    return y.to(x.dtype), state
+
+
+def ssd_step(state: torch.Tensor, x_t: torch.Tensor, dt_t: torch.Tensor,
+             A: torch.Tensor, B_t: torch.Tensor, C_t: torch.Tensor,
+             D: Optional[torch.Tensor] = None,
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step. state (b, h, p, n) float32; x_t (b, h, p);
+    dt_t (b, h); B_t, C_t (b, g, n). Returns (y_t (b, h, p) in x_t's dtype,
+    new state)."""
+    h = state.shape[1]
+    rep = h // B_t.shape[1]
+    Bh = B_t.float().repeat_interleave(rep, dim=1)            # (b,h,n)
+    Ch = C_t.float().repeat_interleave(rep, dim=1)
+    dA = torch.exp(dt_t.float() * A.float()[None, :])
+    state_new = state * dA[..., None, None] + \
+        (dt_t.float()[..., None, None] * x_t.float()[..., None]
+         * Bh[:, :, None, :])
+    y = torch.einsum("bhpn,bhn->bhp", state_new, Ch)
+    if D is not None:
+        y = y + x_t.float() * D.float()[None, :, None]
+    return y.to(x_t.dtype), state_new
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # x, dt, A, B, C, D, y, state; b, s, h, p, g, n, chunk, dtype; stream
+        lib.ssd_scan_launch.argtypes = [p] * 8 + [i] * 8 + [p]
+        lib.ssd_scan_launch.restype = ctypes.c_int
+        lib.ssd_scan_smem_bytes.argtypes = [i, i, i]
+        lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
+        lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_scan_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                    B: torch.Tensor, C: torch.Tensor,
+                    D: Optional[torch.Tensor] = None, *, chunk: int = 128,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/ssd_scan.cu``: (y (b, s, h, p) in x's dtype, final
+    state (b, h, p, n) float32).
+
+    x, B, C contiguous and of one float dtype; dt, A, D contiguous
+    float32; all on one CUDA device; h a multiple of g.
+    """
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"SSD scan kernel needs CUDA tensors, got {dev}")
+    check_operands(("x", "B", "C"), (x, B, C), (4, 4, 4), dev, x.dtype)
+    f32 = [("dt", dt, 3), ("A", A, 1)] + ([("D", D, 1)] if D is not None else [])
+    check_operands(*zip(*f32), dev, torch.float32)
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if dt.shape != (b, s, h) or A.shape != (h,) or B.shape != (b, s, g, n) \
+            or C.shape != B.shape or (D is not None and D.shape != (h,)):
+        raise ValueError(f"shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, B {tuple(B.shape)}, C "
+                         f"{tuple(C.shape)} do not fit together")
+    if g == 0 or h % g:
+        raise ValueError(f"{h} heads are not a multiple of {g} groups")
+    lib = _lib()
+    smem = lib.ssd_scan_smem_bytes(chunk, p, n)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"chunk {chunk}, p {p}, n {n} need {smem} bytes of "
+                         f"shared memory, more than {_MAX_SMEM}")
+    y = torch.empty_like(x)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    if b * h == 0:
+        return y, state
+    rc = lib.ssd_scan_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        D.data_ptr() if D is not None else None, y.data_ptr(),
+        state.data_ptr(), b, s, h, p, g, n, chunk,
+        _build.DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"SSD scan kernel launch failed: "
+                           f"{lib.ssd_scan_error_string(rc).decode()}")
+    _build.launch_counts["ssd_scan"] += 1
+    return y, state

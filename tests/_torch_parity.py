@@ -3,7 +3,8 @@
 The port may not import ``repro``, so what crosses between the packages
 goes through here: the flattener that turns a fitted ``repro`` COMPREDICT
 predictor into the plain arrays :func:`repro_torch.convert.predictor_from_arrays`
-takes.
+takes, and the one that turns ``repro`` model parameters into the float32
+numpy tree :func:`repro_torch.convert.model_params_from_arrays` takes.
 """
 
 from typing import Dict, List
@@ -51,3 +52,31 @@ def predictor_arrays(pred) -> Dict[tuple, Dict[str, object]]:
     """``{(scheme, layout, target): model arrays}`` of a fitted ``repro``
     ``CompressionPredictor``."""
     return {k: model_arrays(m) for k, m in pred.models.items()}
+
+
+def model_param_arrays(params):
+    """``repro`` ``init_params`` pytree -> the same nesting of dicts and
+    tuples with float32 numpy leaves. bfloat16 leaves are cast to float32
+    first: numpy holds them as ``ml_dtypes.bfloat16``, which
+    ``torch.as_tensor`` refuses."""
+    if isinstance(params, dict):
+        return {k: model_param_arrays(v) for k, v in params.items()}
+    if isinstance(params, (tuple, list)):
+        return tuple(model_param_arrays(v) for v in params)
+    return np.asarray(params).astype(np.float32)
+
+
+def leaf_shapes(tree, prefix=""):
+    """``{path: shape}`` of every leaf of a tree of dicts and tuples (numpy
+    arrays, jax arrays or tensors)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(leaf_shapes(v, f"{prefix}/{k}"))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(leaf_shapes(v, f"{prefix}/{i}"))
+        return out
+    return {prefix: tuple(tree.shape)}

@@ -22,10 +22,20 @@ from repro_torch.core import scope as tscope
 from repro_torch.core.costs import azure_table
 from repro_torch.data import tpch
 from repro_torch.data.tables import Table
+from repro_torch.configs.registry import get_config
+from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import overlap as tov
+from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.launch.serve import serve
+from repro_torch.models import transformer as ttr
+from repro_torch.serving.decode import make_decode_step, make_prefill_step
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# attention: the JAX suite's kernel tolerances; SSD: its 1e-4 (f32 state)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 pytestmark = pytest.mark.cuda
 
 
@@ -165,3 +175,112 @@ def test_pipeline_on_card_matches_cpu(card):
         assert b.total_cents == pytest.approx(a.total_cents, rel=1e-6), name
     assert ops.launch_counts["overlap"] > 0
     assert ops.launch_counts["entropy_features"] > 0
+
+
+def _randn(seed, *shapes, dtype=torch.float32, device="cpu", scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal(s).astype(np.float32) * scale)
+            .to(device=device, dtype=dtype) for s in shapes]
+
+
+def _assert_close(got, want, tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,Dv,causal,window,softcap", [
+    (1, 128, 128, 4, 4, 64, 64, True, None, None),     # MHA
+    (2, 96, 96, 8, 2, 32, 32, True, None, None),       # GQA, ragged tile
+    (1, 256, 256, 4, 1, 64, 64, True, 64, None),       # MQA + window
+    (1, 128, 128, 2, 2, 64, 64, True, None, 50.0),     # softcap
+    (2, 64, 64, 4, 2, 48, 32, False, None, None),      # non-causal, Dv != D
+    (2, 200, 200, 8, 8, 80, 80, True, None, None),     # zamba2's 80 wide
+    (1, 40, 150, 4, 2, 80, 80, True, 70, 30.0),        # queries at the end
+    (1, 64, 64, 2, 1, 256, 256, True, None, None),     # widest heads
+])
+def test_flash_kernel_matches_plain(card, B, Sq, Sk, Hq, Hkv, D, Dv, causal,
+                                    window, softcap, dtype):
+    q, k, v = _randn(11, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv),
+                     dtype=dtype, device=card)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == (B, Sq, Hq, Dv)
+    _assert_close(out, tfa.flash_attention_plain(q, k, v, **kw),
+                  ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,softcap", [
+    (2, 256, 8, 2, 64, None, None),
+    (1, 512, 4, 1, 128, None, None),     # MQA long cache
+    (3, 200, 8, 8, 32, 64, None),        # MHA + window, ragged lengths
+    (4, 545, 32, 32, 80, None, None),    # zamba2's cache at full width
+    (2, 100, 12, 2, 80, 30, 50.0),       # 6 heads per group, softcap
+])
+def test_decode_kernel_matches_plain(card, B, S, Hq, Hkv, D, window, softcap,
+                                     dtype):
+    q, k, v = _randn(12, (B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                     dtype=dtype, device=card)
+    lens = np.random.default_rng(0).integers(window or 1, S + 1, B)
+    lens[0] = S
+    kv_len = torch.as_tensor(lens, dtype=torch.int32, device=card)
+    kw = dict(window=window, softcap=softcap)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["decode_attention"] == 1
+    _assert_close(out, tda.decode_attention_plain(q, k, v, kv_len, **kw),
+                  ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,skip", [
+    (1, 64, 2, 8, 1, 16, 16, True),
+    (2, 48, 4, 16, 2, 8, 16, True),      # grouped B/C, non-multiple seq
+    (1, 100, 3, 8, 1, 8, 32, True),      # ragged tail chunk
+    (2, 300, 4, 64, 1, 64, 128, True),   # zamba2's widths, tail chunk
+    (1, 256, 2, 64, 1, 128, 128, False), # mamba2-780m's state, no skip
+])
+def test_ssd_kernel_matches_plain(card, b, s, h, p, g, n, chunk, skip, dtype):
+    rng = np.random.default_rng(13)
+    x, B, C = _randn(13, (b, s, h, p), (b, s, g, n), (b, s, g, n),
+                     dtype=dtype, device=card)
+    B, C = B * 0.5, C * 0.5
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    dt = f32(np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.5)
+    A = f32(-np.exp(rng.standard_normal(h) * 0.3))
+    D = f32(np.ones(h)) if skip else None
+    ops.reset_launch_counts()
+    y, st = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["ssd_scan"] == 1
+    y_p, st_p = tssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    _assert_close(y, y_p, SSD_TOL[dtype])
+    _assert_close(st, st_p, 1e-4)
+
+
+def test_zamba2_serving_on_card_matches_cpu(card):
+    """The smoke-size zamba2 in float32: the card's prefill logits and
+    greedy tokens equal the CPU's (plain versions), and each kernel ran."""
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    params = ttr.init_params(torch.Generator().manual_seed(0), cfg,
+                             device="cpu")
+    on_card = ttr.tree_map(lambda t: t.to(card), params)
+    prompts = torch.as_tensor(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 140)))
+    ops.reset_launch_counts()
+    logits = make_prefill_step(cfg)(on_card, prompts.to(card))
+    assert dict(ops.launch_counts) == {"flash_attention": 2, "ssd_scan": 12}
+    _assert_close(logits, make_prefill_step(cfg)(params, prompts), 1e-4)
+    runs = {}
+    for dev, p in (("cpu", params), (card, on_card)):
+        cache = ttr.init_cache(cfg, 2, 150, device=dev)
+        runs[str(dev)] = serve(make_decode_step(cfg), p, cache,
+                               prompts[:, :20].to(dev), 5)
+    assert torch.equal(runs["cuda"].tokens.cpu(), runs["cpu"].tokens)
+    assert ops.launch_counts["decode_attention"] == 2 * 24
