@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: SCOPe's placement
-path and zamba2-2.7b serving.
+path, zamba2-2.7b serving and zamba2-2.7b training.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -9,7 +9,7 @@ non-zero (with no result line):
 
 1. device   the card's name and count, and ``nvidia-smi``'s name and power
             limit; no card is a failure.
-2. build    all five kernels from ``src/repro_torch/kernels/csrc``, one
+2. build    all seven kernels from ``src/repro_torch/kernels/csrc``, one
             nvcc per source, all started together (``-Xptxas -v``
             register/shared-memory lines, build seconds).
 3. main     TPC-H SF0.1 (600,000 lineitem rows, 440 queries, 500 rows per
@@ -43,6 +43,22 @@ non-zero (with no result line):
             of kernel and plain prefills identical except where the plain
             logits of the two picks lie within twice the logits' error.
             This phase runs before phase 5, which uses the shapes it saw.
+7. train    zamba2-2.7b at full width and depth, bfloat16, random weights
+            from seed 0, ``TrainConfig(remat=True, compressed_grads=True)``
+            with default AdamW; 16 Zipf token shards of 32 x 513 in the
+            port's ``TieredStore``, ``TieredDataLoader`` batch 4 x 512; 5
+            steps through ``repro_torch.launch.train.train``, counts zeroed
+            before and read after each: K5 exactly 18, K7 exactly 108
+            (forward and remat's recompute) and K3 exactly 95 (one per
+            leaf) per step, every loss finite. Then torch.profiler over one
+            step (busy share, device time in K3, K5, K7); every gradient
+            finite and non-zero for each leaf reached only through K5 or
+            K7; a step with K3 held against its plain version on every
+            leaf (identical int8 and scales) and error feedback
+            ``deq + err_new`` against ``g + err_old`` (1e-6); in float32
+            with the stages cut to one repeat unit, the loss and gradients
+            through the kernels against those through the plain versions
+            (rel 1e-4 and normwise 1e-3). Runs after phase 6, before 5.
 5. kernels  each kernel against its plain version on the card, at the
             shapes the main and serve paths gave it (recorded during phases
             3 and 6) plus edge cases: K1 abs error <= 1e-5 and an identical
@@ -57,7 +73,13 @@ non-zero (with no result line):
             the bytes the function needs at 3.35 TB/s against its operations
             at the H100 SXM data-sheet rate for the inputs' type (67 TFLOP/s
             float32, 989 TFLOP/s bfloat16); each count is printed beside its
-            bound.
+            bound. K3 at the training step's largest leaf and at
+            1024 x 1024, plus the JAX suite's shapes, a zero block and .5
+            ties (identical int8 and scales); K4 at 1 MiB of random bytes
+            and a 4 MiB slice of the trained parameters, plus n = 1,
+            n < block, ragged n, an unaligned start, a constant payload
+            (exactly 0.0) and 2-, 4- and 256-symbol alphabets (identical
+            histograms, entropy within rel 1e-5).
 
 The script takes no arguments: the sizes are fixed. The last three lines
 are the kernel JSON line, the ``nvidia-smi`` line and
@@ -68,6 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -97,7 +120,11 @@ SOURCES = {"overlap": ("src/repro_torch/kernels/csrc/overlap.cu",
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:84"),
            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                        "src/repro/kernels/ssd_scan.py:97")}
+                        "src/repro/kernels/ssd_scan.py:97"),
+           "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",
+                          "src/repro/kernels/quant_pack.py:39"),
+           "byte_entropy": ("src/repro_torch/kernels/csrc/byte_entropy.cu",
+                            "src/repro/kernels/entropy_features.py:73")}
 
 
 def check(cond: bool, what: str) -> None:
@@ -536,9 +563,9 @@ def _check_ties(ties, what):
 
 
 def _busy_share(torch, fn):
-    """(device busy share, device operations: kernels, copies and fills)
-    of ``fn`` under torch.profiler; (None, None) when the trace holds no
-    device time."""
+    """(device busy share, device operations: kernels, copies and fills,
+    {operation name: device seconds}) of ``fn`` under torch.profiler;
+    (None, None, {}) when the trace holds no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -553,8 +580,11 @@ def _busy_share(torch, fn):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.device_time_total for e in dev) * 1e-6
     if busy <= 0:
-        return None, None
-    return busy / wall, len(dev)
+        return None, None, {}
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total * 1e-6
+    return busy / wall, len(dev), by_name
 
 
 def phase_serve(torch, recorded):
@@ -651,8 +681,8 @@ def phase_serve(torch, recorded):
                  torch.full((B,), i, dtype=torch.int32, device=dev))
 
     few_steps()
-    busy, n_kern = _busy_share(torch, few_steps)
-    pbusy, p_kern = _busy_share(torch, lambda: prefill(params, prompts))
+    busy, n_kern, _ = _busy_share(torch, few_steps)
+    pbusy, p_kern, _ = _busy_share(torch, lambda: prefill(params, prompts))
     say("serve", "torch.profiler: decode steps keep the card busy "
         + (f"{100 * busy:.2f}% of the time, {n_kern / N_PROFILED:.0f} device "
            f"operations per step" if busy is not None else "not measured (no device "
@@ -950,6 +980,368 @@ def phase_model_kernels(torch, recorded, launches):
     return out_rows
 
 
+# ------------------------------------------------------------- train phase
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
+TOL_LOSS_F32 = 1e-4         # kernel vs plain loss, float32, relative
+TOL_GRAD_F32 = 1e-3         # kernel vs plain gradients, float32, normwise
+TOL_EF = 1e-6               # deq + err_new against g + err_old, normwise
+#: leaves that reach the loss only through K5 (shared attention) or K7
+GRAD_VIA_K5 = ("wq", "wk", "wv")
+GRAD_VIA_K7 = ("in_x", "in_bc", "in_dt", "dt_bias", "A_log", "D",
+               "conv_x_w", "conv_x_b", "conv_bc_w", "conv_bc_b")
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{prefix}/{k}")]
+    if isinstance(tree, (tuple, list)):
+        return [x for i, v in enumerate(tree)
+                for x in _named_leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def _one_unit(tr, params, cfg, torch):
+    """The model cut to one repeat of each stage's unit, in float32."""
+    from repro_torch.models.config import Stage
+    cut = dataclasses.replace(
+        cfg, dtype="float32",
+        stages=tuple(Stage(s.unit, 1) for s in cfg.stages))
+    f32 = lambda t: t.detach().float()
+    p = {k: tr.tree_map(f32, v) for k, v in params.items() if k != "stages"}
+    p["stages"] = tr.tree_map(lambda t: t[:1].detach().float(),
+                              params["stages"])
+    return cut, p
+
+
+def phase_train(torch):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.loader import TieredDataLoader, write_token_shards
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_pack as qp
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as tr
+    from repro_torch.storage.store import TieredStore
+    from repro_torch.training import grad_compression as gc
+    from repro_torch.training import train_step as ts
+
+    dev = torch.device(CARD)
+    cfg = get_config(ARCH)
+    tcfg = ts.TrainConfig(remat=True, compressed_grads=True, microbatches=1)
+    per_kind = lambda kinds: sum(s.repeats * sum(k in kinds for k in s.unit)
+                                 for s in cfg.stages)
+    n_attn = per_kind(("attn", "attn_local", "shared_attn"))
+    n_mamba = per_kind(("mamba",))
+    say("train", f"reduced: sequence {TRAIN_SEQ} against {cfg.name}'s 4096-"
+        f"token context (keeps K5 and K7 at the serve phase's shapes); "
+        f"the float32 kernel-vs-plain check cuts the stages to 1 repeat "
+        f"unit ({len(cfg.stages[0].unit)} blocks, full width)")
+    t0 = time.perf_counter()
+    store = TieredStore()
+    shards = write_token_shards(store, n_shards=16, rows=32, seq=TRAIN_SEQ,
+                                vocab=cfg.vocab_size, seed=SEED)
+    loader = TieredDataLoader(store, shards, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_train_state(torch.Generator(device=dev).manual_seed(SEED),
+                                cfg, tcfg, device=CARD)
+    torch.cuda.synchronize()
+    leaves = tr.tree_leaves(state["params"])
+    n_leaves = len(leaves)
+    gb = lambda ts_: sum(t.numel() * t.element_size() for t in ts_) / 1e9
+    say("train", f"{cfg.name}: {tr.param_count(state['params']):,} "
+        f"parameters in {n_leaves} leaves ({gb(leaves):.3f} GB {cfg.dtype}); "
+        f"float32 master, m, v {3 * gb(tr.tree_leaves(state['opt'].master)):.3f}"
+        f" GB; TrainConfig(remat=True, compressed_grads=True, microbatches="
+        f"1), AdamW defaults; 16 Zipf token shards of 32 x {TRAIN_SEQ + 1} "
+        f"in a TieredStore, batch {TRAIN_BATCH}; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    per_step = []
+
+    def on_step(i, m):
+        per_step.append(dict(ops.launch_counts))
+        ops.reset_launch_counts()
+
+    ops.reset_launch_counts()
+    res = train(cfg, tcfg, state, loader, TRAIN_STEPS, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = res.state
+    want = {"flash_attention": 2 * n_attn, "ssd_scan": 2 * n_mamba,
+            "quant_pack": n_leaves}
+    for i, (loss, sec, counts) in enumerate(zip(res.losses, res.step_s,
+                                                per_step), 1):
+        say("train", f"step {i}: loss {loss!r}, {sec:.4f} s, "
+            f"{res.tokens / sec:.1f} tokens/s, launches {counts}")
+        check(math.isfinite(loss), f"step {i}: loss {loss} not finite")
+        check(counts == want, f"step {i}: launches {counts}, want {want} "
+              f"(K5 and K7 twice per forward under remat, K3 once per leaf)")
+    steady = res.step_s[1:]
+    say("train", f"{TRAIN_STEPS} steps: mean {sum(res.step_s) / TRAIN_STEPS:.4f}"
+        f" s per step, {res.tokens_per_s:.1f} training tokens/s; steps 2-"
+        f"{TRAIN_STEPS} (after the first, which warms up) "
+        f"{sum(steady) / len(steady):.4f} s, "
+        f"{res.tokens * len(steady) / sum(steady):.1f} tokens/s; peak device "
+        f"memory {peak:.3f} GB")
+
+    batches = loader.batches(epoch=0)
+    batch = next(batches)
+    step = ts.make_train_step(cfg, tcfg)
+    stepped = []
+    busy, n_ops, by_name = _busy_share(
+        torch, lambda: stepped.append(step(state, batch)))
+    state = stepped[0][0]
+    # by kernel name: cuBLAS's Hopper GEMMs are nvjet_* or sm90_xmma_*;
+    # PyTorch's strided elementwise_kernel<128, ...> does the copies and
+    # casts of non-contiguous tensors, vectorized_elementwise_kernel the
+    # contiguous elementwise math
+    groups = {"K3": ("quant_pack",), "K5": ("flash",), "K7": ("ssd_kernel",),
+              "matmuls": ("nvjet", "gemm", "xmma", "cutlass", "cublas"),
+              "reductions": ("reduce", "softmax", "norm", "scan"),
+              "copies and casts": ("copy", "elementwise_kernel<128",
+                                   "CatArray", "Memcpy", "Memset", "fill"),
+              }
+    by_group = dict.fromkeys(list(groups) + ["other elementwise"], 0.0)
+    for name, sec in by_name.items():
+        g = next((g for g, keys in groups.items()
+                  if any(k in name for k in keys)), "other elementwise")
+        by_group[g] += sec
+    total = sum(by_name.values())
+    say("train", "torch.profiler over one step: "
+        + (f"device time {total:.4f} s in {n_ops} device operations, the "
+           f"card busy {100 * busy:.2f}% of the profiled step (the "
+           f"profiler's own cost lengthens it), {100 * total / (sum(steady) / len(steady)):.2f}"
+           f"% of an unprofiled step of {sum(steady) / len(steady):.4f} s; "
+           + "; ".join(f"{g} {v * 1e3:.2f} ms" for g, v in by_group.items())
+           + "; largest: " + "; ".join(
+               f"{k[:70]} {v * 1e3:.2f} ms" for k, v in
+               sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+           if busy is not None else "not measured (no device time in the "
+           "trace)"))
+    k3_s = by_group["K3"]
+
+    # gradients arrive at every leaf, also those behind K5 and K7 only
+    loss, grads = ts._grads(state["params"], ts._on_device(batch, dev), cfg,
+                            tcfg)
+    named = _named_leaves(grads)
+    bad = [n for n, g in named if not bool(torch.isfinite(g).all())]
+    check(not bad, f"non-finite gradients: {bad}")
+    behind = [(n, float(g.float().norm())) for n, g in named
+              if n.rsplit("/", 1)[-1] in GRAD_VIA_K7
+              or (n.startswith("/shared/attn/")
+                  and n.rsplit("/", 1)[-1] in GRAD_VIA_K5)]
+    zero = [n for n, v in behind if not v > 0]
+    check(len(behind) == 3 + len(GRAD_VIA_K7) * len(
+        [k for k in cfg.stages[0].unit if k == "mamba"]) and not zero,
+        f"leaves behind K5/K7 with zero gradient: {zero}")
+    say("train", f"gradients: all {len(named)} leaves finite; the "
+        f"{len(behind)} leaves that reach the loss only through K5 or K7 "
+        f"have non-zero norms (smallest {min(v for _, v in behind):.3e} at "
+        f"{min(behind, key=lambda x: x[1])[0]})")
+    del grads, named, behind
+
+    # K3 on this step's leaves: kernel against plain, and error feedback
+    k3 = {"calls": 0, "largest": None, "ef": 0.0}
+    orig_leaf, orig_pack = gc._quant_leaf, ops.quant_pack
+
+    def pack(x, **kw):
+        q, s = orig_pack(x, **kw)
+        q_p, s_p = qp.quant_pack_plain(x)
+        check(torch.equal(q, q_p) and torch.equal(s, s_p),
+              f"K3 on a {tuple(x.shape)} leaf differs from its plain version")
+        k3["calls"] += 1
+        if k3["largest"] is None or x.numel() > k3["largest"].numel():
+            k3["largest"] = x.detach().clone()
+        return q, s
+
+    def leaf(g, e):
+        before = g.float() + e
+        deq, new_e = orig_leaf(g, e)
+        k3["ef"] = max(k3["ef"], _normwise(deq + new_e, before))
+        return deq, new_e
+
+    gc._quant_leaf, ops.quant_pack = leaf, pack
+    try:
+        state, _ = step(state, next(batches))
+        torch.cuda.synchronize()
+    finally:
+        gc._quant_leaf, ops.quant_pack = orig_leaf, orig_pack
+    check(k3["calls"] == n_leaves, f"K3 ran {k3['calls']} times in a step")
+    check(k3["ef"] <= TOL_EF, f"deq + err_new vs g + err_old {k3['ef']:.3e}")
+    say("train", f"K3 on all {n_leaves} leaves of a step: int8 values and "
+        f"scales identical to quant_pack_plain on the card; error feedback "
+        f"deq + err_new against g + err_old normwise {k3['ef']:.3e} "
+        f"(tolerance {TOL_EF})")
+
+    shard = state["params"]["embed"].reshape(-1).view(torch.uint8)[:4 << 20] \
+        .clone()
+    out = {"launches": {k: sum(c.get(k, 0) for c in per_step) for k in want},
+           "per_step": want, "step_s": sum(steady) / len(steady),
+           "k3_s": k3_s, "largest": k3["largest"], "shard": shard}
+    # float32, one repeat unit: the loss and gradients through the kernels
+    # against the same with the plain versions swapped in
+    cut, p32 = _one_unit(tr, state["params"], cfg, torch)
+    del state, res
+    torch.cuda.empty_cache()
+    b = ts._on_device(batch, dev)
+    ops.reset_launch_counts()
+    l_k, g_k = ts._grads(p32, b, cut, tcfg)
+    torch.cuda.synchronize()
+    n_k = dict(ops.launch_counts)
+    orig = _swap(ops, {"flash_attention": fa.flash_attention_plain,
+                       "ssd_scan": lambda *a, **k: ssd.ssd_scan_plain(*a, **k)})
+    try:
+        l_p, g_p = ts._grads(p32, b, cut, tcfg)
+    finally:
+        _swap(ops, orig)
+    u_attn = sum(k in ("attn", "attn_local", "shared_attn")
+                 for k in cut.stages[0].unit)
+    u_mamba = sum(k == "mamba" for k in cut.stages[0].unit)
+    check(n_k == {"flash_attention": 2 * u_attn, "ssd_scan": 2 * u_mamba},
+          f"float32 check launches {n_k}")
+    e_loss = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+    e_grad = max((_normwise(a, b_), n) for (n, a), (_, b_) in
+                 zip(_named_leaves(g_k), _named_leaves(g_p)))
+    say("train", f"float32, 1 repeat unit: loss through the kernels "
+        f"{float(l_k)!r} against the plain versions {float(l_p)!r}, rel "
+        f"{e_loss:.3e} (tolerance {TOL_LOSS_F32}); gradients normwise at "
+        f"most {e_grad[0]:.3e} at {e_grad[1]} (tolerance {TOL_GRAD_F32}); "
+        f"the backward of K5 and K7 is their plain version in both")
+    check(e_loss <= TOL_LOSS_F32, f"f32 loss kernel vs plain {e_loss:.3e}")
+    check(e_grad[0] <= TOL_GRAD_F32, f"f32 grads kernel vs plain {e_grad}")
+    del p32, g_k, g_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_kernels(torch, trained):
+    """K3 and K4 against their plain versions, at the shapes of the
+    training step and of ``benchmarks/bench_kernels.py``, and edge cases;
+    then their times and bounds."""
+    from repro_torch.kernels import entropy_features as ef
+    from repro_torch.kernels import quant_pack as qp
+
+    dev = torch.device(CARD)
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = []
+
+    # ---- K3: edge cases, then the largest leaf and the benchmark's shape
+    ties = torch.zeros(256, device=dev)
+    ties[:5] = torch.tensor([127.0, 0.5, 1.5, 2.5, -2.5])
+    edge = {f"{shape}": torch.randn(shape, generator=g, device=dev) * 5.0
+            for shape in ((4, 256), (1024,), (3, 2, 512))}
+    edge["zero block"] = torch.zeros((2, 256), device=dev)
+    edge["ties"] = ties
+    for tag, x in edge.items():
+        q, s = qp.quant_pack_kernel(x)
+        q_p, s_p = qp.quant_pack_plain(x)
+        check(torch.equal(q, q_p) and torch.equal(s, s_p),
+              f"K3 {tag}: kernel and plain differ")
+    check(qp.quant_pack_kernel(ties)[0][:5].tolist() == [127, 0, 2, 2, -2],
+          "K3 does not round half to even")
+    check(float(qp.quant_pack_kernel(edge["zero block"])[1][0])
+          == float(np.float32(1e-12) / np.float32(127.0)),
+          "K3 zero block scale")
+    say("kernels", f"K3 edge cases {list(edge)}: int8 and scales identical "
+        f"to the plain version; ties 0.5, 1.5, 2.5, -2.5 at scale 1 -> 0, 2, "
+        f"2, -2; a zero block gets scale 1e-12/127 and q = 0")
+    k3 = {}
+    for tag, x in (("largest leaf", trained["largest"]),
+                   ("1024x1024", torch.randn((1024, 1024), generator=g,
+                                             device=dev))):
+        q, s = qp.quant_pack_kernel(x)
+        q_p, s_p = qp.quant_pack_plain(x)
+        check(torch.equal(q, q_p) and torch.equal(s, s_p),
+              f"K3 {tag}: kernel and plain differ")
+        err = float((qp.quant_unpack(q, s) - qp.quant_unpack(q_p, s_p))
+                    .abs().max())
+        ms = cuda_ms(lambda: qp.quant_pack_kernel(x), torch)
+        plain = cuda_ms(lambda: qp.quant_pack_plain(x), torch, iters=5)
+        n = x.numel()
+        need = {"x": 4 * n, "q": n, "scale": 4 * (n // 256)}
+        n_ops = 6.0 * n     # |x|, max, divide, round, two clamps per value
+        b, by = bound_ms(float(sum(need.values())), n_ops)
+        say("kernels", f"K3 quant_pack {tag} {tuple(x.shape)}: int8 and "
+            f"scales identical to the plain version; kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, no single PyTorch call computes it; "
+            f"bound {b:.5f} ms ({by}; {_counts(need)} bytes, {n_ops:.0f} ops)")
+        k3[tag] = (err, ms, plain, b, by)
+    err, ms, plain, b, by = k3["largest leaf"]
+    rows.append({"name": "quant_pack", "route": "cuda",
+                 "source": SOURCES["quant_pack"][0],
+                 "replaces": SOURCES["quant_pack"][1],
+                 "launches": int(trained["launches"]["quant_pack"]),
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                 "bound_ms": b, "bound_by": by, "library_ms": None})
+
+    # ---- K4: edge cases, then 1 MiB of random bytes and a 4 MiB shard
+    rnd = lambda n: torch.randint(0, 256, (n,), generator=g, device=dev,
+                                  dtype=torch.uint8)
+    buf = rnd(6000)
+    cases = {"n=1": rnd(1), "n=100 (< block)": rnd(100),
+             "n=5000 (not a multiple)": rnd(5000),
+             "offset 3, n=4097": buf[3:4100],
+             "constant": torch.full((3000,), 7, dtype=torch.uint8, device=dev)}
+    for k in (2, 4, 256):
+        cases[f"{k} symbols"] = torch.arange(k, dtype=torch.uint8,
+                                             device=dev).repeat(4096 // k)
+    expect = {"constant": 0.0, "2 symbols": 1.0, "4 symbols": 2.0,
+              "256 symbols": 8.0}
+    for tag, d in cases.items():
+        h, e = ef.byte_entropy_kernel(d)
+        h_p, e_p = ef.byte_entropy_plain(d)
+        rel = abs(float(e) - float(e_p)) / max(abs(float(e_p)), 1e-30)
+        check(torch.equal(h, h_p) and (rel <= 1e-5 or float(e) == float(e_p)),
+              f"K4 {tag}: histogram equal {torch.equal(h, h_p)}, entropy "
+              f"rel {rel:.3e}")
+        if tag in expect:
+            check(abs(float(e) - expect[tag]) <= 1e-5 * max(expect[tag], 1),
+                  f"K4 {tag}: {float(e)} bits, want {expect[tag]}")
+    check(float(ef.byte_entropy_kernel(cases["constant"])[1]) == 0.0,
+          "K4: a constant payload must give exactly 0.0")
+    say("kernels", f"K4 edge cases {list(cases)}: histograms identical, "
+        f"entropy within rel 1e-5; constant payload exactly 0.0, uniform "
+        f"2/4/256-symbol alphabets 1, 2 and 8 bits")
+    k4 = {}
+    for tag, d in (("1 MiB random", rnd(1 << 20)),
+                   ("4 MiB of trained bf16 params", trained["shard"])):
+        h, e = ef.byte_entropy_kernel(d)
+        h_p, e_p = ef.byte_entropy_plain(d)
+        rel = abs(float(e) - float(e_p)) / abs(float(e_p))
+        check(torch.equal(h, h_p) and rel <= 1e-5,
+              f"K4 {tag}: entropy rel {rel:.3e}")
+        ms = cuda_ms(lambda: ef.byte_entropy_kernel(d), torch)
+        plain = cuda_ms(lambda: ef.byte_entropy_plain(d), torch)
+        binc = cuda_ms(lambda: torch.bincount(d, minlength=256), torch)
+        n = d.numel()
+        need = {"data": n, "hist": 4 * 256, "entropy": 4}
+        n_ops = float(n)        # one count per byte
+        b, by = bound_ms(float(sum(need.values())), n_ops)
+        say("kernels", f"K4 byte_entropy {tag} ({n:,} bytes): "
+            f"{float(e):.6f} bits/byte, histogram identical, entropy rel "
+            f"{rel:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, no single "
+            f"PyTorch call computes it (torch.bincount, the histogram "
+            f"alone: {binc:.4f} ms); bound {b:.5f} ms ({by}; {_counts(need)} "
+            f"bytes, {n_ops:.0f} ops)")
+        k4[tag] = (abs(float(e) - float(e_p)), ms, plain, b, by)
+    err, ms, plain, b, by = k4["4 MiB of trained bf16 params"]
+    rows.append({"name": "byte_entropy", "route": "cuda",
+                 "source": SOURCES["byte_entropy"][0],
+                 "replaces": SOURCES["byte_entropy"][1],
+                 "launches": 0, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                 "library_ms": None})
+    k3_step = trained["launches"]["quant_pack"] // TRAIN_STEPS
+    say("kernels", f"launches in the training run: K3 {k3_step} per step "
+        f"({trained['launches']['quant_pack']} in {TRAIN_STEPS} steps), "
+        f"{trained['k3_s'] * 1e3:.3f} ms of device time per step in the "
+        f"profiled step, {100 * trained['k3_s'] / trained['step_s']:.3f}% "
+        f"of a {trained['step_s']:.4f} s step; K4 is reached by no path "
+        f"(ops.byte_entropy is its entry), so 0")
+    return rows
+
+
 def main() -> int:
     import torch
     device, smi_line = phase_device(torch)
@@ -968,8 +1360,10 @@ def main() -> int:
     phase_cpu(torch, parts, rows, table, cfgs, cuda_runs)
     served = {}
     serve_launches = phase_serve(torch, served)
+    trained = phase_train(torch)
     kernels = phase_kernels(torch, recorded, launches)
     kernels += phase_model_kernels(torch, served, serve_launches)
+    kernels += phase_train_kernels(torch, trained)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -1,6 +1,7 @@
 """Carry learned state across as plain numpy arrays: a fitted COMPREDICT
-predictor (:func:`predictor_from_arrays`) and model weights
-(:func:`model_params_from_arrays`).
+predictor (:func:`predictor_from_arrays`), model weights
+(:func:`model_params_from_arrays`) and a training state
+(:func:`train_state_from_arrays`).
 
 The placement path's only learned state is the fitted
 :class:`~repro_torch.core.compredict.CompressionPredictor`: one regression
@@ -30,6 +31,7 @@ from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.mamba2 import FLOAT32_PARAMS
+from repro_torch.training.optimizer import AdamWState
 
 Key = Tuple[str, str, str]          # (scheme, layout, 'ratio' | 'dspeed')
 
@@ -95,3 +97,40 @@ def model_params_from_arrays(tree: Any, cfg: ModelConfig,
         return t if name in FLOAT32_PARAMS else t.to(dt)
 
     return conv(tree)
+
+
+def _float32_like(node: Any, ref: Any, dev: torch.device) -> Any:
+    """``node`` (nested dicts and tuples of numpy arrays) as float32
+    tensors in ``ref``'s structure: dict entries are matched by key, never
+    by position (JAX flattens dicts in sorted-key order, the port in
+    insertion order)."""
+    if isinstance(ref, Mapping):
+        if set(node) != set(ref):
+            raise KeyError(f"keys {sorted(node)} do not match {sorted(ref)}")
+        return {k: _float32_like(node[k], v, dev) for k, v in ref.items()}
+    if isinstance(ref, (tuple, list)):
+        if len(node) != len(ref):
+            raise ValueError(f"{len(node)} entries where {len(ref)} expected")
+        return tuple(_float32_like(n, r, dev) for n, r in zip(node, ref))
+    arr = np.asarray(node, np.float32)
+    if arr.shape != tuple(ref.shape):
+        raise ValueError(f"shape {arr.shape} where {tuple(ref.shape)} "
+                         f"expected")
+    return torch.as_tensor(arr, device=dev).clone()
+
+
+def train_state_from_arrays(state: Mapping[str, Any], cfg: ModelConfig,
+                            device: DeviceLike = "cuda") -> dict:
+    """The port's training state ``{'params', 'opt': AdamWState}`` from
+    ``repro``'s, as numpy: ``state['params']`` as for
+    :func:`model_params_from_arrays`, and ``state['opt']`` a mapping of
+    ``repro``'s ``AdamWState`` fields: ``step`` (an int), ``master``,
+    ``m``, ``v`` and ``err`` (None or a tree). The optimizer trees are
+    float32 and follow the parameters' structure, matched by key."""
+    dev = resolve(device)
+    params = model_params_from_arrays(state["params"], cfg, device=dev)
+    o = state["opt"]
+    return {"params": params, "opt": AdamWState(
+        torch.tensor(int(o["step"]), dtype=torch.int32, device=dev),
+        *(_float32_like(o[k], params, dev) for k in ("master", "m", "v")),
+        None if o["err"] is None else _float32_like(o["err"], params, dev))}

@@ -1,7 +1,8 @@
 """Cloud storage cost model — parameters and cost algebra from the paper.
 
 A copy of the single-cloud part of ``repro.core.costs`` that the batch
-placement path uses. All monetary quantities are in **cents**. Sizes are
+placement path uses, and of ``move_egress_cents_gb``, which
+:class:`repro_torch.storage.store.TieredStore` bills moves with. All monetary quantities are in **cents**. Sizes are
 in **GB**. Times in seconds. Defaults reproduce Table I / Table XII (Azure
 ADLS Gen2) of *Towards Optimizing Storage Costs on the Cloud* (2023).
 """
@@ -147,3 +148,21 @@ def latency_feasible(
     """Latency constraint mask, shape (N, L, K): D_nk + B_l <= T_n."""
     total = decomp_sec[:, None, :] + table.ttfb_seconds[None, :, None]
     return total <= latency_threshold[:, None, None]
+
+
+def move_egress_cents_gb(table: CostTable,
+                         from_tier: "int | np.ndarray",
+                         to_tier: "int | np.ndarray") -> np.ndarray:
+    """Per-GB cross-provider egress for a tier move (broadcasts).
+
+    Zero for plain single-cloud tables, for new data (``from_tier == -1``),
+    and for moves within one provider.
+    """
+    f = np.asarray(from_tier, int)
+    t = np.asarray(to_tier, int)
+    p = getattr(table, "provider_of_tier", None)
+    if p is None:
+        return np.zeros(np.broadcast(f, t).shape)
+    safe_f, safe_t = np.maximum(f, 0), np.maximum(t, 0)
+    eg = table.egress_cents_gb[p[safe_f], p[safe_t]]
+    return np.where((f >= 0) & (t >= 0), eg, 0.0)

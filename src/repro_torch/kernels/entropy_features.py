@@ -1,6 +1,9 @@
-"""COMPREDICT batched weighted-entropy features: CUDA kernel + plain version.
+"""COMPREDICT entropy features: CUDA kernels + plain versions.
 
-Port of ``repro/kernels/entropy_features.py`` ``weighted_entropy_features``.
+Port of ``repro/kernels/entropy_features.py``: ``weighted_entropy_features``
+(below) and ``byte_entropy`` (at the end of the module).
+
+``weighted_entropy_features``:
 Inputs come from :func:`repro_torch.data.tables.encode_dtype_classes`:
 codes (N, M) int32 (-1 padded, row-major within a partition), n_valid /
 n_rows / n_cols (N,) int32, and lengths, either (N, Vmax) per-partition
@@ -15,6 +18,15 @@ the b-th 1/n_buckets of rows.
 * :func:`weighted_entropy_features_plain` is the same function in tensor
   ops, in any float ``dtype`` (float64 gives the reference the kernel's
   float32 sums are measured against).
+
+``byte_entropy``: for a (n,) uint8 payload, its 256-bin histogram (int32)
+and Shannon entropy in bits per byte (float32 scalar),
+``-sum p log2 p`` with ``p = hist / max(n, 1)``.
+
+* :func:`byte_entropy_kernel` launches ``csrc/byte_entropy.cu`` on a CUDA
+  tensor (it raises for anything else);
+* :func:`byte_entropy_plain` is the same function in tensor ops
+  (``bincount``), used for CPU tensors and as the kernel's yardstick.
 """
 
 from __future__ import annotations
@@ -151,3 +163,61 @@ def weighted_entropy_features_kernel(codes: torch.Tensor, n_valid: torch.Tensor,
                            f"{lib.wef_error_string(rc).decode()}")
     _build.launch_counts["entropy_features"] += 1
     return summary, bucket_h
+
+
+# ------------------------------------------------------------ byte entropy
+def _check_bytes(data: torch.Tensor) -> None:
+    if data.dtype != torch.uint8 or data.dim() != 1:
+        raise ValueError(f"data: expected a 1-D uint8 tensor, got "
+                         f"{data.dim()}-D {data.dtype}")
+
+
+def byte_entropy_plain(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_bytes(data)
+    hist = torch.bincount(data.long(), minlength=256).to(torch.int32)
+    # n as a tensor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal
+    n = torch.tensor(float(max(data.numel(), 1)), device=data.device)
+    p = hist.float() / n
+    zero = torch.zeros((), device=data.device)
+    ent = -torch.where(p > 0, p * torch.log2(torch.clamp_min(p, 1e-30)),
+                       zero).sum()
+    return hist, ent
+
+
+def _byte_lib() -> ctypes.CDLL:
+    lib = _build.load("byte_entropy")
+    if not getattr(lib, "_typed", False):
+        p = ctypes.c_void_p
+        lib.byte_entropy_launch.argtypes = [p, ctypes.c_longlong, p, p, p]
+        lib.byte_entropy_launch.restype = ctypes.c_int
+        lib.byte_entropy_error_string.argtypes = [ctypes.c_int]
+        lib.byte_entropy_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def byte_entropy_kernel(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/byte_entropy.cu``: (hist (256,) int32, entropy ()
+    float32). data a contiguous 1-D uint8 CUDA tensor of fewer than 2^31
+    bytes (the bins are int32)."""
+    dev = data.device
+    if dev.type != "cuda":
+        raise ValueError(f"byte-entropy kernel needs a CUDA tensor, got {dev}")
+    _check_bytes(data)
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    if data.numel() >= 2 ** 31:
+        raise ValueError(f"{data.numel()} bytes overflow the int32 bins")
+    # 256 bins, then the kernel's completion counter; zeroed here
+    hist_done = torch.zeros(257, dtype=torch.int32, device=dev)
+    ent = torch.empty((), dtype=torch.float32, device=dev)
+    lib = _byte_lib()
+    rc = lib.byte_entropy_launch(data.data_ptr(), data.numel(),
+                                 hist_done.data_ptr(), ent.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"byte-entropy kernel launch failed: "
+                           f"{lib.byte_entropy_error_string(rc).decode()}")
+    _build.launch_counts["byte_entropy"] += 1
+    return hist_done[:256], ent

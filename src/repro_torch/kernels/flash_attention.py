@@ -12,14 +12,19 @@ softcap comes after the scale and before the mask, and with ``causal`` a
   CUDA tensors (it raises for anything else);
 * :func:`flash_attention_plain` is the same function in tensor ops, with
   the (B, Hkv, rep, Sq, Sk) scores materialised, used for CPU tensors and
-  as the kernel's yardstick on the card.
+  as the kernel's yardstick on the card;
+* :class:`FlashAttentionFn` gives the kernel a gradient: its forward
+  launches the kernel, its backward recomputes the plain version under
+  autograd. The TPU kernel has no backward kernel (the JAX package has no
+  ``custom_vjp``; JAX differentiates its reference), so a plain backward
+  is the faithful port; a backward kernel is later work (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -35,8 +40,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, Hq, D = q.shape
     _, Sk, Hkv, Dv = (*k.shape[:3], v.shape[-1])
     rep = Hq // Hkv
-    qr = q.float().reshape(B, Sq, Hkv, rep, D) * (1.0 / math.sqrt(D))
-    s = torch.einsum("bqhrd,bkhd->bhrqk", qr, k.float())
+    acc = torch.promote_types(q.dtype, torch.float32)   # float64 stays
+    qr = q.to(acc).reshape(B, Sq, Hkv, rep, D) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qr, k.to(acc))
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     if causal:
@@ -47,7 +53,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask &= k_pos > q_pos - window
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhrqk,bkhd->bqhrd", p, v.float())
+    o = torch.einsum("bhrqk,bkhd->bqhrd", p, v.to(acc))
     return o.reshape(B, Sq, Hq, Dv).to(q.dtype)
 
 
@@ -121,3 +127,34 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{lib.flash_attention_error_string(rc).decode()}")
     _build.launch_counts["flash_attention"] += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention through ``forward`` (the kernel on the card) with the plain
+    version's gradient: the backward recomputes :func:`flash_attention_plain`
+    from the saved q, k, v under autograd. ``forward`` is an argument so
+    that a CPU test can run this Function with the plain forward standing
+    in for the kernel."""
+
+    @staticmethod
+    def forward(ctx, forward: Callable, q, k, v, causal, window, softcap):
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v)
+        return forward(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = flash_attention_plain(*ins, **ctx.opts)
+        dq, dk, dv = torch.autograd.grad(out, ins, grad_out)
+        return None, dq, dk, dv, None, None, None
+
+
+def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         forward: Callable = flash_attention_kernel,
+                         ) -> torch.Tensor:
+    """:func:`flash_attention_kernel` (or ``forward``) with a gradient."""
+    return FlashAttentionFn.apply(forward, q, k, v, causal, window, softcap)

@@ -1,19 +1,31 @@
 """Kernel API with dispatch by device.
 
-The placement kernels (:func:`fractional_overlap_matrix`,
-:func:`weighted_entropy_features`) take numpy arrays or tensors and move
-them to ``device`` (the card unless the caller passes ``device="cpu"``).
-The model kernels (:func:`flash_attention`, :func:`decode_attention`,
-:func:`ssd_scan`) take tensors and run where the tensors lie. Either way a
-CUDA device runs the hand-written CUDA kernel and the CPU runs the
+The placement and payload kernels (:func:`fractional_overlap_matrix`,
+:func:`weighted_entropy_features`, :func:`byte_entropy`) take numpy arrays
+or tensors and move them to ``device`` (the card unless the caller passes
+``device="cpu"``). The model and training kernels
+(:func:`flash_attention`, :func:`decode_attention`, :func:`ssd_scan`,
+:func:`quant_pack`) take tensors and run where the tensors lie. Either way
+a CUDA device runs the hand-written CUDA kernel and the CPU runs the
 kernel's plain tensor-op version. Asking for CUDA where there is none
 raises (:func:`repro_torch.device.resolve`); a CUDA launch that fails
-raises too. There is no fallback from one to the other. :func:`ssd_step`
-is plain tensor ops on every device, as in the JAX package.
+raises too. There is no fallback from one to the other.
+
+On the card, :func:`flash_attention` (K5) and :func:`ssd_scan` (K7) go
+through an ``autograd.Function`` whose forward launches the kernel and
+whose backward recomputes the kernel's plain version under autograd: the
+TPU kernels have no backward kernel (JAX differentiates their reference),
+so training's backward is the plain version on every device. On the CPU
+autograd runs through the plain versions directly.
+
+:func:`ssd_step` and :func:`quant_unpack` are plain tensor ops on every
+device, as in the JAX package.
 
 ``launch_counts`` (re-exported from :mod:`repro_torch.kernels._build`)
-counts kernel launches by name: ``"overlap"``, ``"entropy_features"``,
-``"flash_attention"``, ``"decode_attention"`` and ``"ssd_scan"``.
+counts kernel launches by name: ``"overlap"`` (K1),
+``"entropy_features"`` (K2), ``"quant_pack"`` (K3), ``"byte_entropy"``
+(K4), ``"flash_attention"`` (K5), ``"decode_attention"`` (K6) and
+``"ssd_scan"`` (K7).
 """
 
 from __future__ import annotations
@@ -27,12 +39,14 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import entropy_features as _ef
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import overlap as _ov
+from repro_torch.kernels import quant_pack as _qp
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 
 __all__ = ["fractional_overlap_matrix", "weighted_entropy_features",
-           "flash_attention", "decode_attention", "ssd_scan", "ssd_step",
-           "launch_counts", "reset_launch_counts"]
+           "byte_entropy", "quant_pack", "quant_unpack", "flash_attention",
+           "decode_attention", "ssd_scan", "ssd_step", "launch_counts",
+           "reset_launch_counts"]
 
 
 def _on(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
@@ -85,9 +99,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """(B, Sq, Hq, Dv) attention of q (B, Sq, Hq, D) over k/v (B, Sk, Hkv,
-    D/Dv) (see :mod:`repro_torch.kernels.flash_attention`)."""
+    D/Dv) (see :mod:`repro_torch.kernels.flash_attention`). Differentiable
+    on every device (on the card through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttentionFn`)."""
     if _on_card(q):
-        return _fa.flash_attention_kernel(
+        return _fa.flash_attention_grad(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window, softcap=softcap)
     return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -114,10 +130,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              D: Optional[torch.Tensor] = None, *, chunk: int = 128,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2 SSD scan: (y (b, s, h, p), final state (b, h, p, n) float32)
-    (see :mod:`repro_torch.kernels.ssd_scan`)."""
+    (see :mod:`repro_torch.kernels.ssd_scan`). Differentiable on every
+    device (on the card through :class:`~repro_torch.kernels.ssd_scan.SSDScanFn`)."""
     if _on_card(x):
         f32 = lambda t: t.float().contiguous()
-        return _ssd.ssd_scan_kernel(
+        return _ssd.ssd_scan_grad(
             x.contiguous(), f32(dt), f32(A), B.contiguous(), C.contiguous(),
             None if D is None else f32(D), chunk=chunk)
     return _ssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
@@ -126,3 +143,31 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def ssd_step(state, x_t, dt_t, A, B_t, C_t, D=None):
     """One Mamba2 decode step (plain tensor ops on every device)."""
     return _ssd.ssd_step(state, x_t, dt_t, A, B_t, C_t, D)
+
+
+def quant_pack(x: torch.Tensor, *, block: int = 256,
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Int8 block quantisation: (q int8 of x's shape, scale (size / block,)
+    float32) (see :mod:`repro_torch.kernels.quant_pack`). On the card x is
+    made a contiguous float32 tensor first; the kernel takes block 256."""
+    if _on_card(x):
+        return _qp.quant_pack_kernel(x.float().contiguous(), block=block)
+    return _qp.quant_pack_plain(x, block=block)
+
+
+def quant_unpack(q: torch.Tensor, scale: torch.Tensor,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``q * scale`` per block, in ``dtype`` (plain tensor ops)."""
+    return _qp.quant_unpack(q, scale, dtype)
+
+
+def byte_entropy(data, *, device: DeviceLike = "cuda",
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hist (256,) int32, entropy () float32 in bits per byte)`` of a
+    (n,) uint8 payload on ``device`` (see
+    :mod:`repro_torch.kernels.entropy_features`)."""
+    dev = resolve(device)
+    d = _on(data, torch.uint8, dev)
+    if dev.type == "cuda":
+        return _ef.byte_entropy_kernel(d)
+    return _ef.byte_entropy_plain(d)

@@ -18,6 +18,11 @@ and the scan returns (y (b, s, h, p) in x's dtype, final state
   (it raises for anything else);
 * :func:`ssd_scan_plain` is the chunked algorithm in tensor ops, used for
   CPU tensors and as the kernel's yardstick on the card;
+* :class:`SSDScanFn` gives the kernel a gradient: its forward launches
+  the kernel, its backward recomputes :func:`ssd_scan_plain` under
+  autograd. The TPU kernel has no backward kernel (the JAX package
+  differentiates its reference), so a plain backward is the faithful
+  port; a backward kernel is later work (ROADMAP.md);
 * :func:`ssd_step` is one decode step, plain tensor ops on any device (the
   JAX package has no kernel for it either).
 """
@@ -25,7 +30,7 @@ and the scan returns (y (b, s, h, p) in x's dtype, final state
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,21 +56,23 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         C = F.pad(C, (0, 0, 0, 0, 0, pad))
     S = x.shape[1]
     nc = S // chunk
-    xq = x.reshape(b, nc, chunk, h, p).float()
-    dtq = dt.reshape(b, nc, chunk, h).float()
-    Bq = B.reshape(b, nc, chunk, g, n).float().repeat_interleave(rep, dim=3)
-    Cq = C.reshape(b, nc, chunk, g, n).float().repeat_interleave(rep, dim=3)
-    A32 = A.float()
-    causal = torch.ones(chunk, chunk, dtype=torch.bool,
-                        device=x.device).tril()[None, :, :, None]
-    state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+    acc = torch.promote_types(x.dtype, torch.float32)   # float64 stays
+    xq = x.reshape(b, nc, chunk, h, p).to(acc)
+    dtq = dt.reshape(b, nc, chunk, h).to(acc)
+    Bq = B.reshape(b, nc, chunk, g, n).to(acc).repeat_interleave(rep, dim=3)
+    Cq = C.reshape(b, nc, chunk, g, n).to(acc).repeat_interleave(rep, dim=3)
+    A32 = A.to(acc)
+    above = torch.ones(chunk, chunk, dtype=torch.bool,
+                       device=x.device).triu(1)[None, :, :, None]
+    state = torch.zeros(b, h, p, n, dtype=acc, device=x.device)
     ys = []
     for c in range(nc):
         xb, dtb, Bh, Ch = xq[:, c], dtq[:, c], Bq[:, c], Cq[:, c]
         cum = torch.cumsum(dtb * A32, dim=1)                  # (b,q,h)
         li = cum[:, :, None, :] - cum[:, None, :, :]          # (b,q,q,h)
-        # exp(li) overflows above the diagonal; where() keeps it out
-        Lmat = torch.where(causal, torch.exp(li), torch.zeros((), device=x.device))
+        # li > 0 above the diagonal, where exp overflows; masking before
+        # the exp keeps the forward and its gradient finite (inf x 0 = NaN)
+        Lmat = torch.exp(li.masked_fill(above, float("-inf")))
         cb = torch.einsum("bihn,bjhn->bijh", Ch, Bh)
         w = cb * Lmat * dtb[:, None, :, :]
         y = torch.einsum("bijh,bjhp->bihp", w, xb)
@@ -76,7 +83,7 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, S, h, p)[:, :s]
     if D is not None:
-        y = y + x[:, :s].float() * D.float()[None, None, :, None]
+        y = y + x[:, :s].to(acc) * D.to(acc)[None, None, :, None]
     return y.to(x.dtype), state
 
 
@@ -161,3 +168,44 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                            f"{lib.ssd_scan_error_string(rc).decode()}")
     _build.launch_counts["ssd_scan"] += 1
     return y, state
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan through ``forward`` (the kernel on the card) with the
+    plain version's gradient: the backward recomputes :func:`ssd_scan_plain`
+    from the saved inputs under autograd, for whichever of y and the final
+    state received a gradient. ``forward`` is an argument so that a CPU
+    test can run this Function with the plain forward standing in."""
+
+    @staticmethod
+    def forward(ctx, forward: Callable, x, dt, A, B, C, D, chunk):
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, B, C, D)
+        return forward(x, dt, A, B, C, D, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_state):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_()
+                   for t in saved]
+            y, state = ssd_scan_plain(*ins, chunk=ctx.chunk)
+        pairs = [(o, g) for o, g in ((y, grad_y), (state, grad_state))
+                 if g is not None]
+        live = [t for t in ins if t is not None]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], live,
+                                         [g for _, g in pairs],
+                                         allow_unused=True)
+                     if pairs else [None] * len(live))
+        return (None, *(None if t is None else next(grads) for t in ins),
+                None)
+
+
+def ssd_scan_grad(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor,
+                  D: Optional[torch.Tensor] = None, *, chunk: int = 128,
+                  forward: Callable = ssd_scan_kernel,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_scan_kernel` (or ``forward``) with a gradient."""
+    return SSDScanFn.apply(forward, x, dt, A, B, C, D, chunk)

@@ -1,13 +1,15 @@
-"""Stage-based model assembly: init / forward / decode.
+"""Stage-based model assembly: init / forward / decode / loss.
 
-Port of ``repro.models.transformer`` for the block kinds the serving slice
-covers: attn, attn_local, shared_attn and mamba (zamba2, mamba2, qwen3,
-qwen2, yi, gemma2). A model is a tuple of stages; each stage runs a
-repeating unit of blocks ``repeats`` times, with parameters stacked on the
-leading (repeats) axis as in the JAX package, so converted weights keep
-their layout. JAX scans over that axis; here a Python loop indexes it.
-Weight-tied blocks ('shared_attn', zamba2) keep their parameters at
-``params['shared']``; each use still has its own KV cache.
+Port of ``repro.models.transformer`` for the block kinds the serving and
+training slices cover: attn, attn_local, shared_attn and mamba (zamba2,
+mamba2, qwen3, qwen2, yi, gemma2). A model is a tuple of stages; each
+stage runs a repeating unit of blocks ``repeats`` times, with parameters
+stacked on the leading (repeats) axis as in the JAX package, so converted
+weights keep their layout. JAX scans over that axis; here a Python loop
+indexes it. Weight-tied blocks ('shared_attn', zamba2) keep their
+parameters at ``params['shared']``; each use still has its own KV cache.
+With ``remat`` each repeat of the unit is one activation checkpoint, as
+JAX's ``jax.checkpoint`` of the scan body.
 
 Block kinds moe, mla_dense, mla_moe, cross and decoder, and the encoder,
 are not ported yet and raise NotImplementedError (ROADMAP.md, queue 1
@@ -20,6 +22,8 @@ import math
 from typing import Any, Dict, List, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models import attention as attn
@@ -134,12 +138,25 @@ def layer_params(sp, r: int):
     return tree_map(lambda t: t[r], sp)
 
 
+def _unit_apply(x, sp, r: int, stage: Stage, cfg: ModelConfig, positions,
+                shared, causal):
+    """Repeat ``r`` of the stage's unit of blocks."""
+    for j, kind in enumerate(stage.unit):
+        x = block_apply(layer_params(sp[j], r), kind, x, cfg,
+                        positions=positions, shared=shared, causal=causal)
+    return x
+
+
 def stage_apply(sp, stage: Stage, x, cfg: ModelConfig, *, positions,
-                shared=None, causal=True):
+                shared=None, causal=True, remat=False):
+    """The unit ``stage.repeats`` times. With ``remat`` each repeat is one
+    checkpoint: the backward keeps only the residual entering each repeat
+    and recomputes the rest (so a kernel of the unit runs twice per
+    training step)."""
     for r in range(stage.repeats):
-        for j, kind in enumerate(stage.unit):
-            x = block_apply(layer_params(sp[j], r), kind, x, cfg,
-                            positions=positions, shared=shared, causal=causal)
+        args = (x, sp, r, stage, cfg, positions, shared, causal)
+        x = (checkpoint(_unit_apply, *args, use_reentrant=False) if remat
+             else _unit_apply(*args))
     return x
 
 
@@ -190,9 +207,10 @@ def _head(params, x, cfg: ModelConfig):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, context=None,
-            positions=None) -> torch.Tensor:
+            positions=None, remat=False) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S, padded_vocab) float32, on the
-    device of the parameters."""
+    device of the parameters. ``remat`` checkpoints each repeat of each
+    stage's unit (see :func:`stage_apply`)."""
     if context is not None:
         raise _not_ported("cross-attention context")
     _check_ported(cfg)
@@ -204,8 +222,21 @@ def forward(params, tokens, cfg: ModelConfig, *, context=None,
             tokens.shape)
     for sp, s in zip(params["stages"], cfg.stages):
         x = stage_apply(sp, s, x, cfg, positions=positions,
-                        shared=params.get("shared"))
+                        shared=params.get("shared"), remat=remat)
     return _head(params, x, cfg)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, remat=False) -> torch.Tensor:
+    """Mean next-token NLL over the positions with ``labels >= 0``, from
+    float32 logits. batch: {'tokens': (B, S), 'labels': (B, S)}; a
+    'context' raises as :func:`forward` does."""
+    logits = forward(params, batch["tokens"], cfg,
+                     context=batch.get("context"), remat=remat)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    logp = F.log_softmax(logits, dim=-1)
+    mask = (labels >= 0).float()
+    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 # ------------------------------------------------------------------- decode

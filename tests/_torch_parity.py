@@ -3,13 +3,17 @@
 The port may not import ``repro``, so what crosses between the packages
 goes through here: the flattener that turns a fitted ``repro`` COMPREDICT
 predictor into the plain arrays :func:`repro_torch.convert.predictor_from_arrays`
-takes, and the one that turns ``repro`` model parameters into the float32
-numpy tree :func:`repro_torch.convert.model_params_from_arrays` takes.
+takes, the one that turns ``repro`` model parameters into the float32
+numpy tree :func:`repro_torch.convert.model_params_from_arrays` takes, and
+the one for a ``repro`` training state
+(:func:`repro_torch.convert.train_state_from_arrays`).
 """
 
 from typing import Dict, List
 
 import numpy as np
+import pytest
+import torch
 
 from repro.core import ml as jml
 
@@ -80,3 +84,28 @@ def leaf_shapes(tree, prefix=""):
             out.update(leaf_shapes(v, f"{prefix}/{i}"))
         return out
     return {prefix: tuple(tree.shape)}
+
+
+def train_state_arrays(state):
+    """``repro`` train state ``{'params', 'opt': AdamWState}`` -> the
+    numpy form :func:`repro_torch.convert.train_state_from_arrays` takes:
+    float32 trees, ``step`` an int and ``err`` None or a tree."""
+    o = state["opt"]
+    return {"params": model_param_arrays(state["params"]),
+            "opt": {"step": int(np.asarray(o.step)),
+                    "master": model_param_arrays(o.master),
+                    "m": model_param_arrays(o.m),
+                    "v": model_param_arrays(o.v),
+                    "err": None if o.err is None
+                    else model_param_arrays(o.err)}}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests with one PyTorch CPU thread. Their tensors are
+    small, and the suite runs several workers on the same cores, where
+    PyTorch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

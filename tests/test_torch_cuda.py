@@ -24,9 +24,11 @@ from repro_torch.data import tpch
 from repro_torch.data.tables import Table
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import entropy_features as tef
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
 from repro_torch.kernels import overlap as tov
+from repro_torch.kernels import quant_pack as tqp
 from repro_torch.kernels import ssd_scan as tssd
 from repro_torch.launch.serve import serve
 from repro_torch.models import transformer as ttr
@@ -284,3 +286,111 @@ def test_zamba2_serving_on_card_matches_cpu(card):
                                prompts[:, :20].to(dev), 5)
     assert torch.equal(runs["cuda"].tokens.cpu(), runs["cpu"].tokens)
     assert ops.launch_counts["decode_attention"] == 2 * 24
+
+
+def test_zamba2_train_step_on_card_matches_cpu(card):
+    """Two smoke-size zamba2 train steps (float32, remat, int8 error
+    feedback) on the card and on the CPU: losses within rel 1e-4 and the
+    moments within 5e-3 normwise (a last-bit difference can move a value
+    across an int8 rounding boundary); the card runs K5 and K7 twice per
+    forward (remat) and K3 once per leaf."""
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.training import train_step as tts
+    from repro_torch.training.optimizer import AdamWState
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    tcfg = tts.TrainConfig(remat=True, compressed_grads=True)
+    cpu = tts.init_train_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                               device="cpu")
+    to_card = lambda tree: tree_map(lambda t: t.to(card), tree)
+    dev = {"params": to_card(cpu["params"]),
+           "opt": AdamWState(*(None if x is None else to_card(x)
+                               for x in cpu["opt"]))}
+    n_leaves = len(tree_leaves(cpu["params"]))
+    step = tts.make_train_step(cfg, tcfg)
+    rng = np.random.default_rng(4)
+    for i in range(2):
+        tok = rng.integers(0, cfg.vocab_size, (4, 33))
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        cpu, m_c = step(cpu, batch)
+        ops.reset_launch_counts()
+        dev, m_d = step(dev, batch)
+        torch.cuda.synchronize()
+        assert dict(ops.launch_counts) == {"flash_attention": 4,
+                                           "ssd_scan": 24,
+                                           "quant_pack": n_leaves}
+        assert float(m_d["loss"]) == pytest.approx(float(m_c["loss"]),
+                                                   rel=1e-4)
+    for a, b in zip(tree_leaves(dev["opt"].m), tree_leaves(cpu["opt"].m)):
+        assert float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30)) <= 5e-3
+
+
+@pytest.mark.parametrize("shape,scale", [((4, 256), 5.0), ((1024,), 1.0),
+                                         ((3, 2, 512), 30.0),
+                                         ((2051, 256), 1e-3)])
+def test_quant_pack_kernel_matches_plain(card, shape, scale):
+    """Identical int8 values and scales (the kernel divides and rounds half
+    to even as the plain version does)."""
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(shape)
+                        .astype(np.float32) * scale, device=card)
+    x.view(-1)[:256] = 0.0                       # an all-zero block
+    x.view(-1)[256:261] = torch.tensor([127.0, 0.5, 1.5, 2.5, -2.5])
+    ops.reset_launch_counts()
+    q, s = ops.quant_pack(x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["quant_pack"] == 1
+    q_p, s_p = tqp.quant_pack_plain(x)
+    assert torch.equal(q, q_p) and torch.equal(s, s_p)
+    assert q.view(-1)[256:261].tolist() == [127, 0, 2, 2, -2]
+    assert not q.view(-1)[:256].any()
+
+
+@pytest.mark.parametrize("n,offset", [(0, 0), (1, 0), (37, 3), (4097, 1),
+                                      (1 << 20, 0), ((1 << 22) + 5, 7)])
+def test_byte_entropy_kernel_matches_plain(card, n, offset):
+    """Identical histograms and the entropy within rel 1e-5, for payloads
+    that start off the 16-byte grid and end off it."""
+    buf = torch.as_tensor(np.random.default_rng(n).integers(
+        0, 256, n + offset).astype(np.uint8), device=card)
+    data = buf[offset:]
+    ops.reset_launch_counts()
+    h, e = tef.byte_entropy_kernel(data)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["byte_entropy"] == 1
+    h_p, e_p = tef.byte_entropy_plain(data)
+    assert torch.equal(h, h_p)
+    assert float(e) == pytest.approx(float(e_p), rel=1e-5, abs=1e-7)
+    for k, bits in ((1, 0.0), (2, 1.0), (4, 2.0), (256, 8.0)):
+        d = torch.arange(k, dtype=torch.uint8, device=card).repeat(300)
+        assert float(ops.byte_entropy(d, device=card)[1]) == \
+            pytest.approx(bits, abs=1e-5)
+
+
+def test_attention_and_ssd_gradients_on_card(card):
+    """The autograd Functions on the card: gradients through the kernels'
+    forwards equal autograd through the plain versions, float32, 1e-4."""
+    q, k, v = _randn(21, (2, 96, 8, 32), (2, 96, 2, 32), (2, 96, 2, 32),
+                     device=card)
+    go = _randn(22, (2, 96, 8, 32), device=card)[0]
+    kw = dict(causal=True, window=40, softcap=30.0)
+    ins = [t.requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    g_k = torch.autograd.grad(ops.flash_attention(*ins, **kw), ins, go)
+    assert dict(ops.launch_counts) == {"flash_attention": 1}
+    g_p = torch.autograd.grad(tfa.flash_attention_plain(*ins, **kw), ins, go)
+    for a, b in zip(g_k, g_p):
+        _assert_close(a, b, 1e-4)
+    rng = np.random.default_rng(23)
+    x, B, C = _randn(23, (2, 200, 4, 16), (2, 200, 1, 16), (2, 200, 1, 16),
+                     device=card)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    dt = f32(np.log1p(np.exp(rng.standard_normal((2, 200, 4)))) * 0.5)
+    A, D = f32(-np.exp(rng.standard_normal(4) * 0.3)), f32(np.ones(4))
+    ins = [t.requires_grad_() for t in (x, dt, A, B * 0.5, C * 0.5, D)]
+    ops.reset_launch_counts()
+    y, st = ops.ssd_scan(*ins, chunk=64)
+    g_k = torch.autograd.grad(y.sum() + st.sum(), ins)
+    assert dict(ops.launch_counts) == {"ssd_scan": 1}
+    y, st = tssd.ssd_scan_plain(*ins, chunk=64)
+    g_p = torch.autograd.grad(y.sum() + st.sum(), ins)
+    for a, b in zip(g_k, g_p):
+        _assert_close(a, b, 1e-4)
