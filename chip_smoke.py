@@ -28,7 +28,8 @@ non-zero (with no result line):
             shared attention block used 9 times), bfloat16, random weights
             from ``torch.Generator(device="cuda").manual_seed(0)``, 4 random
             prompts of 512 tokens. Prefill (``make_prefill_step``) must
-            launch K5 exactly 9 and K7 exactly 54 times. The serve loop of
+            launch K5 exactly 9 and K7 exactly 54 times, all through their
+            tensor-core route (``bf16_tc``). The serve loop of
             ``repro_torch.launch.serve`` feeds the 512 prompt tokens one per
             step and takes 32 greedy steps (33 tokens out): K6 must launch
             9 x 544 times. torch.profiler then reads the card's busy
@@ -49,9 +50,9 @@ non-zero (with no result line):
             port's ``TieredStore``, ``TieredDataLoader`` batch 4 x 512; 5
             steps through ``repro_torch.launch.train.train``, counts zeroed
             before and read after each: K5 exactly 18, K7 exactly 108
-            (forward and remat's recompute) and K3 exactly 95 (one per
-            leaf) per step, every loss finite. Then torch.profiler over one
-            step (busy share, device time in K3, K5, K7); every gradient
+            (forward and remat's recompute, all through ``bf16_tc``) and K3
+            exactly 95 (one per leaf) per step, every loss finite. Then
+            torch.profiler over one step (busy share, device time in K3, K5, K7); every gradient
             finite and non-zero for each leaf reached only through K5 or
             K7; a step with K3 held against its plain version on every
             leaf (identical int8 and scales) and error feedback
@@ -61,7 +62,9 @@ non-zero (with no result line):
             (rel 1e-4 and normwise 1e-3). Runs after phase 6, before 5.
 5. kernels  each kernel against its plain version on the card, at the
             shapes the main and serve paths gave it (recorded during phases
-            3 and 6) plus edge cases: K1 abs error <= 1e-5 and an identical
+            3 and 6) plus edge cases, K5 and K7 through both routes
+            (float32: ``f32``, bfloat16: ``bf16_tc``, each call's route
+            counted): K1 abs error <= 1e-5 and an identical
             ``w > 0`` pattern; K2 normwise relative error against a float64
             plain evaluation <= 1e-5 and at most twice the float32 plain
             version's (floored at float32's epsilon, 1.2e-7); K5 and K6 the
@@ -69,7 +72,10 @@ non-zero (with no result line):
             1e-4 in float32 (2e-2 for bfloat16 outputs). Then each kernel's
             time (CUDA events, warm-up first), the plain version's time, one
             PyTorch library call's time where one computes the same function
-            (``scaled_dot_product_attention`` for K5 and K6), and the bound:
+            (``scaled_dot_product_attention`` for K5 and K6); for K5 and K7
+            also their device time from torch.profiler (without the host's
+            time between calls), the share of the bound reached and K5's
+            ratio to the library call; and the bound:
             the bytes the function needs at 3.35 TB/s against its operations
             at the H100 SXM data-sheet rate for the inputs' type (67 TFLOP/s
             float32, 989 TFLOP/s bfloat16); each count is printed beside its
@@ -92,6 +98,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -153,6 +160,30 @@ def cuda_ms(fn, torch, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, torch, iters: int = 20):
+    """(milliseconds of device time per call of ``fn``, {device operation:
+    ms per call}) from torch.profiler over ``iters`` calls after one
+    warm-up: the kernels alone, without the host's time between them;
+    (None, {}) when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by[e.name] = by.get(e.name, 0.0) + e.device_time_total / iters / 1e3
+    return (sum(by.values()) if by else None), by
+
+
+def _short(by) -> str:
+    return "; ".join(f"{k.split('(')[0].replace('void ', '')} {v:.4f} ms"
+                     for k, v in by.items())
+
+
 def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
@@ -199,10 +230,18 @@ def phase_build(build):
     t0 = time.perf_counter()
     secs = build.build()
     for name in build.SOURCES:
+        # one line per kernel: its registers and spills (-Xptxas -v)
+        fn, spill = None, ""
         for line in build.build_log.get(name, "").splitlines():
-            if "ptxas info" in line and ("registers" in line
-                                         or "Compiling" in line):
-                say("build", f"{name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn, spill = m.group(1), ""
+            if "spill" in line:
+                spill = line.strip()
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                say("build", f"{name}: {fn}: {m.group(1)} registers; {spill}")
+                fn = None
         say("build", f"{name}: nvcc {secs[name]:.1f} s")
     say("build", f"{len(build.SOURCES)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
@@ -589,11 +628,13 @@ def _busy_share(torch, fn):
 
 def phase_serve(torch, recorded):
     from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import dtype_of
     from repro_torch.serving.decode import make_decode_step, make_prefill_step
 
     dev = torch.device(CARD)
@@ -639,6 +680,7 @@ def phase_serve(torch, recorded):
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
         prefill_launches = dict(ops.launch_counts)
+        prefill_routes = dict(ops.route_counts)
         cache = tr.init_cache(cfg, B, max_seq=P + T + 1, device=CARD)
         ops.reset_launch_counts()
         res = serve(make_decode_step(cfg), params, cache, prompts, T)
@@ -657,6 +699,11 @@ def phase_serve(torch, recorded):
     check(prefill_launches == {"flash_attention": n_attn, "ssd_scan": n_mamba},
           f"prefill launches {prefill_launches}, want flash_attention "
           f"{n_attn} and ssd_scan {n_mamba}")
+    want_routes = {"flash_attention.bf16_tc": n_attn,
+                   "ssd_scan.bf16_tc": n_mamba}
+    check(prefill_routes == want_routes,
+          f"bf16 prefill routes {prefill_routes}, want {want_routes}")
+    say("serve", f"prefill routes: {want_routes} (the tensor-core route)")
     loop_s = res.prompt_s + res.decode_s
     step_ms = loop_s / steps * 1e3
     say("serve", f"serve loop: {steps} decode steps ({P} prompt + {T - 1} "
@@ -704,6 +751,11 @@ def phase_serve(torch, recorded):
             out = make_prefill_step(c)(p, prompts)
             torch.cuda.synchronize()
             n = sum(ops.launch_counts.values())
+            route = _build.ROUTES[dtype_of(c.dtype)]
+            check(use_plain or dict(ops.route_counts) == {
+                f"flash_attention.{route}": n_attn,
+                f"ssd_scan.{route}": n_mamba},
+                  f"{c.dtype} prefill routes {dict(ops.route_counts)}")
         finally:
             if orig_p:
                 _swap(ops, orig_p)
@@ -796,6 +848,7 @@ def _flash_pairs(Sq, Sk, causal, window) -> int:
 
 def phase_model_kernels(torch, recorded, launches):
     import torch.nn.functional as F
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
@@ -806,6 +859,18 @@ def phase_model_kernels(torch, recorded, launches):
         torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
     attn_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
+    def routed(name, fn, dtype):
+        """fn() after zeroing the counts; the call must have taken
+        ``dtype``'s route of kernel ``name``, once."""
+        ops.reset_launch_counts()
+        out = fn()
+        route = f"{name}.{_build.ROUTES[dtype]}"
+        check(dict(ops.launch_counts) == {name: 1}
+              and dict(ops.route_counts) == {route: 1},
+              f"{name} in {dtype}: counts {dict(ops.launch_counts)}, routes "
+              f"{dict(ops.route_counts)}, want one launch through {route}")
+        return out
+
     # ---- edge cases, float32 and bfloat16
     n_edge = 0
     for dt in (torch.float32, torch.bfloat16):
@@ -815,12 +880,18 @@ def phase_model_kernels(torch, recorded, launches):
                 (1, 128, 128, 2, 2, 64, 64, True, None, 50.0),
                 (2, 64, 64, 4, 2, 48, 32, False, None, None),
                 (1, 40, 150, 4, 2, 80, 80, True, 70, 30.0),
-                (1, 64, 64, 2, 1, 256, 256, True, None, None)):
+                (1, 64, 64, 2, 1, 256, 256, True, None, None),
+                (1, 64, 64, 4, 2, 40, 24, True, None, None),
+                (1, 96, 96, 2, 2, 20, 20, True, None, None),
+                (2, 70, 70, 4, 4, 64, 64, True, None, None),
+                (1, 128, 128, 8, 2, 128, 128, True, None, None)):
             q, k, v = rnd(B, Sq, Hq, D, dtype=dt), rnd(B, Sk, Hkv, D, dtype=dt), \
                 rnd(B, Sk, Hkv, Dv, dtype=dt)
             kw = dict(causal=causal, window=window, softcap=cap)
-            _allclose(torch, fa.flash_attention_kernel(q, k, v, **kw),
-                      fa.flash_attention_plain(q, k, v, **kw), attn_tol[dt])
+            out = routed("flash_attention",
+                         lambda: fa.flash_attention_kernel(q, k, v, **kw), dt)
+            _allclose(torch, out, fa.flash_attention_plain(q, k, v, **kw),
+                      attn_tol[dt])
             n_edge += 1
         for B, S, Hq, Hkv, D, window, cap in (
                 (2, 256, 8, 2, 64, None, None), (1, 512, 4, 1, 128, None, None),
@@ -838,23 +909,28 @@ def phase_model_kernels(torch, recorded, launches):
         for b, s, h, p, grp, n, chunk, skip in (
                 (2, 48, 4, 16, 2, 8, 16, True), (1, 100, 3, 8, 1, 8, 32, True),
                 (2, 300, 4, 64, 1, 64, 128, True),
-                (1, 256, 2, 64, 1, 128, 128, False)):
+                (1, 256, 2, 64, 1, 128, 128, False),
+                (1, 64, 2, 8, 1, 8, 16, True),
+                (1, 256, 80, 64, 1, 64, 128, True)):
             x = rnd(b, s, h, p, dtype=dt)
             Bm, Cm = rnd(b, s, grp, n, dtype=dt, scale=0.5), \
                 rnd(b, s, grp, n, dtype=dt, scale=0.5)
             dtv = F.softplus(rnd(b, s, h)) * 0.5
             A = -torch.exp(rnd(h, scale=0.3))
             Dk = torch.ones(h, device=dev) if skip else None
-            y_k, st_k = ssd.ssd_scan_kernel(x, dtv, A, Bm, Cm, Dk, chunk=chunk)
+            y_k, st_k = routed("ssd_scan", lambda: ssd.ssd_scan_kernel(
+                x, dtv, A, Bm, Cm, Dk, chunk=chunk), dt)
             y_p, st_p = ssd.ssd_scan_plain(x, dtv, A, Bm, Cm, Dk, chunk=chunk)
             _allclose(torch, y_k, y_p, 1e-4 if dt == torch.float32 else 2e-2)
             _allclose(torch, st_k, st_p, 1e-4)
             n_edge += 1
     torch.cuda.synchronize()
-    say("kernels", f"K5/K6/K7 edge cases: {n_edge} shapes (GQA, MQA, windows, "
-        f"softcaps, Dv != D, heads of 80 and 256, Sq < Sk, ragged kv_len, "
-        f"grouped B/C, tail chunks, n = 128, no skip) in float32 and "
-        f"bfloat16, all within tolerance of the plain versions")
+    say("kernels", f"K5/K6/K7 edge cases: {n_edge} shapes (GQA 4:1 and MQA, "
+        f"windows, softcaps, Dv != D, D 40/Dv 24, D 20 (plain loads), heads "
+        f"of 80, 128 and 256, a ragged query tile, Sq < Sk, ragged kv_len, "
+        f"grouped B/C, tail chunks, p = n = 8 at chunk 16, 80 heads on one "
+        f"group, n = 128, no skip) in float32 (f32 route) and bfloat16 "
+        f"(bf16_tc route), all within tolerance of the plain versions")
 
     rows = []
     # ---- K5 at the prefill's shape
@@ -881,13 +957,31 @@ def phase_model_kernels(torch, recorded, launches):
     pairs = _flash_pairs(Sq, Sk, kw.get("causal", True), kw.get("window"))
     n_ops = float(B * Hq * pairs * (2 * D + 2 * Dv))
     b5, by5 = bound_ms(float(sum(need.values())), n_ops, _rate(torch, q.dtype))
+    dev5, by_dev5 = device_ms(lambda: fa.flash_attention_kernel(q, k, v, **kw),
+                              torch)
+    dev_lib = device_ms(sdpa, torch) if lib is not None else (None, {})
+    say("kernels", f"K5 shared memory per block "
+        f"{fa.flash_attention_smem_bytes(D, Dv, q.dtype):,} bytes; device "
+        f"time (torch.profiler, no host gaps): kernel "
+        f"{dev5 if dev5 is None else f'{dev5:.4f}'} ms ({_short(by_dev5)}); "
+        f"scaled_dot_product_attention "
+        f"{dev_lib[0] if dev_lib[0] is None else f'{dev_lib[0]:.4f}'} ms "
+        f"({_short(dev_lib[1])})")
+    f32 = [t.float() for t in (q, k, v)]
+    err32 = _allclose(torch, routed("flash_attention", lambda: fa.flash_attention_kernel(
+        *f32, **kw), torch.float32), fa.flash_attention_plain(*f32, **kw),
+        attn_tol[torch.float32])
     say("kernels", f"K5 flash_attention at the prefill's shape q "
         f"{tuple(q.shape)} k/v {tuple(k.shape)} {str(q.dtype)[6:]} {kw}: max "
-        f"abs err {err:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"scaled_dot_product_attention {lib if lib is None else f'{lib:.4f}'}"
-        f" ms, bound {b5:.5f} ms ({by5}; {_counts(need)} bytes, "
-        f"{n_ops:.0f} ops)")
+        f"abs err {err:.3e} ({_build.ROUTES[q.dtype]} route; f32 route on the "
+        f"same values cast {err32:.3e}); kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, scaled_dot_product_attention "
+        f"{lib if lib is None else f'{lib:.4f}'} ms"
+        + (f" (kernel / library {ms / lib:.3f})" if lib else "")
+        + f", bound {b5:.5f} ms ({by5}; {_counts(need)} bytes, {n_ops:.0f} "
+        f"ops), {100 * b5 / ms:.2f}% of the bound reached")
     rows.append(("flash_attention", err, ms, plain, b5, by5, lib))
+    device = {"flash_attention": (dev5, dev_lib[0])}
 
     # ---- K6 at the last decode step's shape
     (q, k, v, kv_len), kw = recorded["decode_attention"]
@@ -952,12 +1046,31 @@ def phase_model_kernels(torch, recorded, launches):
         n_ops += tri * 2 * n + tri * 2 * p + L * p * 2 * n + L * p * n * 2
     n_ops *= b * h
     b7, by7 = bound_ms(float(sum(need.values())), n_ops, _rate(torch, x.dtype))
+    dev7, by_dev7 = device_ms(lambda: ssd.ssd_scan_kernel(
+        x, dtv, A, Bm, Cm, Dk, chunk=chunk), torch)
+    say("kernels", f"K7 shared memory per block (the larger pass) "
+        f"{ssd.ssd_scan_smem_bytes(chunk, p, n, x.dtype):,} bytes; device "
+        f"time (torch.profiler, no host gaps): "
+        f"{dev7 if dev7 is None else f'{dev7:.4f}'} ms ({_short(by_dev7)})")
+    f32 = [t.float() for t in (x, dtv, A, Bm, Cm, Dk)]
+    y32, st32 = routed("ssd_scan", lambda: ssd.ssd_scan_kernel(
+        *f32, chunk=chunk), torch.float32)
+    y32p, st32p = ssd.ssd_scan_plain(*f32, chunk=chunk)
+    err32 = (_allclose(torch, y32, y32p, 1e-4), _allclose(torch, st32, st32p,
+                                                          1e-4))
+    scratch = (ssd.ssd_scan_scratch_bytes(b, s, h, p, Bm.shape[2], n, chunk)
+               if x.dtype == torch.bfloat16 else 0)
     say("kernels", f"K7 ssd_scan at the prefill's shape x {tuple(x.shape)} "
         f"B/C {tuple(Bm.shape)} chunk {chunk}: max abs err y {err:.3e}, "
-        f"state {err_st:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, no "
-        f"single PyTorch call computes it; bound {b7:.5f} ms ({by7}; "
-        f"{_counts(need)} bytes, {n_ops:.0f} ops)")
+        f"state {err_st:.3e} ({_build.ROUTES[x.dtype]} route; f32 route on the "
+        f"same values cast: y {err32[0]:.3e}, state {err32[1]:.3e}); kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, no single PyTorch call computes "
+        f"it; bound {b7:.5f} ms ({by7}; {_counts(need)} bytes, {n_ops:.0f} "
+        f"ops; the route's own float32 scratch, not counted in the bound: "
+        f"{scratch:,} bytes written and read back), {100 * b7 / ms:.2f}% of "
+        f"the bound reached")
     rows.append(("ssd_scan", err, ms, plain, b7, by7, None))
+    device["ssd_scan"] = (dev7, None)
 
     k5, k6, k7 = (r[2] for r in rows)
     pre = (launches["prefill"]["flash_attention"] * k5
@@ -971,12 +1084,17 @@ def phase_model_kernels(torch, recorded, launches):
     out_rows = []
     for name, err, ms, plain, b, by, lib in rows:
         n = launches["prefill" if name != "decode_attention" else "serve"]
-        out_rows.append({"name": name, "route": "cuda",
-                         "source": SOURCES[name][0],
-                         "replaces": SOURCES[name][1],
-                         "launches": int(n.get(name, 0)),
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                         "bound_ms": b, "bound_by": by, "library_ms": lib})
+        row = {"name": name, "route": "cuda", "source": SOURCES[name][0],
+               "replaces": SOURCES[name][1], "launches": int(n.get(name, 0)),
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "bound_ms": b, "bound_by": by, "library_ms": lib}
+        if name in ("flash_attention", "ssd_scan"):   # the two-route kernels
+            row["bound_share"] = b / ms
+            row["device_ms"], lib_dev = device[name]
+            if lib:
+                row["library_ratio"] = ms / lib
+                row["library_device_ms"] = lib_dev
+        out_rows.append(row)
     return out_rows
 
 
@@ -1061,7 +1179,7 @@ def phase_train(torch):
     per_step = []
 
     def on_step(i, m):
-        per_step.append(dict(ops.launch_counts))
+        per_step.append((dict(ops.launch_counts), dict(ops.route_counts)))
         ops.reset_launch_counts()
 
     ops.reset_launch_counts()
@@ -1070,13 +1188,18 @@ def phase_train(torch):
     state = res.state
     want = {"flash_attention": 2 * n_attn, "ssd_scan": 2 * n_mamba,
             "quant_pack": n_leaves}
-    for i, (loss, sec, counts) in enumerate(zip(res.losses, res.step_s,
-                                                per_step), 1):
+    want_routes = {"flash_attention.bf16_tc": 2 * n_attn,
+                   "ssd_scan.bf16_tc": 2 * n_mamba}
+    for i, (loss, sec, (counts, routes)) in enumerate(
+            zip(res.losses, res.step_s, per_step), 1):
         say("train", f"step {i}: loss {loss!r}, {sec:.4f} s, "
-            f"{res.tokens / sec:.1f} tokens/s, launches {counts}")
+            f"{res.tokens / sec:.1f} tokens/s, launches {counts}, routes "
+            f"{routes}")
         check(math.isfinite(loss), f"step {i}: loss {loss} not finite")
-        check(counts == want, f"step {i}: launches {counts}, want {want} "
-              f"(K5 and K7 twice per forward under remat, K3 once per leaf)")
+        check(counts == want and routes == want_routes,
+              f"step {i}: launches {counts}, routes {routes}, want {want} "
+              f"and {want_routes} (K5 and K7 twice per forward under remat, "
+              f"through the tensor-core route, K3 once per leaf)")
     steady = res.step_s[1:]
     say("train", f"{TRAIN_STEPS} steps: mean {sum(res.step_s) / TRAIN_STEPS:.4f}"
         f" s per step, {res.tokens_per_s:.1f} training tokens/s; steps 2-"
@@ -1096,7 +1219,9 @@ def phase_train(torch):
     # PyTorch's strided elementwise_kernel<128, ...> does the copies and
     # casts of non-contiguous tensors, vectorized_elementwise_kernel the
     # contiguous elementwise math
-    groups = {"K3": ("quant_pack",), "K5": ("flash",), "K7": ("ssd_kernel",),
+    groups = {"K3": ("quant_pack",), "K5": ("flash",),
+              "K7": ("ssd_kernel", "chunk_state_kernel", "state_pass_kernel",
+                     "chunk_scan_kernel"),
               "matmuls": ("nvjet", "gemm", "xmma", "cutlass", "cublas"),
               "reductions": ("reduce", "softmax", "norm", "scan"),
               "copies and casts": ("copy", "elementwise_kernel<128",
@@ -1176,7 +1301,8 @@ def phase_train(torch):
 
     shard = state["params"]["embed"].reshape(-1).view(torch.uint8)[:4 << 20] \
         .clone()
-    out = {"launches": {k: sum(c.get(k, 0) for c in per_step) for k in want},
+    out = {"launches": {k: sum(c.get(k, 0) for c, _ in per_step)
+                        for k in want},
            "per_step": want, "step_s": sum(steady) / len(steady),
            "k3_s": k3_s, "largest": k3["largest"], "shard": shard}
     # float32, one repeat unit: the loss and gradients through the kernels
@@ -1188,7 +1314,7 @@ def phase_train(torch):
     ops.reset_launch_counts()
     l_k, g_k = ts._grads(p32, b, cut, tcfg)
     torch.cuda.synchronize()
-    n_k = dict(ops.launch_counts)
+    n_k, r_k = dict(ops.launch_counts), dict(ops.route_counts)
     orig = _swap(ops, {"flash_attention": fa.flash_attention_plain,
                        "ssd_scan": lambda *a, **k: ssd.ssd_scan_plain(*a, **k)})
     try:
@@ -1198,8 +1324,10 @@ def phase_train(torch):
     u_attn = sum(k in ("attn", "attn_local", "shared_attn")
                  for k in cut.stages[0].unit)
     u_mamba = sum(k == "mamba" for k in cut.stages[0].unit)
-    check(n_k == {"flash_attention": 2 * u_attn, "ssd_scan": 2 * u_mamba},
-          f"float32 check launches {n_k}")
+    check(n_k == {"flash_attention": 2 * u_attn, "ssd_scan": 2 * u_mamba}
+          and r_k == {"flash_attention.f32": 2 * u_attn,
+                      "ssd_scan.f32": 2 * u_mamba},
+          f"float32 check launches {n_k}, routes {r_k}")
     e_loss = abs(float(l_k) - float(l_p)) / abs(float(l_p))
     e_grad = max((_normwise(a, b_), n) for (n, a), (_, b_) in
                  zip(_named_leaves(g_k), _named_leaves(g_p)))

@@ -2,16 +2,21 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and no PyTorch headers;
 ``nvcc`` builds it into ``lib<name>-<hash>.so`` (seconds for the placement
-kernels, about half a minute for the attention kernels, which instantiate
-one kernel per dtype and head-width class) under the build directory
+kernels, longer for the attention and SSD kernels, which instantiate one
+kernel per route and width class) under the build directory
 (``<repo>/build/repro_torch`` unless ``REPRO_TORCH_BUILD_DIR`` says
-otherwise). The hash is of the source, so an edited source is rebuilt
-on its next use. Libraries are loaded with ``ctypes``; pointers and the
+otherwise). The hash is of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is rebuilt on its next
+use. Libraries are loaded with ``ctypes``; pointers and the
 stream are passed as ``ctypes.c_void_p``, and every C entry returns
 ``cudaGetLastError()`` for the wrapper to check.
 
 ``launch_counts`` counts launches per kernel: each wrapper adds one where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else, once per call whatever number of
+CUDA launches the call makes. A kernel with more than one route (K5 and K7:
+``bf16_tc`` for bfloat16, ``f32`` for float32, :data:`ROUTES`) also adds one
+to ``route_counts["<name>.<route>"]``; :func:`reset_launch_counts` clears
+both.
 """
 
 from __future__ import annotations
@@ -37,11 +42,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel name -> launches since the last reset
 launch_counts: "collections.Counter[str]" = collections.Counter()
+#: "<kernel>.<route>" -> launches since the last reset (K5 and K7)
+route_counts: "collections.Counter[str]" = collections.Counter()
 #: source name -> nvcc's output (the ``-Xptxas -v`` register/smem report)
 build_log: Dict[str, str] = {}
 
 #: the ``dtype`` argument of the attention and SSD entries
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the route each dtype takes in K5 and K7: the CUDA-core kernel for
+#: float32, the tensor-core kernel for bfloat16
+ROUTES = {torch.float32: "f32", torch.bfloat16: "bf16_tc"}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -49,6 +59,7 @@ _lock = threading.Lock()
 
 def reset_launch_counts() -> None:
     launch_counts.clear()
+    route_counts.clear()
 
 
 def build_dir() -> Path:
@@ -72,7 +83,10 @@ def nvcc() -> str:
 def library_path(name: str) -> Tuple[Path, Path]:
     """``(source, shared library)`` for ``csrc/<name>.cu``."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return src, build_dir() / f"lib{name}-{digest}.so"
 
 

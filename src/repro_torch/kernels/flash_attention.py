@@ -9,7 +9,9 @@ softcap comes after the scale and before the mask, and with ``causal`` a
 ``window`` keeps the last ``window`` positions.
 
 * :func:`flash_attention_kernel` launches ``csrc/flash_attention.cu`` on
-  CUDA tensors (it raises for anything else);
+  CUDA tensors (it raises for anything else): bfloat16 takes the
+  tensor-core route (``bf16_tc``: mma.sync, cp.async), float32 the
+  CUDA-core kernel (``f32``);
 * :func:`flash_attention_plain` is the same function in tensor ops, with
   the (B, Hkv, rep, Sq, Sk) scores materialised, used for CPU tensors and
   as the kernel's yardstick on the card;
@@ -66,6 +68,8 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.argtypes = [p, p, p, p] + [i] * 9 \
             + [f, f, i, p]
         lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [i, i, i]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_longlong
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -126,7 +130,15 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash attention kernel launch failed: "
                            f"{lib.flash_attention_error_string(rc).decode()}")
     _build.launch_counts["flash_attention"] += 1
+    _build.route_counts[f"flash_attention.{_build.ROUTES[q.dtype]}"] += 1
     return out
+
+
+def flash_attention_smem_bytes(D: int, Dv: int, dtype: torch.dtype) -> int:
+    """Shared memory one block of the kernel takes for head widths D, Dv
+    in ``dtype``'s route (CUDA build needed)."""
+    return int(_lib().flash_attention_smem_bytes(D, Dv,
+                                                 _build.DTYPE_CODES[dtype]))
 
 
 class FlashAttentionFn(torch.autograd.Function):

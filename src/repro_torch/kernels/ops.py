@@ -25,7 +25,9 @@ device, as in the JAX package.
 counts kernel launches by name: ``"overlap"`` (K1),
 ``"entropy_features"`` (K2), ``"quant_pack"`` (K3), ``"byte_entropy"``
 (K4), ``"flash_attention"`` (K5), ``"decode_attention"`` (K6) and
-``"ssd_scan"`` (K7).
+``"ssd_scan"`` (K7). ``route_counts`` counts the calls of K5 and K7 by
+the route their dtype chose: ``"<name>.bf16_tc"`` (bfloat16, the
+tensor-core kernels) or ``"<name>.f32"`` (float32, the CUDA-core kernels).
 """
 
 from __future__ import annotations
@@ -41,12 +43,13 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import overlap as _ov
 from repro_torch.kernels import quant_pack as _qp
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels._build import launch_counts, reset_launch_counts
+from repro_torch.kernels._build import (launch_counts, reset_launch_counts,
+                                        route_counts)
 
 __all__ = ["fractional_overlap_matrix", "weighted_entropy_features",
            "byte_entropy", "quant_pack", "quant_unpack", "flash_attention",
            "decode_attention", "ssd_scan", "ssd_step", "launch_counts",
-           "reset_launch_counts"]
+           "route_counts", "reset_launch_counts"]
 
 
 def _on(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:

@@ -23,6 +23,7 @@ from repro_torch.core.costs import azure_table
 from repro_torch.data import tpch
 from repro_torch.data.tables import Table
 from repro_torch.configs.registry import get_config
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import entropy_features as tef
 from repro_torch.kernels import flash_attention as tfa
@@ -200,6 +201,10 @@ def _assert_close(got, want, tol):
     (2, 200, 200, 8, 8, 80, 80, True, None, None),     # zamba2's 80 wide
     (1, 40, 150, 4, 2, 80, 80, True, 70, 30.0),        # queries at the end
     (1, 64, 64, 2, 1, 256, 256, True, None, None),     # widest heads
+    (1, 64, 64, 4, 2, 40, 24, True, None, None),       # D, Dv % 16 != 0
+    (1, 96, 96, 2, 2, 20, 20, True, None, None),       # D % 8 != 0: plain loads
+    (2, 70, 70, 4, 4, 64, 64, True, None, None),       # ragged query tile
+    (1, 128, 128, 8, 2, 128, 128, True, None, None),   # D 128, GQA 4:1
 ])
 def test_flash_kernel_matches_plain(card, B, Sq, Sk, Hq, Hkv, D, Dv, causal,
                                     window, softcap, dtype):
@@ -210,6 +215,8 @@ def test_flash_kernel_matches_plain(card, B, Sq, Sk, Hq, Hkv, D, Dv, causal,
     out = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert ops.launch_counts["flash_attention"] == 1
+    assert dict(ops.route_counts) == {
+        f"flash_attention.{_build.ROUTES[dtype]}": 1}
     assert out.dtype == dtype and out.shape == (B, Sq, Hq, Dv)
     _assert_close(out, tfa.flash_attention_plain(q, k, v, **kw),
                   ATTN_TOL[dtype])
@@ -246,6 +253,8 @@ def test_decode_kernel_matches_plain(card, B, S, Hq, Hkv, D, window, softcap,
     (1, 100, 3, 8, 1, 8, 32, True),      # ragged tail chunk
     (2, 300, 4, 64, 1, 64, 128, True),   # zamba2's widths, tail chunk
     (1, 256, 2, 64, 1, 128, 128, False), # mamba2-780m's state, no skip
+    (1, 64, 2, 8, 1, 8, 16, True),       # p = n = 8: tiles padded to 16
+    (1, 256, 80, 64, 1, 64, 128, True),  # zamba2's 80 heads on one group
 ])
 def test_ssd_kernel_matches_plain(card, b, s, h, p, g, n, chunk, skip, dtype):
     rng = np.random.default_rng(13)
@@ -260,6 +269,7 @@ def test_ssd_kernel_matches_plain(card, b, s, h, p, g, n, chunk, skip, dtype):
     y, st = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
     torch.cuda.synchronize()
     assert ops.launch_counts["ssd_scan"] == 1
+    assert dict(ops.route_counts) == {f"ssd_scan.{_build.ROUTES[dtype]}": 1}
     y_p, st_p = tssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
     assert y.dtype == dtype and st.dtype == torch.float32
     _assert_close(y, y_p, SSD_TOL[dtype])
@@ -278,6 +288,8 @@ def test_zamba2_serving_on_card_matches_cpu(card):
     ops.reset_launch_counts()
     logits = make_prefill_step(cfg)(on_card, prompts.to(card))
     assert dict(ops.launch_counts) == {"flash_attention": 2, "ssd_scan": 12}
+    assert dict(ops.route_counts) == {"flash_attention.f32": 2,
+                                      "ssd_scan.f32": 12}
     _assert_close(logits, make_prefill_step(cfg)(params, prompts), 1e-4)
     runs = {}
     for dev, p in (("cpu", params), (card, on_card)):
@@ -286,6 +298,38 @@ def test_zamba2_serving_on_card_matches_cpu(card):
                                prompts[:, :20].to(dev), 5)
     assert torch.equal(runs["cuda"].tokens.cpu(), runs["cpu"].tokens)
     assert ops.launch_counts["decode_attention"] == 2 * 24
+
+
+def test_zamba2_bf16_prefill_takes_the_tensor_core_route(card):
+    """The smoke-size zamba2 in bfloat16 on the card: K5 and K7 run their
+    tensor-core route, and the logits agree with the same prefill through
+    the plain versions within chip_smoke.py's bfloat16 bar (0.15
+    normwise)."""
+    cfg = get_config("zamba2-2.7b", smoke=True).scaled(dtype="bfloat16")
+    params = ttr.init_params(torch.Generator(device=card).manual_seed(0),
+                             cfg, device=card)
+    prompts = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 140)), device=card)
+    ops.reset_launch_counts()
+    logits = make_prefill_step(cfg)(params, prompts)
+    torch.cuda.synchronize()
+    assert dict(ops.launch_counts) == {"flash_attention": 2, "ssd_scan": 12}
+    assert dict(ops.route_counts) == {"flash_attention.bf16_tc": 2,
+                                      "ssd_scan.bf16_tc": 12}
+    swapped = {"flash_attention": tfa.flash_attention_plain,
+               "ssd_scan": lambda *a, **k: tssd.ssd_scan_plain(*a, **k)}
+    orig = {n: getattr(ops, n) for n in swapped}
+    try:
+        for n, fn in swapped.items():
+            setattr(ops, n, fn)
+        plain = make_prefill_step(cfg)(params, prompts)
+    finally:
+        for n, fn in orig.items():
+            setattr(ops, n, fn)
+    assert bool(logits.isfinite().all())
+    err = (logits.float() - plain.float()).abs().max() \
+        / plain.float().abs().max()
+    assert float(err) <= 0.15
 
 
 def test_zamba2_train_step_on_card_matches_cpu(card):
@@ -318,6 +362,8 @@ def test_zamba2_train_step_on_card_matches_cpu(card):
         assert dict(ops.launch_counts) == {"flash_attention": 4,
                                            "ssd_scan": 24,
                                            "quant_pack": n_leaves}
+        assert dict(ops.route_counts) == {"flash_attention.f32": 4,
+                                          "ssd_scan.f32": 24}
         assert float(m_d["loss"]) == pytest.approx(float(m_c["loss"]),
                                                    rel=1e-4)
     for a, b in zip(tree_leaves(dev["opt"].m), tree_leaves(cpu["opt"].m)):
@@ -376,6 +422,7 @@ def test_attention_and_ssd_gradients_on_card(card):
     ops.reset_launch_counts()
     g_k = torch.autograd.grad(ops.flash_attention(*ins, **kw), ins, go)
     assert dict(ops.launch_counts) == {"flash_attention": 1}
+    assert dict(ops.route_counts) == {"flash_attention.f32": 1}
     g_p = torch.autograd.grad(tfa.flash_attention_plain(*ins, **kw), ins, go)
     for a, b in zip(g_k, g_p):
         _assert_close(a, b, 1e-4)
@@ -390,6 +437,7 @@ def test_attention_and_ssd_gradients_on_card(card):
     y, st = ops.ssd_scan(*ins, chunk=64)
     g_k = torch.autograd.grad(y.sum() + st.sum(), ins)
     assert dict(ops.launch_counts) == {"ssd_scan": 1}
+    assert dict(ops.route_counts) == {"ssd_scan.f32": 1}
     y, st = tssd.ssd_scan_plain(*ins, chunk=64)
     g_p = torch.autograd.grad(y.sum() + st.sum(), ins)
     for a, b in zip(g_k, g_p):
