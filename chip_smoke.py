@@ -11,7 +11,11 @@ non-zero (with no result line):
             limit; no card is a failure.
 2. build    all seven kernels from ``src/repro_torch/kernels/csrc``, one
             nvcc per source, all started together (``-Xptxas -v``
-            register/shared-memory lines, build seconds).
+            register/shared-memory lines, build seconds); K6's split kernel
+            at the serve loop's cache (registers, shared memory, stages,
+            splits) and K2's cluster kernel at a replicated and a
+            distributed plan (registers, shared memory, cluster size and
+            the clusters that fit on the card at once).
 3. main     TPC-H SF0.1 (600,000 lineitem rows, 440 queries, 500 rows per
             file), an SVR COMPREDICT predictor fitted on 80 query samples,
             and three ``paper_variants`` rows on ``device="cuda"`` with
@@ -75,7 +79,11 @@ non-zero (with no result line):
             (``scaled_dot_product_attention`` for K5 and K6); for K5 and K7
             also their device time from torch.profiler (without the host's
             time between calls), the share of the bound reached and K5's
-            ratio to the library call; and the bound:
+            ratio to the library call; the same for K6 (and its library
+            call) at the last serve step (kv_len 544) and at kv_len 64 and
+            272 in that cache, and K2's device time per main-path class; K2 and
+            K6 give identical bits on a second call, K6 exactly 0 where
+            kv_len is 0; and the bound:
             the bytes the function needs at 3.35 TB/s against its operations
             at the H100 SXM data-sheet rate for the inputs' type (67 TFLOP/s
             float32, 989 TFLOP/s bfloat16); each count is printed beside its
@@ -245,6 +253,32 @@ def phase_build(build):
         say("build", f"{name}: nvcc {secs[name]:.1f} s")
     say("build", f"{len(build.SOURCES)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
+    # K6 at the serve loop's cache (phase serve), K2 at one vocabulary of
+    # each plan: its registers, shared memory and cluster, from the library
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import entropy_features as ef
+    cfg = get_config(ARCH)
+    S = SERVE_PROMPT + SERVE_STEPS + 2
+    i6 = da.decode_attention_info(S, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, cfg.head_dim,
+                                  torch.bfloat16, B=SERVE_BATCH)
+    say("build", f"decode_attention split kernel at the serve cache (B "
+        f"{SERVE_BATCH}, S {S}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, bf16): {i6['registers']} registers, "
+        f"{i6['smem_bytes']:,} bytes of shared memory per block, "
+        f"{i6['stages']} stage(s) a warp; splits of {i6['split']} keys, "
+        f"{i6['splits']} splits, plus one merge launch")
+    # the main path's class 2 and class 1 shapes (V values, M codes)
+    for V, M in ((15_005, 1_200_000), (583_182, 1_800_000)):
+        i2 = ef.weighted_entropy_features_info(V, M=M)
+        say("build", f"entropy_features at V {V:,}, M {M:,}, one bucket: "
+            f"{'replicated' if i2['replicated'] else 'distributed'} plan, "
+            f"{i2['slices']} slice(s) of {i2['span']:,} values; cluster of "
+            f"{i2['cluster']} blocks ({i2['max_active_clusters']} such "
+            f"clusters fit on the card at once), {i2['registers']} registers, "
+            f"{i2['smem_bytes']:,} bytes of shared memory per block")
 
 
 def make_inputs():
@@ -507,6 +541,7 @@ def phase_kernels(torch, recorded, launches):
     cases = [(f"main class {i}", a) for i, (a, _) in enumerate(main_calls)]
     cases += list(edge.items())
     k2_err, k2_ms, k2_plain, k2_bytes, k2_ops = 0.0, 0.0, 0.0, 0.0, 0.0
+    k2_dev = 0.0
     for tag, a in cases:
         t = [torch.as_tensor(np.asarray(x), dtype=dt, device=dev).contiguous()
              for x, dt in zip(a, (torch.int32,) * 4 + (torch.float32,))]
@@ -529,10 +564,15 @@ def phase_kernels(torch, recorded, launches):
             line = (f"K2 entropy {tag} nb={nb}: codes {tuple(t[0].shape)}, "
                     f"V={t[4].shape[-1]}: max abs err {err:.3e}, rel err "
                     f"{kr:.3e} (f32 plain {pr:.3e})")
+            s_2, b_2 = ef.weighted_entropy_features_kernel(*t, n_buckets=nb)
+            check(torch.equal(s_k, s_2) and torch.equal(b_k, b_2),
+                  f"K2 {tag} nb={nb}: two calls differ")
             if tag.startswith("main") and nb == 1:
                 k2_err = max(k2_err, err)
-                ms = cuda_ms(lambda: ef.weighted_entropy_features_kernel(
-                    *t, n_buckets=1), torch, iters=10)
+                call = lambda: ef.weighted_entropy_features_kernel(
+                    *t, n_buckets=1)
+                ms = cuda_ms(call, torch, iters=10)
+                dev_ms, by_dev = device_ms(call, torch, iters=10)
                 plain = cuda_ms(lambda: ef.weighted_entropy_features_plain(
                     *t, n_buckets=1), torch, iters=5)
                 need, distinct = _k2_needed(t, n_buckets=1)
@@ -542,15 +582,27 @@ def phase_kernels(torch, recorded, launches):
                 n_ops = 21.0 * distinct
                 b, by = bound_ms(n_bytes, n_ops)
                 k2_ms, k2_plain = k2_ms + ms, k2_plain + plain
+                k2_dev = (None if dev_ms is None or k2_dev is None
+                          else k2_dev + dev_ms)
                 k2_bytes, k2_ops = k2_bytes + n_bytes, k2_ops + n_ops
-                line += (f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                plan = ef.weighted_entropy_features_info(
+                    t[4].shape[-1], M=t[0].shape[1])
+                line += (f"; {'replicated' if plan['replicated'] else 'distributed'}"
+                         f" plan, {plan['slices']} slice(s) of "
+                         f"{plan['span']:,} values; kernel {ms:.4f} ms "
+                         f"(device {dev_ms if dev_ms is None else f'{dev_ms:.4f}'}"
+                         f" ms: {_short(by_dev)}), plain {plain:.4f} ms, bound "
                          f"{b:.5f} ms ({by}; {_counts(need)} bytes, "
                          f"{n_ops:.0f} ops)")
-            say("kernels", line)
+            say("kernels", line + "; identical on a second call")
     b2, by2 = bound_ms(k2_bytes, k2_ops)
     say("kernels", f"K2 over the three classes of one feature pass: kernel "
-        f"{k2_ms:.4f} ms, plain {k2_plain:.4f} ms, bound {b2:.5f} ms ({by2}; "
-        f"{k2_bytes:.0f} bytes, {k2_ops:.0f} ops)")
+        f"{k2_ms:.4f} ms (device "
+        f"{k2_dev if k2_dev is None else f'{k2_dev:.4f}'} ms), plain "
+        f"{k2_plain:.4f} ms, bound {b2:.5f} ms ({by2}; {k2_bytes:.0f} bytes, "
+        f"{k2_ops:.0f} ops), {100 * b2 / k2_ms:.2f}% of the bound reached "
+        f"({'not measured' if k2_dev is None else f'{100 * b2 / k2_dev:.2f}%'}"
+        f" in device time)")
     err1, ms1, plain1, b1, by1 = k1["main"]
     for name, err, ms, plain, b, by in (
             ("overlap", err1, ms1, plain1, b1, by1),
@@ -560,6 +612,8 @@ def phase_kernels(torch, recorded, launches):
                      "launches": int(launches.get(name, 0)),
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": b, "bound_by": by, "library_ms": None})
+    # K2's row: the three classes of one pass (one launch each)
+    rows[-1].update(bound_share=b2 / k2_ms, device_ms=k2_dev)
     return rows
 
 
@@ -895,16 +949,27 @@ def phase_model_kernels(torch, recorded, launches):
             n_edge += 1
         for B, S, Hq, Hkv, D, window, cap in (
                 (2, 256, 8, 2, 64, None, None), (1, 512, 4, 1, 128, None, None),
-                (3, 200, 8, 8, 32, 64, None), (2, 100, 12, 2, 80, 30, 50.0)):
+                (3, 200, 8, 8, 32, 64, None), (2, 100, 12, 2, 80, 30, 50.0),
+                (3, 300, 4, 4, 64, 50, None), (1, 4100, 8, 1, 128, None, None),
+                (3, 97, 16, 2, 32, 40, 30.0), (3, 130, 4, 2, 20, None, None)):
             q, k, v = rnd(B, Hq, D, dtype=dt), rnd(B, S, Hkv, D, dtype=dt), \
                 rnd(B, S, Hkv, D, dtype=dt)
             lens = torch.randint(window or 1, S + 1, (B,), generator=g,
                                  device=dev, dtype=torch.int32)
             lens[0] = S
+            if B > 2:
+                lens[-1] = 0             # no visible key: o = 0
             kw = dict(window=window, softcap=cap)
-            _allclose(torch, da.decode_attention_kernel(q, k, v, lens, **kw),
-                      da.decode_attention_plain(q, k, v, lens, **kw),
+            out = da.decode_attention_kernel(q, k, v, lens, **kw)
+            seen = lens > 0
+            _allclose(torch, out[seen],
+                      da.decode_attention_plain(q, k, v, lens, **kw)[seen],
                       attn_tol[dt])
+            check(not bool(out[~seen].float().any())
+                  and torch.equal(out, da.decode_attention_kernel(
+                      q, k, v, lens, **kw)),
+                  f"K6 edge {B, S, Hq, Hkv, D}: kv_len 0 gives non-zero "
+                  f"output, or two calls differ")
             n_edge += 1
         for b, s, h, p, grp, n, chunk, skip in (
                 (2, 48, 4, 16, 2, 8, 16, True), (1, 100, 3, 8, 1, 8, 32, True),
@@ -928,6 +993,8 @@ def phase_model_kernels(torch, recorded, launches):
     say("kernels", f"K5/K6/K7 edge cases: {n_edge} shapes (GQA 4:1 and MQA, "
         f"windows, softcaps, Dv != D, D 40/Dv 24, D 20 (plain loads), heads "
         f"of 80, 128 and 256, a ragged query tile, Sq < Sk, ragged kv_len, "
+        f"K6: kv_len 0 (exactly 0), a window inside a split, 65 splits, 8 "
+        f"query heads a KV head, identical on a second call, "
         f"grouped B/C, tail chunks, p = n = 8 at chunk 16, 80 heads on one "
         f"group, n = 128, no skip) in float32 (f32 route) and bfloat16 "
         f"(bf16_tc route), all within tolerance of the plain versions")
@@ -992,31 +1059,57 @@ def phase_model_kernels(torch, recorded, launches):
     out = da.decode_attention_kernel(q, k, v, lens, **kw)
     err = _allclose(torch, out, da.decode_attention_plain(q, k, v, lens, **kw),
                     attn_tol[q.dtype])
-    ms = cuda_ms(lambda: da.decode_attention_kernel(q, k, v, lens, **kw), torch)
+    check(torch.equal(out, da.decode_attention_kernel(q, k, v, lens, **kw)),
+          "K6: two calls on the same input differ")
+    el = q.element_size()
+    sweep = {}
+    # the last step's kv_len (544), then the loop's range in the same cache
+    for L in [None, 64, 272]:
+        ln = lens if L is None else torch.full_like(lens, L)
+        call = lambda: da.decode_attention_kernel(q, k, v, ln, **kw)
+        o_l = call()
+        _allclose(torch, o_l, da.decode_attention_plain(q, k, v, ln, **kw),
+                  attn_tol[q.dtype])
+        ms = cuda_ms(call, torch)
+        dev_l, by_l = device_ms(call, torch)
+        visible = int(ln.clamp(0, S).sum())
+        need = {"q": q.numel() * el,
+                "k/v rows": visible * Hkv * (D + Dv) * el,
+                "kv_len": 4 * B, "o": o_l.numel() * el}
+        n_ops = float(visible * Hq * (2 * D + 2 * Dv))
+        b_l, by_b = bound_ms(float(sum(need.values())), n_ops,
+                             _rate(torch, q.dtype))
+        lib = lib_dev = None
+        if kw.get("window") is None and kw.get("softcap") is None:
+            mask = (torch.arange(S, device=dev)[None, :]
+                    < ln[:, None].long())[:, None, None, :]
+            qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv)
+            _allclose(torch, sdpa()[:, :, 0], o_l, attn_tol[q.dtype])
+            lib = cuda_ms(sdpa, torch)
+            lib_dev = device_ms(sdpa, torch)[0]
+        sweep[L] = (ms, dev_l, b_l, by_b, lib, lib_dev, need, n_ops)
+        fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+        say("kernels", f"K6 at kv_len "
+            f"{lens.tolist() if L is None else L} (cache {tuple(k.shape)}): "
+            f"kernel {ms:.4f} ms, device {fmt(dev_l)} ({_short(by_l)}); "
+            f"scaled_dot_product_attention with a kv_len mask {fmt(lib)}, "
+            f"device {fmt(lib_dev)}; bound {b_l:.5f} ms ({by_b}; "
+            f"{_counts(need)} bytes, {n_ops:.0f} ops), "
+            f"{100 * b_l / ms:.2f}% of the bound reached"
+            + (f" ({100 * b_l / dev_l:.2f}% in device time)" if dev_l else ""))
+    ms, dev6, b6, by6, lib, lib_dev6, need, n_ops = sweep[None]
     plain = cuda_ms(lambda: da.decode_attention_plain(q, k, v, lens, **kw),
                     torch)
-    lib = None
-    if kw.get("window") is None and kw.get("softcap") is None:
-        mask = (torch.arange(S, device=dev)[None, :]
-                < lens[:, None].long())[:, None, None, :]
-        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        sdpa = lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv)
-        _allclose(torch, sdpa()[:, :, 0], out, attn_tol[q.dtype])
-        lib = cuda_ms(sdpa, torch)
-    el = q.element_size()
-    visible = int(lens.clamp(0, S).sum())
-    need = {"q": q.numel() * el, "k/v rows": visible * Hkv * (D + Dv) * el,
-            "kv_len": 4 * B, "o": out.numel() * el}
-    n_ops = float(visible * Hq * (2 * D + 2 * Dv))
-    b6, by6 = bound_ms(float(sum(need.values())), n_ops, _rate(torch, q.dtype))
     say("kernels", f"K6 decode_attention at the last serve step's shape q "
         f"{tuple(q.shape)} cache {tuple(k.shape)} kv_len {lens.tolist()}: max "
-        f"abs err {err:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"scaled_dot_product_attention with a kv_len mask "
-        f"{lib if lib is None else f'{lib:.4f}'} ms, bound {b6:.5f} ms "
+        f"abs err {err:.3e}, identical on a second call; kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, scaled_dot_product_attention with a kv_len "
+        f"mask {lib if lib is None else f'{lib:.4f}'} ms, bound {b6:.5f} ms "
         f"({by6}; {_counts(need)} bytes, {n_ops:.0f} ops)")
     rows.append(("decode_attention", err, ms, plain, b6, by6, lib))
+    device["decode_attention"] = (dev6, lib_dev6)
 
     # ---- K7 at the prefill's shape
     (x, dtv, A, Bm, Cm, Dk), kw = recorded["ssd_scan"]
@@ -1088,7 +1181,7 @@ def phase_model_kernels(torch, recorded, launches):
                "replaces": SOURCES[name][1], "launches": int(n.get(name, 0)),
                "max_abs_err": err, "ms": ms, "plain_ms": plain,
                "bound_ms": b, "bound_by": by, "library_ms": lib}
-        if name in ("flash_attention", "ssd_scan"):   # the two-route kernels
+        if name in device:
             row["bound_share"] = b / ms
             row["device_ms"], lib_dev = device[name]
             if lib:

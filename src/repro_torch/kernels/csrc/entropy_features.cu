@@ -11,75 +11,87 @@
 //   natural log and p > 0 guards. The TPU version scattered counts through a
 //   one-hot matrix product into a VMEM histogram.
 //
-// What bounds it here: memory. Each code is read once and costs one atomic;
-//   the histogram is re-read three times by the reduction. At the main path's
-//   shapes the vocabulary of one partition reaches ~5.8e5 values (2.3 MB of
-//   counts), ten times the 227 KB of shared memory a block can hold, so the
-//   histogram lives in device memory (and mostly in the 50 MB L2).
+// What bounds it here: memory. Each code inside n_valid is read once, and
+//   the length of each value that occurs; the counting is one shared-memory
+//   atomic per code. At the main path's shapes one partition's vocabulary
+//   reaches ~5.8e5 values (2.3 MB of counts), ten times the 227 KB of
+//   shared memory one block holds, so one block cannot keep a partition's
+//   histogram on chip; a thread block cluster can.
 //
-// Design: two launches.
-//   (a) wef_histogram_kernel: grid (chunks of M) x partitions; each thread
-//       takes positions with a grid stride, computes its bucket from the
-//       integer edges and atomicAdds an int32 count into the global
-//       (N, n_buckets, V) histogram. Integer atomics make the counts exact and
-//       independent of their order.
-//   (b) wef_reduce_kernel: one block per partition; each thread sums a strided
-//       slice of the vocabulary, then a fixed warp-shuffle + shared-memory tree
-//       combines the partial sums, so the result is the same on every run.
-//       Each term is computed in float32, as the TPU kernel does, but the sums
-//       run in float64: a thread's slice holds ~570 terms at the main path's
-//       largest vocabulary, and a float32 running sum over that many terms
-//       lost more than twice the accuracy of PyTorch's own float32 reduction.
+// Design: the vocabulary is cut into slices of `span` values, one cluster
+//   of kCluster = 8 blocks per (partition, slice); grid (8 x slices,
+//   partitions). The cluster's blocks share the partition's positions, 16
+//   bytes of codes a thread a step, the next step's load issued before this
+//   step's counting; codes outside the slice are skipped. Block rank r owns
+//   the values of the slice at offsets r, r + 8, r + 16, ... (no division
+//   to find an owner), for which it reduces the entropy terms. Two ways to
+//   count, chosen by size:
+//   - replicated (n_buckets * V <= kMaxBins: one slice, the whole
+//     vocabulary): every block keeps the slice's (nb, span) bins in its own
+//     shared memory and counts its positions there with shared-memory
+//     atomics; after cluster.sync() each block sums the 8 copies of the
+//     values it owns through distributed shared memory (map_shared_rank).
+//   - distributed (larger): the slice's (nb, span) bins are spread over the
+//     cluster, each block holding the (nb, span / 8) bins of the values it
+//     owns (up to 192 KB, so a slice holds 8 x 49,152 bins), and a code is
+//     added into its owner's shared memory through distributed shared
+//     memory (atomicAdd on the mapped address). The lanes of a warp that
+//     add to one bin are found with __match_any_sync and one of them adds
+//     their count, which takes the pressure off hot values there (in
+//     replicated mode the same aggregation made the main path's class 2
+//     slower).
+//     These adds cross SMs, slower than local ones, and one partition may
+//     hold most of a class's codes (3.0 of 7.2 million in the main path's
+//     class 0), so the wrapper's plan also cuts the vocabulary into more
+//     slices than the bins need, until a block adds at most 65,536 of the
+//     largest partition's codes: more clusters share it, each re-reading
+//     its codes. Blocks that own their values and each read all the codes,
+//     counting with local atomics only, were slower on the main path.
+//   Integer atomics make the counts exact and independent of their order.
+//   The per-bucket totals are counted from the codes by every cluster (a
+//   thread keeps a run count while its bucket does not change) and summed
+//   over the cluster.
+//   Each block then walks only the values it owns: each term in float32, as
+//   the TPU kernel does, the sums in float64 (a float32 running sum over the
+//   main path's vocabularies lost more than twice the accuracy of PyTorch's
+//   float32 reduction), combined over the block by a fixed shuffle and
+//   shared-memory tree into 4 + nb partial sums written to scratch. A second
+//   launch adds each partition's partials in (slice, rank) order and writes
+//   summary and bucket_h. No float atomics and no histogram in device
+//   memory: two calls on the same input give identical bits.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "tc_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kHistThreads = 256;
-constexpr int kHistMaxBlocks = 4096;
-constexpr int kReduceThreads = 1024;
+constexpr int kCluster = 8;            // blocks per cluster (portable size)
+constexpr int kShift = 3;              // log2(kCluster)
+constexpr int kThreads = 1024;
 constexpr int kMaxBuckets = 16;
+constexpr int kMaxBins = 49152;        // int32 bins a block holds (192 KB)
+constexpr int kCombineThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kHistThreads)
-wef_histogram_kernel(const int* __restrict__ codes,    // (N, M)
-                     const int* __restrict__ n_valid,  // (N,)
-                     const int* __restrict__ n_rows,   // (N,)
-                     const int* __restrict__ n_cols,   // (N,)
-                     int m, int v, int n_buckets,
-                     int* __restrict__ hist)           // (N, nb, V)
-{
-    const int i = blockIdx.y;
-    const int nv = min(n_valid[i], m);
-    const int nr = n_rows[i];
-    const int nc = max(n_cols[i], 1);
-    const int* row = codes + (size_t)i * m;
-    int* h = hist + (size_t)i * n_buckets * v;
-    for (int pos = blockIdx.x * blockDim.x + threadIdx.x; pos < nv;
-         pos += gridDim.x * blockDim.x) {
-        const int c = row[pos];
-        if (c < 0 || c >= v) continue;
-        int b = 0;
-        if (n_buckets > 1) {
-            const int r = pos / nc;
-            for (int e = 1; e < n_buckets; ++e) b += (r >= (e * nr) / n_buckets);
-        }
-        atomicAdd(h + (size_t)b * v + c, 1);
-    }
-}
+int allowed[2][64];                    // shared memory set, per kind and device
 
 // Sum over the block; the result is valid in thread 0. Fixed order for a
 // fixed blockDim. `scratch` holds one entry per warp.
 template <typename T>
 __device__ T block_sum(T x, T* scratch)
 {
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFull, x, o);
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
     if (lane == 0) scratch[warp] = x;
     __syncthreads();
     if (warp == 0) {
         x = lane < (int)(blockDim.x >> 5) ? scratch[lane] : T(0);
-        for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+        for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(kFull, x, o);
     }
     __syncthreads();
     return x;
@@ -90,39 +102,161 @@ __device__ __forceinline__ float plogp(float p)
     return p > 0.f ? p * logf(fmaxf(p, 1e-30f)) : 0.f;
 }
 
-__global__ void __launch_bounds__(kReduceThreads)
-wef_reduce_kernel(const int* __restrict__ hist,        // (N, nb, V)
-                  const float* __restrict__ lengths,   // (N, V) or (V,)
-                  long long len_stride,                // V, or 0 for shared
-                  const int* __restrict__ n_valid,     // (N,)
-                  int v, int n_buckets,
-                  float* __restrict__ summary,         // (N, 4)
-                  float* __restrict__ bucket_h)        // (N, nb)
+// codes c[0..3] at positions 4 qd .. 4 qd + 3 (-1 past n_valid or past the
+// quads)
+__device__ __forceinline__ int4 load_quad(const int* row, int qd, int nq,
+                                          int nv, bool vec)
 {
+    int4 c = make_int4(-1, -1, -1, -1);
+    if (qd >= nq) return c;
+    const int p = 4 * qd;
+    if (vec) {
+        c = __ldg(reinterpret_cast<const int4*>(row + p));
+        if (p + 1 >= nv) c.y = -1;
+        if (p + 2 >= nv) c.z = -1;
+        if (p + 3 >= nv) c.w = -1;
+    } else {
+        c.x = row[p];
+        if (p + 1 < nv) c.y = row[p + 1];
+        if (p + 2 < nv) c.z = row[p + 2];
+        if (p + 3 < nv) c.w = row[p + 3];
+    }
+    return c;
+}
+
+// REPL: the replicated histogram (see the file's note); else distributed.
+template <bool REPL>
+__global__ void __launch_bounds__(kThreads)
+wef_cluster_kernel(const int* __restrict__ codes,      // (N, M)
+                   const int* __restrict__ n_valid,    // (N,)
+                   const int* __restrict__ n_rows,     // (N,)
+                   const int* __restrict__ n_cols,     // (N,)
+                   const float* __restrict__ lengths,  // (N, V) or (V,)
+                   long long len_stride,               // V, or 0 for shared
+                   int m, int v, int n_buckets, int span, bool vec,
+                   double* __restrict__ partials)      // (N, slices, 8, 4 + nb)
+{
+    extern __shared__ int hist[];    // REPL: (nb, span); else (nb, width)
+    __shared__ int tot[kMaxBuckets];
+    __shared__ int edge[kMaxBuckets];
+    __shared__ float tot_f[kMaxBuckets];
     __shared__ double red_d[32];
     __shared__ long long red_ll[32];
-    __shared__ float tot_b[kMaxBuckets];
 
-    const int i = blockIdx.x;
-    const int* h = hist + (size_t)i * n_buckets * v;
-    const float* lens = lengths + (size_t)i * len_stride;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int slice = blockIdx.x / kCluster;
+    const int i = blockIdx.y;
+    const int lane = threadIdx.x & 31;
+    const int nb = n_buckets;
+    const int width = span / kCluster;         // values a block owns
+    const int local_v = REPL ? span : width;
+    const int nr = n_rows[i];
+    const int nc = max(n_cols[i], 1);
+    const int nv = max(min(n_valid[i], m), 0);
 
-    // per-bucket totals, exact in integers
-    for (int b = 0; b < n_buckets; ++b) {
-        long long s = 0;
-        for (int x = threadIdx.x; x < v; x += blockDim.x) s += h[(size_t)b * v + x];
-        s = block_sum(s, red_ll);
-        if (threadIdx.x == 0) tot_b[b] = fmaxf((float)s, 1.f);
+    for (int x = threadIdx.x; x < nb * local_v; x += kThreads) hist[x] = 0;
+    if (threadIdx.x < nb) {
+        tot[threadIdx.x] = 0;
+        edge[threadIdx.x] = (threadIdx.x * nr) / nb;
+    }
+    cluster.sync();                  // every copy zeroed before any add
+
+    // ---- count
+    const int v0 = slice * span;               // the slice's first value
+    const int* row = codes + (size_t)i * m;
+    int cur_b = 0, run = 0;
+    auto count = [&](int pos, int c) {
+        const bool ok = c >= 0 && c < v;
+        int b = 0;
+        if (nb > 1 && ok) {
+            const int r = pos / nc;
+            for (int e = 1; e < nb; ++e) b += r >= edge[e];
+        }
+        if (ok) {
+            if (b != cur_b) {
+                if (run) atomicAdd(&tot[cur_b], run);
+                cur_b = b;
+                run = 0;
+            }
+            ++run;
+        }
+        int key = -1;                // (owner, bin), unique per bin
+        const int lc = c - v0;
+        if (ok && lc >= 0 && lc < span) {
+            if constexpr (REPL)
+                key = b * span + lc;
+            else
+                key = (lc & (kCluster - 1)) * kMaxBins + b * width
+                      + (lc >> kShift);
+        }
+        // distributed: the lanes adding to one bin, one of which adds for
+        // all (hot values); replicated: each lane adds its own
+        unsigned peers = 1u << lane;
+        if constexpr (!REPL) peers = __match_any_sync(kFull, key);
+        if (key >= 0 && lane == __ffs(peers) - 1) {
+            const int n = __popc(peers);
+            if constexpr (REPL) {
+                atomicAdd(hist + key, n);
+            } else {
+                const int owner = key / kMaxBins;
+                atomicAdd(cluster.map_shared_rank(hist, owner)
+                          + (key - owner * kMaxBins), n);
+            }
+        }
+    };
+    const int nq = (nv + 3) >> 2;
+    const int step = kCluster * kThreads;
+    int qd = rank * kThreads + threadIdx.x;
+    int4 cur = load_quad(row, qd, nq, nv, vec);
+    // warp-uniform trip count: every lane takes part in __match_any_sync
+    for (int qw = qd - lane; qw < nq; qw += step, qd += step) {
+        const int4 next = load_quad(row, qd + step, nq, nv, vec);
+        const int p = 4 * qd;
+        count(p, cur.x);
+        count(p + 1, cur.y);
+        count(p + 2, cur.z);
+        count(p + 3, cur.w);
+        cur = next;
+    }
+    if (run) atomicAdd(&tot[cur_b], run);
+    cluster.sync();                  // every add landed, in every block
+
+    if (threadIdx.x < nb) {
+        long long t = 0;
+        for (int r = 0; r < kCluster; ++r)
+            t += *cluster.map_shared_rank(tot + threadIdx.x, r);
+        tot_f[threadIdx.x] = fmaxf((float)t, 1.f);
     }
     __syncthreads();
 
-    // summary over the bucket-summed histogram
+    // ---- reduce the values this block owns
+    // values v0 + rank + kCluster j, j < width
+    const int x0 = v0 + rank;
+    const int x1 = min(v0 + span, v);
+    const float* lens = lengths + (size_t)i * len_stride;
+    const int* copy[REPL ? kCluster : 1];
+    if constexpr (REPL) {
+        for (int r = 0; r < kCluster; ++r) copy[r] = cluster.map_shared_rank(hist, r);
+    } else {
+        copy[0] = hist;
+    }
+    // count of value x in bucket b
+    auto at = [&](int b, int x) {
+        if constexpr (REPL) {
+            int c = 0;
+            for (int r = 0; r < kCluster; ++r) c += copy[r][b * span + x - v0];
+            return c;
+        } else {
+            return copy[0][b * width + ((x - v0) >> kShift)];
+        }
+    };
     const float total = fmaxf((float)n_valid[i], 1.f);
     double a_wh = 0.0, a_h = 0.0, a_len = 0.0;
     long long distinct = 0;
-    for (int x = threadIdx.x; x < v; x += blockDim.x) {
+    for (int x = x0 + kCluster * threadIdx.x; x < x1; x += kCluster * kThreads) {
         int c = 0;
-        for (int b = 0; b < n_buckets; ++b) c += h[(size_t)b * v + x];
+        for (int b = 0; b < nb; ++b) c += at(b, x);
         if (c > 0) {
             const float p = (float)c / total;
             const float pl = plogp(p);
@@ -133,57 +267,172 @@ wef_reduce_kernel(const int* __restrict__ hist,        // (N, nb, V)
             ++distinct;
         }
     }
+    const int slices = gridDim.x / kCluster;
+    double* out = partials + (((size_t)i * slices + slice) * kCluster + rank)
+                             * (4 + nb);
     a_wh = block_sum(a_wh, red_d);
     a_h = block_sum(a_h, red_d);
     a_len = block_sum(a_len, red_d);
     distinct = block_sum(distinct, red_ll);
     if (threadIdx.x == 0) {
-        summary[(size_t)i * 4 + 0] = (float)-a_wh;
-        summary[(size_t)i * 4 + 1] = (float)-a_h;
-        summary[(size_t)i * 4 + 2] = (float)distinct / total;
-        summary[(size_t)i * 4 + 3] = (float)a_len;
+        out[0] = a_wh;
+        out[1] = a_h;
+        out[2] = a_len;
+        out[3] = (double)distinct;
     }
-
-    // weighted entropy of each bucket
-    for (int b = 0; b < n_buckets; ++b) {
-        const float tb = tot_b[b];
+    for (int b = 0; b < nb; ++b) {
+        const float tb = tot_f[b];
         double acc = 0.0;
-        for (int x = threadIdx.x; x < v; x += blockDim.x) {
-            const int c = h[(size_t)b * v + x];
+        for (int x = x0 + kCluster * threadIdx.x; x < x1; x += kCluster * kThreads) {
+            const int c = at(b, x);
             if (c > 0) acc += lens[x] * plogp((float)c / tb);
         }
         acc = block_sum(acc, red_d);
-        if (threadIdx.x == 0) bucket_h[(size_t)i * n_buckets + b] = (float)-acc;
+        if (threadIdx.x == 0) out[4 + b] = acc;
     }
+    cluster.sync();                  // no block leaves while others read it
+}
+
+// Each partition's partials added in (slice, rank) order.
+__global__ void __launch_bounds__(kCombineThreads)
+wef_combine_kernel(const double* __restrict__ partials,
+                   const int* __restrict__ n_valid, int n, int n_parts,
+                   int n_buckets, float* __restrict__ summary,
+                   float* __restrict__ bucket_h)
+{
+    const int i = blockIdx.x * kCombineThreads + threadIdx.x;
+    if (i >= n) return;
+    const int w = 4 + n_buckets;
+    const double* p = partials + (size_t)i * n_parts * w;
+    double s[4];
+    for (int t = 0; t < 4; ++t) {
+        s[t] = 0.0;
+        for (int k = 0; k < n_parts; ++k) s[t] += p[(size_t)k * w + t];
+    }
+    const float total = fmaxf((float)n_valid[i], 1.f);
+    summary[(size_t)i * 4 + 0] = (float)-s[0];
+    summary[(size_t)i * 4 + 1] = (float)-s[1];
+    summary[(size_t)i * 4 + 2] = (float)(long long)s[3] / total;
+    summary[(size_t)i * 4 + 3] = (float)s[2];
+    for (int b = 0; b < n_buckets; ++b) {
+        double acc = 0.0;
+        for (int k = 0; k < n_parts; ++k) acc += p[(size_t)k * w + 4 + b];
+        bucket_h[(size_t)i * n_buckets + b] = (float)-acc;
+    }
+}
+
+cudaLaunchConfig_t cluster_config(int n, int slices, size_t smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr)
+{
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster * slices, n, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cfg;
+}
+
+// The plan's checks: the slices cover V, and a block holds its bins
+// (replicated: the slice's (nb, span); distributed: (nb, span / 8)).
+int check_plan(int v, int n_buckets, int slices, int span, int repl)
+{
+    if (n_buckets < 1 || n_buckets > kMaxBuckets || v < 1 || slices < 1
+        || span < 1 || (long long)slices * span < v
+        || (!repl && span % kCluster)
+        || (long long)n_buckets * (repl ? span : span / kCluster) > kMaxBins)
+        return (int)cudaErrorInvalidValue;
+    return 0;
+}
+
+size_t smem_bytes(int n_buckets, int span, int repl)
+{
+    return sizeof(int) * (size_t)n_buckets * (repl ? span : span / kCluster);
+}
+
+// The kernel of this kind, its shared memory allowed (once per size and
+// device)
+const void* prepare(int repl, size_t smem, cudaError_t* e)
+{
+    const void* fn = repl ? (const void*)wef_cluster_kernel<true>
+                          : (const void*)wef_cluster_kernel<false>;
+    *e = tc::allow_smem(fn, smem, allowed[repl ? 1 : 0]);
+    return fn;
 }
 
 }  // namespace
 
+// The plan (repl, slices, span) comes from the wrapper
+// (entropy_features.py, _plan); partials: float64 scratch of
+// n * slices * 8 * (4 + n_buckets) values.
 extern "C" int wef_launch(const int* codes, const int* n_valid,
                           const int* n_rows, const int* n_cols,
                           const float* lengths, long long len_stride,
-                          int n, int m, int v, int n_buckets,
-                          int* hist, float* summary, float* bucket_h,
-                          void* stream)
+                          int n, int m, int v, int n_buckets, int repl,
+                          int slices, int span, double* partials,
+                          float* summary, float* bucket_h, void* stream)
 {
     if (n == 0) return 0;
-    if (n_buckets < 1 || n_buckets > kMaxBuckets || v < 1)
-        return (int)cudaErrorInvalidValue;
+    int rc = check_plan(v, n_buckets, slices, span, repl);
+    if (rc) return rc;
     const cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t e = cudaMemsetAsync(
-        hist, 0, (size_t)n * n_buckets * v * sizeof(int), s);
+    const size_t smem = smem_bytes(n_buckets, span, repl);
+    const bool vec = m % 4 == 0
+        && (reinterpret_cast<size_t>(codes) & 15) == 0;
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = cluster_config(n, slices, smem, s, attr);
+    cudaError_t e;
+    prepare(repl, smem, &e);
     if (e != cudaSuccess) return (int)e;
-    if (m > 0) {
-        int bx = (m + kHistThreads - 1) / kHistThreads;
-        if (bx > kHistMaxBlocks) bx = kHistMaxBlocks;
-        wef_histogram_kernel<<<dim3(bx, n), kHistThreads, 0, s>>>(
-            codes, n_valid, n_rows, n_cols, m, v, n_buckets, hist);
-        e = cudaGetLastError();
-        if (e != cudaSuccess) return (int)e;
+    if (repl) {
+        e = cudaLaunchKernelEx(&cfg, wef_cluster_kernel<true>, codes,
+                               n_valid, n_rows, n_cols, lengths, len_stride,
+                               m, v, n_buckets, span, vec, partials);
+    } else {
+        e = cudaLaunchKernelEx(&cfg, wef_cluster_kernel<false>, codes,
+                               n_valid, n_rows, n_cols, lengths, len_stride,
+                               m, v, n_buckets, span, vec, partials);
     }
-    wef_reduce_kernel<<<n, kReduceThreads, 0, s>>>(
-        hist, lengths, len_stride, n_valid, v, n_buckets, summary, bucket_h);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    wef_combine_kernel<<<(n + kCombineThreads - 1) / kCombineThreads,
+                         kCombineThreads, 0, s>>>(
+        partials, n_valid, n, slices * kCluster, n_buckets, summary, bucket_h);
     return (int)cudaGetLastError();
+}
+
+// For the report, at one plan: attr = {registers, shared memory per block
+// (static + dynamic bytes), cluster size, clusters that fit on the card at
+// once (cudaOccupancyMaxActiveClusters)}. Launches nothing.
+extern "C" int wef_info(int v, int n_buckets, int repl, int slices, int span,
+                        int* attr)
+{
+    int rc = check_plan(v, n_buckets, slices, span, repl);
+    if (rc) return rc;
+    const size_t smem = smem_bytes(n_buckets, span, repl);
+    cudaError_t e;
+    const void* fn = prepare(repl, smem, &e);
+    if (e != cudaSuccess) return (int)e;
+    cudaFuncAttributes fa;
+    e = cudaFuncGetAttributes(&fa, fn);
+    if (e != cudaSuccess) return (int)e;
+    cudaLaunchAttribute la[1];
+    const cudaLaunchConfig_t cfg = cluster_config(1, slices, smem, 0, la);
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    attr[0] = fa.numRegs;
+    attr[1] = (int)(fa.sharedSizeBytes + smem);
+    attr[2] = kCluster;
+    attr[3] = clusters;
+    return 0;
 }
 
 extern "C" const char* wef_error_string(int e)

@@ -1,6 +1,8 @@
 // Tensor-core building blocks shared by the bfloat16 routes of
 // flash_attention.cu and ssd_scan.cu (sm_90a): 16-byte cp.async, ldmatrix
 // and mma.sync.m16n8k16 with bf16 operands and f32 accumulators.
+// decode_attention.cu takes its cp.async staging and allow_smem, and
+// entropy_features.cu its allow_smem.
 //
 // Fragments of mma.sync.m16n8k16 (lane = 4 g + t, g < 8, t < 4):
 //   A (16 x 16, row major): a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1],

@@ -17,7 +17,18 @@ the b-th 1/n_buckets of rows.
   ``csrc/entropy_features.cu`` on CUDA tensors (it raises for anything else);
 * :func:`weighted_entropy_features_plain` is the same function in tensor
   ops, in any float ``dtype`` (float64 gives the reference the kernel's
-  float32 sums are measured against).
+  float32 sums are measured against);
+* :func:`weighted_entropy_features_sliced` is the kernel's reduction in
+  tensor ops: the vocabulary cut into consecutive ranges of ``width``
+  values (one per block of the kernel), each range's float32 terms summed
+  in float64, the ranges' sums added in order
+  (``tests/test_torch_entropy_sliced.py`` holds it against the JAX
+  package).
+
+The kernel keeps each partition's histogram on chip in a cluster of 8
+blocks (:func:`_plan` chooses how): replicated in every block where the
+(n_buckets, V) bins fit one block's shared memory, else spread over the
+cluster's blocks, in vocabulary slices where 8 blocks do not hold them.
 
 ``byte_entropy``: for a (n,) uint8 payload, its 256-bin histogram (int32)
 and Shannon entropy in bits per byte (float32 scalar),
@@ -39,24 +50,42 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_BUCKETS = 16        # kMaxBuckets in csrc/entropy_features.cu
+CLUSTER = 8             # kCluster: blocks per cluster
+MAX_BINS = 49152        # kMaxBins: int32 bins one block holds
+
+
+#: codes of the largest partition one block of a distributed plan should
+#: take: more slices spread a large partition over more clusters
+CODES_PER_BLOCK = 1 << 16
+
+
+def _plan(V: int, n_buckets: int, M: int = 0) -> Tuple[bool, int, int]:
+    """``(replicated, slices, span)`` of the kernel for a vocabulary of V
+    values and partitions of at most M codes: the vocabulary is cut into
+    ``slices`` slices of ``span`` values, one cluster each. Replicated
+    (one slice) when a block holds all (n_buckets, V) bins, else the bins
+    spread over the cluster's blocks in as many slices as they need, or
+    as give each block at most ``CODES_PER_BLOCK`` of the largest
+    partition's codes to add (each slice's cluster reads all the codes
+    and adds those of its slice), but no more slices than blocks have
+    values."""
+    if n_buckets * V <= MAX_BINS:
+        return True, 1, V
+    slices = max(-(-n_buckets * V // (CLUSTER * MAX_BINS)),
+                 min(-(-M // (CLUSTER * CODES_PER_BLOCK)), -(-V // CLUSTER)))
+    return False, slices, CLUSTER * -(-V // (CLUSTER * slices))
 
 
 def _batched_lengths(lengths: torch.Tensor, n: int) -> torch.Tensor:
     return lengths if lengths.dim() == 2 else lengths[None, :].expand(n, -1)
 
 
-def weighted_entropy_features_plain(codes: torch.Tensor, n_valid: torch.Tensor,
-                                    n_rows: torch.Tensor, n_cols: torch.Tensor,
-                                    lengths: torch.Tensor, *,
-                                    n_buckets: int = 1,
-                                    dtype: torch.dtype = torch.float32,
-                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Tensor-op version: exact integer histogram (``bincount``), then the
-    entropy reductions in ``dtype``."""
+def _histogram(codes, n_valid, n_rows, n_cols, V: int,
+               n_buckets: int) -> torch.Tensor:
+    """(N, n_buckets, V) int64 counts of the codes in [0, V) at positions
+    < n_valid, by bucket of rows."""
     N, M = codes.shape
     dev = codes.device
-    lens = _batched_lengths(lengths, N).to(dtype)
-    V = lens.shape[1]
     c = codes.long()
     pos = torch.arange(M, device=dev)
     valid = (pos[None, :] < n_valid.long()[:, None]) & (c >= 0) & (c < V)
@@ -68,23 +97,75 @@ def weighted_entropy_features_plain(codes: torch.Tensor, n_valid: torch.Tensor,
             bucket += row >= edge[:, None]
     part = torch.arange(N, device=dev)[:, None]
     flat = ((part * n_buckets + bucket) * V + c)[valid]
-    hist_b = torch.bincount(flat, minlength=N * n_buckets * V).reshape(
-        N, n_buckets, V).to(dtype)
+    return torch.bincount(flat, minlength=N * n_buckets * V).reshape(
+        N, n_buckets, V)
+
+
+def _plogp(p: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    return torch.where(p > 0, p * torch.log(torch.clamp_min(p, 1e-30)), zero)
+
+
+def weighted_entropy_features_plain(codes: torch.Tensor, n_valid: torch.Tensor,
+                                    n_rows: torch.Tensor, n_cols: torch.Tensor,
+                                    lengths: torch.Tensor, *,
+                                    n_buckets: int = 1,
+                                    dtype: torch.dtype = torch.float32,
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tensor-op version: exact integer histogram (``bincount``), then the
+    entropy reductions in ``dtype``."""
+    N, M = codes.shape
+    lens = _batched_lengths(lengths, N).to(dtype)
+    V = lens.shape[1]
+    hist_b = _histogram(codes, n_valid, n_rows, n_cols, V, n_buckets).to(
+        dtype)
     hist = hist_b.sum(1)
-    zero = torch.zeros((), dtype=dtype, device=dev)
-
-    def plogp(p):
-        return torch.where(p > 0, p * torch.log(torch.clamp_min(p, 1e-30)),
-                           zero)
-
     total = torch.clamp_min(n_valid.to(dtype), 1.0)
     p = hist / total[:, None]
-    pl = plogp(p)
+    pl = _plogp(p)
     summary = torch.stack([-(lens * pl).sum(1), -pl.sum(1),
                            (hist > 0).to(dtype).sum(1) / total,
                            (lens * p).sum(1)], dim=1)
     pb = hist_b / torch.clamp_min(hist_b.sum(2, keepdim=True), 1.0)
-    return summary, -(lens[:, None, :] * plogp(pb)).sum(2)
+    return summary, -(lens[:, None, :] * _plogp(pb)).sum(2)
+
+
+def weighted_entropy_features_sliced(codes: torch.Tensor,
+                                     n_valid: torch.Tensor,
+                                     n_rows: torch.Tensor,
+                                     n_cols: torch.Tensor,
+                                     lengths: torch.Tensor, *,
+                                     n_buckets: int = 1, width: int,
+                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's reduction in tensor ops: the exact integer histogram,
+    the terms in float32, then for each slice of ``width`` consecutive
+    values (what one cluster of the kernel covers) and each of its
+    ``CLUSTER`` blocks (the values of the slice whose offset is the block's
+    rank modulo ``CLUSTER``) the terms' sums in float64, added in (slice,
+    block) order in float64; float32 out."""
+    N, M = codes.shape
+    dev = codes.device
+    lens = _batched_lengths(lengths, N).float()
+    V = lens.shape[1]
+    hist_b = _histogram(codes, n_valid, n_rows, n_cols, V, n_buckets)
+    hist = hist_b.sum(1)
+    total = torch.clamp_min(n_valid.float(), 1.0)[:, None]
+    tot_b = torch.clamp_min(hist_b.sum(2).float(), 1.0)[:, :, None]
+    p = hist.float() / total
+    pl = _plogp(p)
+    terms = [(lens * pl).double(), pl.double(), (lens * p).double(),
+             (hist > 0).double()]
+    terms += list((lens[:, None, :] * _plogp(hist_b.float() / tot_b))
+                  .double().unbind(1))
+    sums = torch.zeros((N, len(terms)), dtype=torch.float64, device=dev)
+    for x0 in range(0, V, width):
+        for r in range(CLUSTER):
+            own = slice(x0 + r, min(x0 + width, V), CLUSTER)
+            sums += torch.stack([t[:, own].sum(1) for t in terms], 1)
+    summary = torch.stack([(-sums[:, 0]).float(), (-sums[:, 1]).float(),
+                           sums[:, 3].float() / total[:, 0],
+                           sums[:, 2].float()], dim=1)
+    return summary, (-sums[:, 4:]).float()
 
 
 def _lib() -> ctypes.CDLL:
@@ -92,8 +173,10 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.wef_launch.argtypes = [p, p, p, p, p, ctypes.c_longlong,
-                                   i, i, i, i, p, p, p, p]
+                                   i, i, i, i, i, i, i, p, p, p, p]
         lib.wef_launch.restype = ctypes.c_int
+        lib.wef_info.argtypes = [i] * 5 + [p]
+        lib.wef_info.restype = ctypes.c_int
         lib.wef_error_string.argtypes = [ctypes.c_int]
         lib.wef_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -105,7 +188,8 @@ def weighted_entropy_features_kernel(codes: torch.Tensor, n_valid: torch.Tensor,
                                      lengths: torch.Tensor, *,
                                      n_buckets: int = 1,
                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/entropy_features.cu`` (histogram, then reduction).
+    """Launch ``csrc/entropy_features.cu`` (cluster histogram and reduction,
+    then the partials' combine).
 
     codes int32 (N, M); n_valid / n_rows / n_cols int32 (N,); lengths
     float32 (N, V) or (V,); all contiguous on one CUDA device. Returns
@@ -143,26 +227,49 @@ def weighted_entropy_features_kernel(codes: torch.Tensor, n_valid: torch.Tensor,
     if V < 1 or N > 65535:
         raise ValueError(f"need V >= 1 and at most 65535 partitions, got "
                          f"V={V}, N={N}")
-    if N and (n_buckets - 1) * int(n_rows.max()) >= 2 ** 31:
+    # (read on the host only where there are edges: it synchronises)
+    if N and n_buckets > 1 and (n_buckets - 1) * int(n_rows.max()) >= 2 ** 31:
         raise ValueError("bucket edges b*n_rows overflow int32")
     summary = torch.empty((N, 4), dtype=torch.float32, device=dev)
     bucket_h = torch.empty((N, n_buckets), dtype=torch.float32, device=dev)
     if N == 0:
         return summary, bucket_h
-    # scratch histogram, zeroed inside the launch; freed to PyTorch's
+    repl, slices, span = _plan(V, n_buckets, M)
+    # each block's 4 + n_buckets float64 sums; freed to PyTorch's
     # stream-ordered allocator on return, after the kernels on this stream
-    hist = torch.empty((N, n_buckets, V), dtype=torch.int32, device=dev)
+    partials = torch.empty(N * slices * CLUSTER * (4 + n_buckets),
+                           dtype=torch.float64, device=dev)
     lib = _lib()
     rc = lib.wef_launch(
         codes.data_ptr(), n_valid.data_ptr(), n_rows.data_ptr(),
         n_cols.data_ptr(), lengths.data_ptr(), stride, N, M, V, n_buckets,
-        hist.data_ptr(), summary.data_ptr(), bucket_h.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(repl), slices, span, partials.data_ptr(), summary.data_ptr(),
+        bucket_h.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"entropy-features kernel launch failed: "
                            f"{lib.wef_error_string(rc).decode()}")
     _build.launch_counts["entropy_features"] += 1
     return summary, bucket_h
+
+
+def weighted_entropy_features_info(V: int, n_buckets: int = 1,
+                                   M: int = 0) -> dict:
+    """The kernel's plan at a vocabulary of V values and partitions of at
+    most M codes (replicated or distributed, slices, values a slice holds)
+    with its registers, shared
+    memory per block, cluster size and the clusters that fit on the card
+    at once (``cudaOccupancyMaxActiveClusters``), from the built library;
+    it launches nothing."""
+    repl, slices, span = _plan(V, n_buckets, M)
+    attr = (ctypes.c_int * 4)()
+    lib = _lib()
+    rc = lib.wef_info(V, n_buckets, int(repl), slices, span, attr)
+    if rc != 0:
+        raise RuntimeError(f"entropy-features info failed: "
+                           f"{lib.wef_error_string(rc).decode()}")
+    return {"replicated": repl, "slices": slices, "span": span,
+            "registers": attr[0], "smem_bytes": attr[1], "cluster": attr[2],
+            "max_active_clusters": attr[3]}
 
 
 # ------------------------------------------------------------ byte entropy

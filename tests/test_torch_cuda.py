@@ -247,6 +247,74 @@ def test_decode_kernel_matches_plain(card, B, S, Hq, Hkv, D, window, softcap,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,Dv,window,softcap,lens", [
+    (4, 546, 32, 32, 80, 80, None, None, [544, 1, 64, 272]),  # zamba2's loop
+    (3, 200, 8, 8, 32, 32, None, None, [200, 37, 0]),    # empty splits, 0
+    (2, 300, 4, 4, 64, 64, 50, None, [300, 100]),        # window in a split
+    (2, 97, 16, 2, 32, 32, 40, 30.0, [97, 60]),          # rep 8, softcap
+    (1, 4100, 8, 1, 128, 128, None, None, [4097]),       # 65 splits, MQA
+    (2, 130, 4, 2, 20, 24, None, None, [130, 66]),       # D 20: plain loads
+    (2, 70, 2, 1, 256, 256, None, 20.0, [70, 33]),       # widest heads
+])
+def test_decode_split_kernel_edges_are_exact_and_repeatable(
+        card, B, S, Hq, Hkv, D, Dv, window, softcap, lens, dtype):
+    """K6's split-KV kernel at shapes that exercise the split and merge:
+    within the JAX suite's tolerance of the plain version where a key is
+    visible, exactly 0 where none is, and bit-identical on a second call
+    (no float atomics)."""
+    q, k, v = _randn(14, (B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, Dv),
+                     dtype=dtype, device=card)
+    kv_len = torch.as_tensor(lens, dtype=torch.int32, device=card)
+    kw = dict(window=window, softcap=softcap)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, kv_len, **kw)
+    again = ops.decode_attention(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["decode_attention"] == 2
+    assert torch.equal(out, again)
+    seen = kv_len > 0
+    _assert_close(out[seen], tda.decode_attention_plain(q, k, v, kv_len,
+                                                        **kw)[seen],
+                  ATTN_TOL[dtype])
+    assert not out[~seen].float().any()
+
+
+@pytest.mark.parametrize("V,n_buckets", [(400_000, 1), (400_000, 16),
+                                         (30_000, 1), (30_000, 5)])
+def test_entropy_cluster_kernel_large_vocab_is_repeatable(card, V, n_buckets):
+    """K2's cluster kernel on a vocabulary larger than one cluster's share
+    (400,000 values: two slices at one bucket, many at 16) and on one that
+    fits a block (replicated at one bucket, spread at five), with hot
+    values: normwise within 1e-5 of the float64 plain version and
+    bit-identical on a second call."""
+    rng = np.random.default_rng(V + n_buckets)
+    N, M = 3, 300_000
+    codes = np.full((N, M), -1, np.int32)
+    n_valid = np.array([M, 120_001, 0], np.int32)
+    for i in range(N):
+        c = np.minimum(rng.zipf(1.3, n_valid[i]) - 1, V - 1)
+        c[::7] = rng.integers(0, V, c[::7].shape)
+        codes[i, :n_valid[i]] = c
+    n_cols = np.array([3, 1, 2], np.int32)
+    args = [torch.as_tensor(a, device=card) for a in
+            (codes, n_valid, n_valid // np.maximum(n_cols, 1), n_cols,
+             rng.integers(1, 12, (N, V)).astype(np.float32))]
+    ops.reset_launch_counts()
+    s1, b1 = ops.weighted_entropy_features(*args, n_buckets=n_buckets,
+                                           device=card)
+    s2, b2 = ops.weighted_entropy_features(*args, n_buckets=n_buckets,
+                                           device=card)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["entropy_features"] == 2
+    assert torch.equal(s1, s2) and torch.equal(b1, b2)
+    s_d, b_d = tef.weighted_entropy_features_plain(
+        *args, n_buckets=n_buckets, dtype=torch.float64)
+    for got, want in ((s1, s_d), (b1, b_d)):
+        rel = (got.double() - want).abs().max() / want.abs().max()
+        assert float(rel) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,p,g,n,chunk,skip", [
     (1, 64, 2, 8, 1, 16, 16, True),
     (2, 48, 4, 16, 2, 8, 16, True),      # grouped B/C, non-multiple seq
