@@ -69,7 +69,10 @@ non-zero (with no result line):
             3 and 6) plus edge cases, K5 and K7 through both routes
             (float32: ``f32``, bfloat16: ``bf16_tc``, each call's route
             counted): K1 abs error <= 1e-5 and an identical
-            ``w > 0`` pattern; K2 normwise relative error against a float64
+            ``w > 0`` pattern, bit-identical to its twin
+            ``fractional_overlap_matrix_ordered`` on the card and to a
+            second call, at the main path's matrix and at 4,096 families
+            over 81,920 files, one CUDA launch a call and no host sync; K2 normwise relative error against a float64
             plain evaluation <= 1e-5 and at most twice the float32 plain
             version's (floored at float32's epsilon, 1.2e-7); K5 and K6 the
             JAX suite's tolerances (2e-5 in float32, 2e-2 in bfloat16), K7
@@ -83,17 +86,20 @@ non-zero (with no result line):
             call) at the last serve step (kv_len 544) and at kv_len 64 and
             272 in that cache, and K2's device time per main-path class; K2 and
             K6 give identical bits on a second call, K6 exactly 0 where
-            kv_len is 0; and the bound:
+            kv_len is 0 and within tolerance of the plain version on every
+            row; K1, K3 and K4 also their device time, K1 and K4 their
+            host time per call (the wrapper and its launch); and the bound:
             the bytes the function needs at 3.35 TB/s against its operations
             at the H100 SXM data-sheet rate for the inputs' type (67 TFLOP/s
             float32, 989 TFLOP/s bfloat16); each count is printed beside its
             bound. K3 at the training step's largest leaf and at
             1024 x 1024, plus the JAX suite's shapes, a zero block and .5
-            ties (identical int8 and scales); K4 at 1 MiB of random bytes
-            and a 4 MiB slice of the trained parameters, plus n = 1,
+            ties (identical int8 and scales); K4 at 1 and 4 MiB of random
+            bytes and a 4 MiB slice of the trained parameters, plus n = 1,
             n < block, ragged n, an unaligned start, a constant payload
             (exactly 0.0) and 2-, 4- and 256-symbol alphabets (identical
-            histograms, entropy within rel 1e-5).
+            histograms, entropy within rel 1e-5, identical bits on a second
+            call), one CUDA launch a call and no host sync.
 
 The script takes no arguments: the sizes are fixed. The last three lines
 are the kernel JSON line, the ``nvidia-smi`` line and
@@ -172,7 +178,10 @@ def device_ms(fn, torch, iters: int = 20):
     """(milliseconds of device time per call of ``fn``, {device operation:
     ms per call}) from torch.profiler over ``iters`` calls after one
     warm-up: the kernels alone, without the host's time between them;
-    (None, {}) when the trace holds no device time."""
+    (None, {}) when the trace holds no device time. Each operation's time
+    is its mean over the records the trace holds, times the records per
+    call (at least one): a long run can lose records, and that mean does
+    not move with them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -180,11 +189,62 @@ def device_ms(fn, torch, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    by = {}
+    total, count = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by[e.name] = by.get(e.name, 0.0) + e.device_time_total / iters / 1e3
+            total[e.name] = total.get(e.name, 0.0) + e.device_time_total / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
+    by = {k: total[k] / count[k] * max(1, round(count[k] / iters))
+          for k in total}
     return (sum(by.values()) if by else None), by
+
+
+#: the host's CUDA runtime calls that put an operation on the card
+LAUNCH_CALLS = ("cudaLaunch", "cudaMemset", "cudaMemcpy")
+
+
+def launches_per_call(fn, torch, iters: int = 5) -> float:
+    """Operations on the card (kernels, memsets, copies) per call of
+    ``fn``, from torch.profiler over ``iters`` calls after one warm-up: the
+    larger of the device records and the host's launch, memset and copy
+    calls (a long run can lose device records)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    on_card = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                  for e in prof.events())
+    calls = sum(e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith(LAUNCH_CALLS) for e in prof.events())
+    return max(on_card, calls) / iters
+
+
+def host_ms(fn, torch, iters: int = 200) -> float:
+    """Milliseconds of host time per call of ``fn`` to enqueue its work
+    (the wrapper and its launches), over ``iters`` calls back to back that
+    do not wait for the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def no_sync(fn, torch):
+    """``fn()`` with torch's sync debug mode at "error": it raises if the
+    call makes the host wait for the card."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def _short(by) -> str:
@@ -488,7 +548,10 @@ def phase_kernels(torch, recorded, launches):
         t = [torch.as_tensor(c, dtype=torch.int32, device=dev),
              torch.as_tensor(s, dtype=torch.float32, device=dev),
              torch.as_tensor(sp, dtype=torch.float32, device=dev)]
-        w_k = ov.fractional_overlap_matrix_kernel(*t)
+        call = lambda: ov.fractional_overlap_matrix_kernel(*t)
+        w_k = no_sync(call, torch)
+        w_2 = call()
+        w_t = ov.fractional_overlap_matrix_ordered(*t)
         w_p = ov.fractional_overlap_matrix_plain(*t)
         torch.cuda.synchronize()
         err = float((w_k - w_p).abs().max())
@@ -497,12 +560,16 @@ def phase_kernels(torch, recorded, launches):
         same = bool(torch.equal(w_k > 0, w_p > 0))
         check(err <= 1e-5 and same, f"K1 {tag}: max abs err {err}, "
               f"identical w>0 pattern {same}")
-        ms = cuda_ms(lambda: ov.fractional_overlap_matrix_kernel(*t), torch)
+        check(torch.equal(w_k, w_t) and torch.equal(w_k, w_2),
+              f"K1 {tag}: not bit-identical to its twin "
+              f"{torch.equal(w_k, w_t)} or to a second call "
+              f"{torch.equal(w_k, w_2)}")
+        ms = cuda_ms(call, torch)
+        dev_ms, by_dev = device_ms(call, torch)
+        n_launch = launches_per_call(call, torch)
+        check(n_launch == 1, f"K1 {tag}: {n_launch} CUDA launches a call")
+        glue = host_ms(call, torch)
         plain = cuda_ms(lambda: ov.fractional_overlap_matrix_plain(*t), torch)
-        # the wrapper's work around the launch: range check and row sort
-        glue = cuda_ms(lambda: (int(t[0].max()), ov._sorted_rows(t[0]),
-                                ov._sorted_rows(t[0])[0].T.contiguous()),
-                       torch)
         n = int(c.shape[0])
         per_code = np.bincount(c[c >= 0], minlength=s.shape[0]).astype(float)
         n_ops = float((per_code ** 2).sum()) + 4.0 * n * n
@@ -512,12 +579,20 @@ def phase_kernels(torch, recorded, launches):
                 "spans": sp.nbytes, "output": 4 * n * n}
         n_bytes = float(sum(need.values()))
         b, by = bound_ms(n_bytes, n_ops)
+        p = ov.plan(n, n, c.shape[1], c.shape[1], s.shape[0])
         say("kernels", f"K1 overlap {tag}: codes {tuple(c.shape)}, F="
-            f"{s.shape[0]}: max abs err {err:.3e}, max rel err {rel:.3e}, "
-            f"w>0 identical; kernel {ms:.4f} ms (of which wrapper glue "
-            f"{glue:.4f} ms), plain {plain:.4f} ms, bound {b:.5f} ms ({by}; "
-            f"{_counts(need)} bytes, {n_ops:.0f} ops)")
-        k1[tag] = (err, ms, plain, b, by)
+            f"{s.shape[0]}, {p.kind} plan ({p.blocks:,} blocks): max abs err "
+            f"{err:.3e}, max rel err {rel:.3e}, w>0 identical, bit-identical "
+            f"to fractional_overlap_matrix_ordered on the card and to a "
+            f"second call, no host sync, {n_launch:g} CUDA launch a call; "
+            f"kernel {ms:.4f} ms a call (device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f}'} ms; "
+            f"host {glue:.4f} ms a call to enqueue it, wrapper and launch), "
+            f"plain {plain:.4f} ms, bound {b:.5f} ms ({by}; {_counts(need)} "
+            f"bytes, {n_ops:.0f} ops), "
+            f"{'not measured' if dev_ms is None else f'{100 * b / dev_ms:.2f}%'}"
+            f" of it reached in device time")
+        k1[tag] = (err, ms, plain, b, by, dev_ms, glue)
 
     # ---- K2: the main path's three dtype classes, then edge cases
     # the first feature pass of the main path: one call per dtype class
@@ -603,7 +678,7 @@ def phase_kernels(torch, recorded, launches):
         f"{k2_ops:.0f} ops), {100 * b2 / k2_ms:.2f}% of the bound reached "
         f"({'not measured' if k2_dev is None else f'{100 * b2 / k2_dev:.2f}%'}"
         f" in device time)")
-    err1, ms1, plain1, b1, by1 = k1["main"]
+    err1, ms1, plain1, b1, by1, dev1, glue1 = k1["main"]
     for name, err, ms, plain, b, by in (
             ("overlap", err1, ms1, plain1, b1, by1),
             ("entropy_features", k2_err, k2_ms, k2_plain, b2, by2)):
@@ -612,6 +687,7 @@ def phase_kernels(torch, recorded, launches):
                      "launches": int(launches.get(name, 0)),
                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
                      "bound_ms": b, "bound_by": by, "library_ms": None})
+    rows[0].update(device_ms=dev1, host_ms=glue1)
     # K2's row: the three classes of one pass (one launch each)
     rows[-1].update(bound_share=b2 / k2_ms, device_ms=k2_dev)
     return rows
@@ -962,8 +1038,8 @@ def phase_model_kernels(torch, recorded, launches):
             kw = dict(window=window, softcap=cap)
             out = da.decode_attention_kernel(q, k, v, lens, **kw)
             seen = lens > 0
-            _allclose(torch, out[seen],
-                      da.decode_attention_plain(q, k, v, lens, **kw)[seen],
+            _allclose(torch, out, da.decode_attention_plain(q, k, v, lens,
+                                                            **kw),
                       attn_tol[dt])
             check(not bool(out[~seen].float().any())
                   and torch.equal(out, da.decode_attention_kernel(
@@ -1478,23 +1554,27 @@ def phase_train_kernels(torch, trained):
         err = float((qp.quant_unpack(q, s) - qp.quant_unpack(q_p, s_p))
                     .abs().max())
         ms = cuda_ms(lambda: qp.quant_pack_kernel(x), torch)
+        dev_ms = device_ms(lambda: qp.quant_pack_kernel(x), torch)[0]
         plain = cuda_ms(lambda: qp.quant_pack_plain(x), torch, iters=5)
         n = x.numel()
         need = {"x": 4 * n, "q": n, "scale": 4 * (n // 256)}
         n_ops = 6.0 * n     # |x|, max, divide, round, two clamps per value
         b, by = bound_ms(float(sum(need.values())), n_ops)
         say("kernels", f"K3 quant_pack {tag} {tuple(x.shape)}: int8 and "
-            f"scales identical to the plain version; kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, no single PyTorch call computes it; "
-            f"bound {b:.5f} ms ({by}; {_counts(need)} bytes, {n_ops:.0f} ops)")
-        k3[tag] = (err, ms, plain, b, by)
-    err, ms, plain, b, by = k3["largest leaf"]
+            f"scales identical to the plain version; kernel {ms:.4f} ms "
+            f"(device {'not measured' if dev_ms is None else f'{dev_ms:.4f}'}"
+            f" ms), plain {plain:.4f} ms, no single PyTorch call computes "
+            f"it; bound {b:.5f} ms ({by}; {_counts(need)} bytes, "
+            f"{n_ops:.0f} ops)")
+        k3[tag] = (err, ms, plain, b, by, dev_ms)
+    err, ms, plain, b, by, dev_ms = k3["largest leaf"]
     rows.append({"name": "quant_pack", "route": "cuda",
                  "source": SOURCES["quant_pack"][0],
                  "replaces": SOURCES["quant_pack"][1],
                  "launches": int(trained["launches"]["quant_pack"]),
                  "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                 "bound_ms": b, "bound_by": by, "library_ms": None})
+                 "bound_ms": b, "bound_by": by, "library_ms": None,
+                 "device_ms": dev_ms})
 
     # ---- K4: edge cases, then 1 MiB of random bytes and a 4 MiB shard
     rnd = lambda n: torch.randint(0, 256, (n,), generator=g, device=dev,
@@ -1516,6 +1596,9 @@ def phase_train_kernels(torch, trained):
         check(torch.equal(h, h_p) and (rel <= 1e-5 or float(e) == float(e_p)),
               f"K4 {tag}: histogram equal {torch.equal(h, h_p)}, entropy "
               f"rel {rel:.3e}")
+        h_2, e_2 = ef.byte_entropy_kernel(d)
+        check(torch.equal(h, h_2) and torch.equal(e, e_2),
+              f"K4 {tag}: a second call differs")
         if tag in expect:
             check(abs(float(e) - expect[tag]) <= 1e-5 * max(expect[tag], 1),
                   f"K4 {tag}: {float(e)} bits, want {expect[tag]}")
@@ -1525,34 +1608,51 @@ def phase_train_kernels(torch, trained):
         f"entropy within rel 1e-5; constant payload exactly 0.0, uniform "
         f"2/4/256-symbol alphabets 1, 2 and 8 bits")
     k4 = {}
-    for tag, d in (("1 MiB random", rnd(1 << 20)),
+    # 4 MiB of random bytes beside the trained payload: what the bins that
+    # a warp's lanes share cost (the bf16 weights' high bytes take a
+    # handful of values)
+    for tag, d in (("1 MiB random", rnd(1 << 20)), ("4 MiB random", rnd(4 << 20)),
                    ("4 MiB of trained bf16 params", trained["shard"])):
         h, e = ef.byte_entropy_kernel(d)
         h_p, e_p = ef.byte_entropy_plain(d)
         rel = abs(float(e) - float(e_p)) / abs(float(e_p))
         check(torch.equal(h, h_p) and rel <= 1e-5,
               f"K4 {tag}: entropy rel {rel:.3e}")
-        ms = cuda_ms(lambda: ef.byte_entropy_kernel(d), torch)
+        call = lambda: ef.byte_entropy_kernel(d)
+        h_2, e_2 = no_sync(call, torch)
+        check(torch.equal(h, h_2) and torch.equal(e, e_2),
+              f"K4 {tag}: a second call differs")
+        n_launch = launches_per_call(call, torch)
+        check(n_launch == 1, f"K4 {tag}: {n_launch} CUDA launches a call")
+        ms = cuda_ms(call, torch)
+        dev_ms = device_ms(call, torch)[0]
+        glue = host_ms(call, torch)
         plain = cuda_ms(lambda: ef.byte_entropy_plain(d), torch)
         binc = cuda_ms(lambda: torch.bincount(d, minlength=256), torch)
         n = d.numel()
         need = {"data": n, "hist": 4 * 256, "entropy": 4}
         n_ops = float(n)        # one count per byte
         b, by = bound_ms(float(sum(need.values())), n_ops)
-        say("kernels", f"K4 byte_entropy {tag} ({n:,} bytes): "
+        say("kernels", f"K4 byte_entropy {tag} ({n:,} bytes, "
+            f"{ef.byte_entropy_blocks(n, ef._sm_count(dev.index))} blocks): "
             f"{float(e):.6f} bits/byte, histogram identical, entropy rel "
-            f"{rel:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, no single "
-            f"PyTorch call computes it (torch.bincount, the histogram "
-            f"alone: {binc:.4f} ms); bound {b:.5f} ms ({by}; {_counts(need)} "
-            f"bytes, {n_ops:.0f} ops)")
-        k4[tag] = (abs(float(e) - float(e_p)), ms, plain, b, by)
-    err, ms, plain, b, by = k4["4 MiB of trained bf16 params"]
+            f"{rel:.3e}, identical on a second call, no host sync, "
+            f"{n_launch:g} CUDA launch a call; kernel {ms:.4f} ms a call "
+            f"(device {'not measured' if dev_ms is None else f'{dev_ms:.4f}'}"
+            f" ms; host {glue:.4f} ms a call to enqueue it), plain "
+            f"{plain:.4f} ms, no single PyTorch call computes it "
+            f"(torch.bincount, the histogram alone: {binc:.4f} ms); bound "
+            f"{b:.5f} ms ({by}; {_counts(need)} bytes, {n_ops:.0f} ops), "
+            f"{'not measured' if dev_ms is None else f'{100 * b / dev_ms:.2f}%'}"
+            f" of it reached in device time")
+        k4[tag] = (abs(float(e) - float(e_p)), ms, plain, b, by, dev_ms, glue)
+    err, ms, plain, b, by, dev_ms, glue = k4["4 MiB of trained bf16 params"]
     rows.append({"name": "byte_entropy", "route": "cuda",
                  "source": SOURCES["byte_entropy"][0],
                  "replaces": SOURCES["byte_entropy"][1],
                  "launches": 0, "max_abs_err": err, "ms": ms,
                  "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                 "library_ms": None})
+                 "library_ms": None, "device_ms": dev_ms, "host_ms": glue})
     k3_step = trained["launches"]["quant_pack"] // TRAIN_STEPS
     say("kernels", f"launches in the training run: K3 {k3_step} per step "
         f"({trained['launches']['quant_pack']} in {TRAIN_STEPS} steps), "

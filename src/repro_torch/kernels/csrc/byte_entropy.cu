@@ -11,22 +11,31 @@
 //   the reference byte_entropy_ref.
 //
 // What bounds it here: memory, n bytes read once; the 256 bins and the
-//   entropy are 1 KB out. A byte costs one shared-memory atomic, so at the
-//   sizes it is called with (1-4 MiB) the atomics and the launch, not the
-//   bytes, set its time.
+//   entropy are 1 KB out. At the sizes it is called with (1-4 MiB) the bytes
+//   take about 1 us, so the fixed costs of a call set its time. The parent
+//   took two launches: its caller zeroed the histogram with a memset launch
+//   first.
 //
-// Design: one launch. Hopper's blocks run in no order, so the TPU's carried
-//   histogram becomes a two-level one: each block counts into per-warp
-//   shared-memory histograms (8 x 256 uint32; a warp's lanes contend only
-//   with each other), reading 16 bytes per lane per step (the unaligned head
-//   and the tail byte by byte); the block then adds its 256 sums into the
-//   global int32 histogram with one atomic per bin. Integer atomics make the
-//   counts exact whatever their order. A completion counter elects the last
-//   block to finish, which computes the 256 terms p log2 p in float32 and
-//   sums them in a fixed shared-memory tree, so the entropy is the same on
-//   every run. A constant payload has p = 1, log2 1 = 0, and gives exactly
-//   0. The caller zeroes the histogram and the counter (one 1,028-byte
-//   buffer) before the launch.
+// Design: one launch, no zeroed buffer per call.
+//   * Each warp counts into its own 256-bin shared-memory histogram with
+//     one integer atomic a byte, reading 16 bytes a lane a step (the
+//     unaligned head and the tail byte by byte); one block per SM.
+//   * Each block adds its 256 counts into integer totals with atomics
+//     (exact in any order). A completion counter beside them elects the
+//     last block, which reads the totals, writes hist, sets totals and
+//     counter back to 0 for the next call, and adds the 256 terms p log2 p
+//     in a fixed shared-memory tree, so the entropy is the same on every
+//     run. A constant payload has p = 1, log2 1 = 0, and gives exactly 0.
+//     The totals live with the caller, zeroed once when made (one set per
+//     device and stream).
+//   Nothing merges a warp's equal bytes before adding them. On an H100 the
+//   lanes that add to one bin cost little: chip_smoke.py times this kernel
+//   on 4 MiB of random bytes beside 4 MiB of trained bf16 weights (whose
+//   every second byte takes a handful of values), and PERF.md keeps both.
+//   Merging with __match_any_sync, and per-thread 8-bit counters that no
+//   two threads share, were both slower in trials: the match costs more
+//   than the collisions, and clearing and flushing private counters costs
+//   as much as the counting at these sizes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,10 +43,8 @@
 namespace {
 
 constexpr int kBins = 256;
-constexpr int kThreads = 256;        // one thread per bin in the merge
+constexpr int kThreads = 256;        // one thread per bin at the end
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxBlocks = 264;      // two per SM of an H100 SXM
-constexpr int kBytesPerBlockStep = kThreads * 16;
 
 __device__ __forceinline__ void count_word(unsigned* h, uint32_t w)
 {
@@ -49,20 +56,20 @@ __device__ __forceinline__ void count_word(unsigned* h, uint32_t w)
 
 __global__ void __launch_bounds__(kThreads)
 byte_entropy_kernel(const uint8_t* __restrict__ data, long long n,
-                    long long head, int* __restrict__ hist,
-                    unsigned* __restrict__ done, float* __restrict__ entropy)
+                    long long head, unsigned* __restrict__ acc,
+                    int* __restrict__ hist, float* __restrict__ entropy)
 {
     __shared__ unsigned sh[kWarps][kBins];
     __shared__ float terms[kBins];
     __shared__ bool last;
-    for (int i = threadIdx.x; i < kWarps * kBins; i += kThreads)
-        (&sh[0][0])[i] = 0u;
+    const int t = threadIdx.x;
+    for (int i = t; i < kWarps * kBins; i += kThreads) (&sh[0][0])[i] = 0u;
     __syncthreads();
 
-    unsigned* mine = sh[threadIdx.x / 32];
-    const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
+    unsigned* mine = sh[t / 32];
+    const long long tid = (long long)blockIdx.x * kThreads + t;
     const long long stride = (long long)gridDim.x * kThreads;
-    for (long long i = tid; i < head; i += stride)        // unaligned head
+    for (long long i = tid; i < head; i += stride)         // unaligned head
         atomicAdd(&mine[data[i]], 1u);
     const uint4* body = reinterpret_cast<const uint4*>(data + head);
     const long long n16 = (n - head) / 16;
@@ -78,45 +85,45 @@ byte_entropy_kernel(const uint8_t* __restrict__ data, long long n,
     __syncthreads();
 
     unsigned c = 0;
-    for (int w = 0; w < kWarps; ++w) c += sh[w][threadIdx.x];
-    if (c) atomicAdd(&hist[threadIdx.x], (int)c);
+    for (int w = 0; w < kWarps; ++w) c += sh[w][t];
+    if (c) atomicAdd(&acc[t], c);
     __threadfence();                     // this block's counts before its vote
     __syncthreads();
-    if (threadIdx.x == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
+    if (t == 0) last = atomicAdd(&acc[kBins], 1u) == gridDim.x - 1;
     __syncthreads();
     if (!last) return;
 
     __threadfence();
-    const int h = atomicAdd(&hist[threadIdx.x], 0);      // a coherent read
+    const int h = (int)__ldcg(&acc[t]);
+    acc[t] = 0u;                         // ready for the next call
+    if (t == 0) acc[kBins] = 0u;
+    hist[t] = h;
     const float p = (float)h / fmaxf((float)n, 1.0f);
-    terms[threadIdx.x] = p > 0.f ? p * log2f(fmaxf(p, 1e-30f)) : 0.f;
+    terms[t] = p > 0.f ? p * log2f(fmaxf(p, 1e-30f)) : 0.f;
     __syncthreads();
     for (int s = kBins / 2; s > 0; s >>= 1) {
-        if (threadIdx.x < s) terms[threadIdx.x] += terms[threadIdx.x + s];
+        if (t < s) terms[t] += terms[t + s];
         __syncthreads();
     }
-    if (threadIdx.x == 0) *entropy = 0.f - terms[0];
+    if (t == 0) *entropy = 0.f - terms[0];
 }
 
 }  // namespace
 
-// data: n bytes (any alignment); hist_done: 257 zeroed int32 (256 bins, then
-// the completion counter); entropy: one float32.
+// data: n bytes (any alignment); blocks: the grid; acc: 256 bin totals and
+// the completion counter, all 0 before the launch and left 0 by it; hist:
+// 256 int32; entropy: one float32.
 extern "C" int byte_entropy_launch(const uint8_t* data, long long n,
-                                   int* hist_done, float* entropy,
-                                   void* stream)
+                                   int blocks, unsigned* acc, int* hist,
+                                   float* entropy, void* stream)
 {
-    if (n < 0) return (int)cudaErrorInvalidValue;
+    if (n < 0 || blocks < 1) return (int)cudaErrorInvalidValue;
     const long long head = n == 0 ? 0 :
         (long long)((16 - (reinterpret_cast<uintptr_t>(data) & 15)) & 15);
     const long long h = head < n ? head : n;
-    long long grid = (n + 4LL * kBytesPerBlockStep - 1) /
-                     (4LL * kBytesPerBlockStep);
-    grid = grid < 1 ? 1 : (grid > kMaxBlocks ? kMaxBlocks : grid);
-    byte_entropy_kernel<<<(unsigned)grid, kThreads, 0,
-                          (cudaStream_t)stream>>>(
-        data, n, h, hist_done, reinterpret_cast<unsigned*>(hist_done + kBins),
-        entropy);
+    byte_entropy_kernel<<<(unsigned)blocks, kThreads, 0,
+                          (cudaStream_t)stream>>>(data, n, h, acc, hist,
+                                                  entropy);
     return (int)cudaGetLastError();
 }
 

@@ -20,8 +20,8 @@ The kernel cuts the cache into splits of :func:`decode_split` keys, a
 length chosen from the cache capacity S and the grid, never from kv_len
 (which lives on the card): enough splits that the blocks fill the card's
 132 SMs about eight times over, each a multiple of 64 keys (two warps of
-32-key tiles). A sequence with no visible key gets o = 0 from the kernel
-and from :func:`decode_attention_split`.
+32-key tiles). A sequence with no visible key (kv_len 0, or a window that
+leaves none) gets o = 0 from all three.
 """
 
 from __future__ import annotations
@@ -74,6 +74,10 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = s.masked_fill(~mask[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhrk,bkhd->bhrd", p, v.float())
+    # no visible key (kv_len 0, or a window that leaves none): o = 0, as
+    # the kernel and decode_attention_split give
+    o = torch.where(mask.any(-1)[:, None, None, None], o,
+                    torch.zeros((), device=q.device))
     return o.reshape(B, Hq, Dv).to(q.dtype)
 
 

@@ -35,7 +35,9 @@ and Shannon entropy in bits per byte (float32 scalar),
 ``-sum p log2 p`` with ``p = hist / max(n, 1)``.
 
 * :func:`byte_entropy_kernel` launches ``csrc/byte_entropy.cu`` on a CUDA
-  tensor (it raises for anything else);
+  tensor (it raises for anything else): one launch, each warp counting
+  into its own shared-memory histogram, the last block to finish reading
+  the blocks' totals and adding the entropy;
 * :func:`byte_entropy_plain` is the same function in tensor ops
   (``bincount``), used for CPU tensors and as the kernel's yardstick.
 """
@@ -43,7 +45,8 @@ and Shannon entropy in bits per byte (float32 scalar),
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Dict, Tuple
 
 import torch
 
@@ -292,11 +295,45 @@ def byte_entropy_plain(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hist, ent
 
 
+#: threads per block of csrc/byte_entropy.cu (kThreads)
+BYTE_THREADS = 256
+#: bytes a thread should take at least before the grid grows
+BYTES_PER_THREAD = 32
+
+_byte_totals: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def byte_entropy_blocks(n: int, sms: int) -> int:
+    """Blocks of the byte-entropy kernel for ``n`` bytes on a card of
+    ``sms`` SMs: one per SM at most (more only add to the totals' atomics),
+    and fewer where each thread would take under ``BYTES_PER_THREAD``
+    bytes."""
+    return max(1, min(sms, -(-n // (BYTE_THREADS * BYTES_PER_THREAD))))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _byte_totals_for(dev: torch.device, stream: int) -> torch.Tensor:
+    """The kernel's 256 bin totals and completion counter for ``stream`` on
+    ``dev``: zeroed once when made, and left at 0 by every launch."""
+    key = (dev.index, stream)
+    acc = _byte_totals.get(key)
+    if acc is None:
+        acc = _byte_totals[key] = torch.zeros(257, dtype=torch.int32,
+                                              device=dev)
+    return acc
+
+
 def _byte_lib() -> ctypes.CDLL:
     lib = _build.load("byte_entropy")
     if not getattr(lib, "_typed", False):
         p = ctypes.c_void_p
-        lib.byte_entropy_launch.argtypes = [p, ctypes.c_longlong, p, p, p]
+        # data, n, blocks, acc, hist, entropy, stream
+        lib.byte_entropy_launch.argtypes = [p, ctypes.c_longlong,
+                                            ctypes.c_int, p, p, p, p]
         lib.byte_entropy_launch.restype = ctypes.c_int
         lib.byte_entropy_error_string.argtypes = [ctypes.c_int]
         lib.byte_entropy_error_string.restype = ctypes.c_char_p
@@ -307,24 +344,29 @@ def _byte_lib() -> ctypes.CDLL:
 def byte_entropy_kernel(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/byte_entropy.cu``: (hist (256,) int32, entropy ()
     float32). data a contiguous 1-D uint8 CUDA tensor of fewer than 2^31
-    bytes (the bins are int32)."""
+    bytes (the bins are int32). One CUDA launch, no memset and no host
+    synchronisation: the outputs come from ``torch.empty``, and the bin
+    totals and completion counter the blocks meet in are kept per device and
+    stream (zeroed once, left at 0 by each launch)."""
     dev = data.device
     if dev.type != "cuda":
         raise ValueError(f"byte-entropy kernel needs a CUDA tensor, got {dev}")
     _check_bytes(data)
     if not data.is_contiguous():
         raise ValueError("data must be contiguous")
-    if data.numel() >= 2 ** 31:
-        raise ValueError(f"{data.numel()} bytes overflow the int32 bins")
-    # 256 bins, then the kernel's completion counter; zeroed here
-    hist_done = torch.zeros(257, dtype=torch.int32, device=dev)
+    n = data.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} bytes overflow the int32 bins")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    blocks = byte_entropy_blocks(n, _sm_count(dev.index))
+    acc = _byte_totals_for(dev, stream)
+    hist = torch.empty(256, dtype=torch.int32, device=dev)
     ent = torch.empty((), dtype=torch.float32, device=dev)
     lib = _byte_lib()
-    rc = lib.byte_entropy_launch(data.data_ptr(), data.numel(),
-                                 hist_done.data_ptr(), ent.data_ptr(),
-                                 torch.cuda.current_stream(dev).cuda_stream)
+    rc = lib.byte_entropy_launch(data.data_ptr(), n, blocks, acc.data_ptr(),
+                                 hist.data_ptr(), ent.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"byte-entropy kernel launch failed: "
                            f"{lib.byte_entropy_error_string(rc).decode()}")
     _build.launch_counts["byte_entropy"] += 1
-    return hist_done[:256], ent
+    return hist, ent

@@ -60,8 +60,16 @@ def fractional_overlap_matrix(codes, sizes, spans, *, codes_b=None,
                               spans_b=None, device: DeviceLike = "cuda",
                               ) -> torch.Tensor:
     """(NA, NB) float32 fractional-overlap matrix on ``device`` (see
-    :mod:`repro_torch.kernels.overlap`)."""
+    :mod:`repro_torch.kernels.overlap`). Code rows given on the host
+    (numpy, or tensors on the CPU) are checked against the kernel's
+    contract (:func:`~repro_torch.kernels.overlap.check_codes`) before
+    they move; rows already on the card are taken as they are, since a
+    check there would wait for the card."""
     dev = resolve(device)
+    n_files = len(sizes)
+    for name, c in (("codes", codes), ("codes_b", codes_b)):
+        if c is not None and not (isinstance(c, torch.Tensor) and c.is_cuda):
+            _ov.check_codes(c, n_files, name)
     args = (_on(codes, torch.int32, dev), _on(sizes, torch.float32, dev),
             _on(spans, torch.float32, dev))
     kw = {}

@@ -107,6 +107,76 @@ def test_overlap_kernel_matches_plain(card, seed):
     assert (blk - w_k[:7]).abs().max().item() <= 1e-5
 
 
+def _overlap_rows(seed, n, F, lens):
+    """Code rows of the given lengths over F files, sizes and spans."""
+    rng = np.random.default_rng(seed)
+    rows = [np.sort(rng.choice(F, int(k), replace=False)) for k in lens]
+    codes = np.full((n, max(max(lens), 1)), -1, np.int32)
+    for i, r in enumerate(rows):
+        codes[i, :len(r)] = r
+    sizes = rng.uniform(0.5, 2.0, F).astype(np.float32)
+    spans = np.array([sizes[r].sum() for r in rows], np.float32)
+    return codes, sizes, spans
+
+
+def _scaling_rows(n_fams=4096, n_files=4096 * 20, seed=0):
+    """The G-PART scaling benchmark's shape (chip_smoke.py's
+    gpart_instance): windows of 2-8 neighbouring files."""
+    rng = np.random.default_rng(seed)
+    sizes = {f"s{i}": float(rng.uniform(0.5, 2.0)) for i in range(n_files)}
+    w = rng.integers(2, 9, n_fams)
+    lo = rng.integers(0, n_files - 9, n_fams)
+    qf = [(tuple(f"s{j}" for j in range(lo[k], lo[k] + w[k])),
+           float(rng.uniform(0.5, 8.0))) for k in range(n_fams)]
+    return tdp.PartitionIndex.from_partitions(
+        tdp.make_partitions(qf, sizes)).padded_codes()
+
+
+def _main_like_rows():
+    """217 rows over 1,732 files, 1-250 codes each and one of 1,200."""
+    lens = np.random.default_rng(1).integers(1, 250, 217)
+    lens[11] = 1200
+    return _overlap_rows(2, 217, 1732, lens)
+
+
+def _long_row():
+    """40 rows over 5,000 files, one of them 4,096 codes long."""
+    lens = np.random.default_rng(3).integers(1, 60, 40)
+    lens[0] = 4096
+    return _overlap_rows(4, 40, 5000, lens)
+
+
+@pytest.mark.parametrize("shape", ["main-like 217x1200", "4096x81920",
+                                   "one row of 4096", "rectangular 217x37"])
+def test_overlap_kernel_is_its_twin_and_syncs_nothing(card, shape):
+    """K1 within 1e-5 of the plain version with an identical w > 0
+    pattern, bit-identical to fractional_overlap_matrix_ordered on the card
+    and to a second call, one launch and no host synchronisation, at the
+    main path's shape (a long row among short ones), the scaling shape
+    (merge plan), a row of 4,096 codes, and NB = 37 (no tile's multiple)."""
+    make = {"4096x81920": _scaling_rows, "one row of 4096": _long_row}
+    codes, sizes, spans = make.get(shape, _main_like_rows)()
+    t = [torch.as_tensor(x, device=card) for x in (codes, sizes, spans)]
+    kw = {}
+    if shape.startswith("rectangular"):
+        kw = dict(codes_b=t[0][100:137].contiguous(),
+                  spans_b=t[2][100:137].contiguous())
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w = tov.fractional_overlap_matrix_kernel(*t, **kw)
+        again = tov.fractional_overlap_matrix_kernel(*t, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["overlap"] == 2
+    w_p = tov.fractional_overlap_matrix_plain(*t, **kw)
+    assert (w - w_p).abs().max().item() <= 1e-5
+    assert torch.equal(w > 0, w_p > 0)
+    assert torch.equal(w, tov.fractional_overlap_matrix_ordered(*t, **kw))
+    assert torch.equal(w, again)
+
+
 def test_g_part_on_card_matches_cpu(card):
     parts = _families(9)
     s = 2.5 * float(np.median([p.span for p in parts]))
@@ -259,9 +329,9 @@ def test_decode_kernel_matches_plain(card, B, S, Hq, Hkv, D, window, softcap,
 def test_decode_split_kernel_edges_are_exact_and_repeatable(
         card, B, S, Hq, Hkv, D, Dv, window, softcap, lens, dtype):
     """K6's split-KV kernel at shapes that exercise the split and merge:
-    within the JAX suite's tolerance of the plain version where a key is
-    visible, exactly 0 where none is, and bit-identical on a second call
-    (no float atomics)."""
+    within the JAX suite's tolerance of the plain version on every row,
+    exactly 0 where no key is visible (as the plain version is), and
+    bit-identical on a second call (no float atomics)."""
     q, k, v = _randn(14, (B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, Dv),
                      dtype=dtype, device=card)
     kv_len = torch.as_tensor(lens, dtype=torch.int32, device=card)
@@ -272,11 +342,9 @@ def test_decode_split_kernel_edges_are_exact_and_repeatable(
     torch.cuda.synchronize()
     assert ops.launch_counts["decode_attention"] == 2
     assert torch.equal(out, again)
-    seen = kv_len > 0
-    _assert_close(out[seen], tda.decode_attention_plain(q, k, v, kv_len,
-                                                        **kw)[seen],
+    _assert_close(out, tda.decode_attention_plain(q, k, v, kv_len, **kw),
                   ATTN_TOL[dtype])
-    assert not out[~seen].float().any()
+    assert not out[kv_len == 0].float().any()
 
 
 @pytest.mark.parametrize("V,n_buckets", [(400_000, 1), (400_000, 16),
@@ -477,6 +545,66 @@ def test_byte_entropy_kernel_matches_plain(card, n, offset):
         d = torch.arange(k, dtype=torch.uint8, device=card).repeat(300)
         assert float(ops.byte_entropy(d, device=card)[1]) == \
             pytest.approx(bits, abs=1e-5)
+
+
+def _bf16_weights(n_bytes):
+    g = torch.Generator().manual_seed(5)
+    w = (torch.randn(n_bytes // 2, generator=g) * 0.02).bfloat16()
+    return w.view(torch.uint8)
+
+
+@pytest.mark.parametrize("payload", ["bf16 weights", "constant", "2 symbols",
+                                     "unaligned start", "n=1"])
+def test_byte_entropy_kernel_is_one_launch_and_repeatable(card, payload):
+    """K4's histogram identical to the plain version's and the entropy
+    within rel 1e-5; the same bits on a second call; one CUDA launch (no
+    memset) per call and no host synchronisation."""
+    from torch.profiler import ProfilerActivity, profile
+    data = {"bf16 weights": lambda: _bf16_weights(4 << 20),
+            "constant": lambda: torch.full((3000,), 7, dtype=torch.uint8),
+            "2 symbols": lambda: torch.arange(2, dtype=torch.uint8).repeat(
+                5000),
+            "unaligned start": lambda: _bf16_weights(1 << 20)[5:],
+            "n=1": lambda: torch.tensor([200], dtype=torch.uint8),
+            }[payload]().to(card)
+    h, e = tef.byte_entropy_kernel(data)        # makes the stream's counter
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h2, e2 = tef.byte_entropy_kernel(data)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    h_p, e_p = tef.byte_entropy_plain(data)
+    assert torch.equal(h, h_p)
+    assert float(e) == pytest.approx(float(e_p), rel=1e-5, abs=1e-7)
+    assert torch.equal(h, h2) and torch.equal(e, e2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tef.byte_entropy_kernel(data)
+        torch.cuda.synchronize()
+    on_card = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    calls = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CPU
+             and ev.name.startswith(("cudaLaunch", "cudaMemset",
+                                     "cudaMemcpy"))]
+    assert len(calls) == 1 and len(on_card) <= 1, (calls, on_card)
+    assert all("byte_entropy" in name for name in on_card), on_card
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_byte_entropy_kernel_leaves_its_totals_at_zero(card, seed):
+    """The bin totals and completion counter the blocks meet in are left at
+    0 by every launch: payloads on one block, on 9 and on one per SM, in
+    turn, each give the plain version's counts."""
+    rng = np.random.default_rng(seed)
+    for n in (3, 70_001, 5 << 20, 3):
+        data = torch.as_tensor(rng.integers(0, 256, n).astype(np.uint8),
+                               device=card)
+        h, e = tef.byte_entropy_kernel(data)
+        h_p, e_p = tef.byte_entropy_plain(data)
+        assert torch.equal(h, h_p)
+        assert float(e) == pytest.approx(float(e_p), rel=1e-5, abs=1e-7)
 
 
 def test_attention_and_ssd_gradients_on_card(card):

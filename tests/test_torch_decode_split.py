@@ -11,10 +11,10 @@ tolerance, with splits wholly outside the visible range, a window that cuts
 through a split, a cache whose length is not a multiple of the split, and
 1, 4 and 8 query heads per KV head, with and without a softcap.
 
-A sequence with ``kv_len = 0`` has no visible key: the kernel and the
-split algorithm give o = 0 there, while the reference softmax over an
-all-masked row averages the cache, so those rows are checked against 0 and
-the others against the references.
+A sequence with ``kv_len = 0`` has no visible key: the split algorithm and
+``decode_attention_plain`` give o = 0 there, and they are compared on every
+row. The Pallas kernel averages the cache over an all-masked row (and its
+reference over another padding), so it is compared where ``kv_len >= 1``.
 """
 
 import jax.numpy as jnp
@@ -71,7 +71,7 @@ def test_split_matches_pallas_and_plain(B, S, Hq, Hkv, D, Dv, window, softcap,
         softcap=softcap).numpy()
     seen = lens > 0
     _close(out[seen], want_j[seen])
-    _close(out[seen], want_p[seen])
+    _close(out, want_p)
     assert not out[~seen].any()
 
 
@@ -113,3 +113,55 @@ def test_split_length_rule(B, S, Hq, Hkv, want):
     # as many splits as fill the card, or one split of the whole cache
     assert blocks >= min(tda.TARGET_BLOCKS, B * Hkv * groups * -(-S // 64))
     assert blocks < tda.TARGET_BLOCKS + B * Hkv * groups
+
+
+def _plain_before(q, k, v, kv_len, *, window=None, softcap=None):
+    """``decode_attention_plain`` as it was before rows with no visible key
+    were set to 0: the softmax over an all-masked row averages the cache."""
+    import math
+    B, Hq, D = q.shape
+    _, S, Hkv, Dv = (*k.shape[:3], v.shape[-1])
+    rep = Hq // Hkv
+    qr = q.float().reshape(B, Hkv, rep, D) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bhrd,bkhd->bhrk", qr, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    lens = kv_len.to(device=q.device, dtype=torch.int64)[:, None]
+    mask = k_pos < lens
+    if window is not None:
+        mask &= k_pos > lens - 1 - window
+    s = s.masked_fill(~mask[:, None, None, :], tda.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhrk,bkhd->bhrd", p, v.float())
+    return o.reshape(B, Hq, Dv).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,window,softcap,kv_len,empty", [
+    # kv_len 0 beside a full and a partial row
+    (3, 50, 4, 4, 16, None, None, [0, 50, 17], [True, False, False]),
+    # a window of 10 past the cache's end leaves no key; kv_len 0 too
+    (3, 50, 4, 2, 16, 10, None, [70, 30, 0], [True, False, True]),
+    # a window of 0 leaves no key; GQA 4:1 with a softcap
+    (2, 40, 8, 2, 32, 0, 30.0, [25, 40], [True, True]),
+    (2, 40, 8, 2, 32, 7, 30.0, [25, 40], [False, False]),
+])
+def test_plain_is_zero_without_a_visible_key_and_unchanged_elsewhere(
+        B, S, Hq, Hkv, D, window, softcap, kv_len, empty):
+    """``decode_attention_plain`` gives exactly 0 on a row with no visible
+    key, the bits of the old expression on every other row, and still
+    matches the Pallas kernel within 2e-5 there."""
+    q, k, v = _inputs(24, B, S, Hq, Hkv, D, D)
+    lens = np.asarray(kv_len, np.int32)
+    kw = dict(window=window, softcap=softcap)
+    tq, tk, tv, tl = (torch.as_tensor(a) for a in (q, k, v, lens))
+    out = tda.decode_attention_plain(tq, tk, tv, tl, **kw)
+    empty = torch.as_tensor(empty)
+    assert torch.equal(out[empty], torch.zeros_like(out[empty]))
+    seen = ~empty
+    assert torch.equal(out[seen], _plain_before(tq, tk, tv, tl, **kw)[seen])
+    if seen.any():
+        s = seen.numpy()
+        want = np.asarray(j_decode(*(jnp.asarray(a[s]) for a in (q, k, v, lens)),
+                                   block_k=64, interpret=True, **kw))
+        _close(out[seen].numpy(), want)
