@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: SCOPe's placement
-path, zamba2-2.7b serving and zamba2-2.7b training.
+path and its re-optimization under drift, zamba2-2.7b serving and
+zamba2-2.7b training.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -28,6 +29,42 @@ non-zero (with no result line):
             capacitated cents within rel 1e-6; a second CUDA run of the
             capacitated plan identical to the first; the capacitated solver
             again with capacities that bind, on the card and on the CPU.
+8. reopt    runs after phase 4, on its plans. (1) Phase main's greedy and
+            capacitated plans drift (``benchmarks/bench_reoptimize.py``'s
+            recipe, seed 0: 10% of partitions x20-100, 10% /20-100);
+            ``compredict_rd_fn`` re-predicts the drifted partitions on
+            the card (K2 must launch: counts zeroed before, read after;
+            ratios equal the plan's within rel 1e-5), then
+            ``reoptimize(months_held=0.25)`` on cuda and cpu from the same
+            problem: identical moves, tiers and schemes, cents within rel
+            1e-6. The greedy migration is mirrored into the port's
+            ``TieredStore`` (the moved partitions and the smallest unmoved
+            one, real payloads, the plan's ratios set to the stored bytes):
+            metered transfer and early delete equal the plan's within rel
+            1e-9. (2) ``budgeted_moves`` (greedy path) on those candidates
+            at half their spend, and on 100,000 seeded synthetic
+            candidates with a cents cap and a GB cap that both bind:
+            identical masks on cuda and cpu, each timed. (3) AWS + GCP +
+            Azure (``big3_table``, 12 tiers, schemes none/lz4/zstd), N
+            2,000 (the recipe's largest): uncapped, Azure capped at half its
+            uncapped footprint (provider group rows in the dual ascent),
+            each provider alone (the cross-provider plan never costlier),
+            a drift, and 3 copies for the hottest 10% (every copy on its
+            own provider), each on cuda and cpu: identical tiers, schemes,
+            ``provider_scheme`` and copies, cents within rel 1e-6; 120
+            partitions of real payloads at a 0.5 c/GB interconnect
+            mirrored into the store: metered egress equals the plan's. (4)
+            On the card only: a capacitated cross-provider solve and a
+            ``reoptimize`` at N 16,000 (the host's 1-swap local search grows
+            as N squared: N 100,000 would take tens of minutes), then a
+            greedy cross-provider solve and ``reoptimize`` at N 100,000;
+            seconds per stage, the dual ascent's device time
+            (torch.profiler), peak device memory. (5) ``MLP(hidden=(64,
+            64), epochs=500)`` on the 80 labelled samples of phase main
+            (zlib-6 ratios), from one initial parameter set on cuda and
+            cpu: predictions within rel 1e-4 of the largest (the bar of
+            ``tests/test_torch_ml.py``); the fit time on the card. Its
+            lines end with the card's name and power limit.
 6. serve    zamba2-2.7b at full width and depth (54 Mamba2 layers, one
             shared attention block used 9 times), bfloat16, random weights
             from ``torch.Generator(device="cuda").manual_seed(0)``, 4 random
@@ -350,15 +387,16 @@ def make_inputs():
                                rows_per_file=500)
     parts, rows = tpch.partitions_from_queries(db, qs, rows_per_file=500)
     t1 = time.perf_counter()
-    pred = CompressionPredictor(model_name="SVR").fit(
-        query_samples(qs, db.tables, max_rows=6000)[:80], layouts=("col",))
+    samples = query_samples(qs, db.tables, max_rows=6000)[:80]
+    pred = CompressionPredictor(model_name="SVR").fit(samples,
+                                                      layouts=("col",))
     t2 = time.perf_counter()
     total_gb = sum(p.span for p in parts) / 1e9
     say("main", f"TPC-H scale_rows={SCALE_ROWS:,}: {len(qs)} queries, "
         f"{len(parts)} query-family partitions over {len(rows):,} files, "
         f"{total_gb:.4f} GB of family spans; data {t1 - t0:.1f} s, "
         f"predictor fit {t2 - t1:.1f} s")
-    return parts, rows, pred, total_gb
+    return parts, rows, pred, total_gb, samples
 
 
 def run_variant(engine_cls, table, cfg, parts, rows, torch):
@@ -691,6 +729,501 @@ def phase_kernels(torch, recorded, launches):
     # K2's row: the three classes of one pass (one launch each)
     rows[-1].update(bound_share=b2 / k2_ms, device_ms=k2_dev)
     return rows
+
+
+# ------------------------------------------------------------- reopt phase
+MC_SCHEMES = ("none", "lz4", "zstd")     # labels: R and D are synthetic
+MC_N = 2_000                  # bench_reoptimize's largest N
+SCALE_N_CAP = 16_000          # capacitated cross-provider solve (PERF.md)
+SCALE_N = 100_000             # greedy cross-provider solve and reoptimize
+KNAPSACK_N = 100_000
+MONTHS_HELD = 0.25
+
+
+def _drift(rho, seed):
+    """``benchmarks/bench_reoptimize.py``'s drift: 10% of partitions go hot
+    (x20-100), another 10% go cold (/20-100), from a seeded generator."""
+    rng = np.random.default_rng(seed)
+    new = np.array(rho, np.float64)
+    hot = rng.random(new.size) < 0.10
+    cold = ~hot & (rng.random(new.size) < 0.10)
+    new[hot] *= rng.uniform(20.0, 100.0, int(hot.sum()))
+    new[cold] /= rng.uniform(20.0, 100.0, int(cold.sum()))
+    return new
+
+
+def _synthetic(E, table, cfg, N, seed):
+    """``bench_reoptimize._problem``'s recipe: lognormal spans, gamma access
+    counts, ratios 1.2-6 and decompression seconds per GB 0.01-2."""
+    rng = np.random.default_rng(seed)
+    K = len(cfg.schemes)
+    spans = rng.lognormal(0.0, 1.2, N) * 2.0
+    rho = rng.gamma(0.7, 25.0, N)
+    R = np.concatenate([np.ones((N, 1)), rng.uniform(1.2, 6.0, (N, K - 1))], 1)
+    D = np.concatenate([np.zeros((N, 1)),
+                        rng.uniform(0.01, 2.0, (N, K - 1)) * spans[:, None]],
+                       1)
+    return E.PlacementProblem(spans_gb=spans, rho=rho,
+                              current_tier=np.full(N, -1), R=R, D=D,
+                              schemes=cfg.schemes, table=table, cfg=cfg)
+
+
+def _same_plan(a, b, what):
+    check(np.array_equal(a.assignment.tier, b.assignment.tier)
+          and np.array_equal(a.assignment.scheme, b.assignment.scheme),
+          f"{what}: cuda and cpu tiers or schemes differ")
+    check(a.report.provider_scheme == b.report.provider_scheme,
+          f"{what}: provider_scheme differs")
+    rel = abs(a.report.total_cents - b.report.total_cents) \
+        / abs(b.report.total_cents)
+    check(rel <= 1e-6, f"{what}: cents differ by rel {rel}")
+    return rel
+
+
+def _same_migration(a, b, what):
+    for f in ("moved", "new_tier", "new_scheme"):
+        check(np.array_equal(getattr(a, f), getattr(b, f)),
+              f"{what}: cuda and cpu migrations differ in {f}")
+    rel = 0.0
+    for f in ("migration_cents", "penalty_cents", "egress_cents"):
+        x, y = getattr(a, f), getattr(b, f)
+        r = abs(x - y) / abs(y) if y else abs(x)
+        check(r <= 1e-6, f"{what}: {f} differs by rel {r}")
+        rel = max(rel, r)
+    _same_plan(a.plan, b.plan, what)
+    return rel
+
+
+def _timed_stages(torch, eng, optassign, secs, scans):
+    """Wrap ``eng``'s stages and the solver's pieces so each call adds its
+    host seconds (ending in ``torch.cuda.synchronize()``) to ``secs``; the
+    dual ascent's arguments are kept in ``scans`` (its device time is read
+    by re-running it under torch.profiler, outside the stage times).
+    Returns the function that undoes the wrapping."""
+
+    def wrap(obj, name, key, keep=None):
+        fn = getattr(obj, name)
+
+        def timed(*a, **k):
+            if keep is not None:
+                keep.append(a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(obj, name, timed)
+        return lambda: setattr(obj, name, fn)
+
+    undo = [wrap(eng.assign, "cost_and_feasibility", "cost+feasibility"),
+            wrap(optassign, "_lagrangian_scan", "dual ascent", scans),
+            wrap(optassign, "_best_from_candidates", "repair+local search"),
+            wrap(eng, "_migration_terms", "migration terms"),
+            wrap(eng, "_finalize_migration", "finalize (with its billing)"),
+            wrap(eng, "billing", "billing")]
+    return lambda: [u() for u in undo[::-1]]
+
+
+def _stage_line(secs):
+    return ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+
+
+def _mirror_into_store(E, eng, plan, new_rho, moved):
+    """Mirror the drifted partitions' migration into the port's
+    ``TieredStore``: the moved partitions and the smallest unmoved one,
+    with their real payloads. ``apply_plan`` puts them with their codecs;
+    the plan's ratio for each chosen cell is then set to what the store
+    holds (the SVR predicted it), and re-optimized until every cell the
+    migration picks has its measured ratio, so the plan prices the bytes
+    the store moves. Returns (migration, keys, meter lines moved)."""
+    from repro_torch.core.optassign import Assignment
+    from repro_torch.storage.codecs import codec_by_name
+    from repro_torch.storage.store import TieredStore
+    prob = plan.problem
+    still = np.setdiff1d(np.arange(prob.n), moved)
+    rows = np.sort(np.concatenate(
+        [moved, still[np.argsort(prob.spans_gb[still])[:1]]])).astype(int)
+    raws = [prob.raw_bytes[i] for i in rows]
+    sub = dataclasses.replace(
+        prob, spans_gb=prob.spans_gb[rows].copy(), rho=prob.rho[rows].copy(),
+        current_tier=np.full(rows.size, -1), R=prob.R[rows].copy(),
+        D=prob.D[rows].copy(), partitions=[prob.partitions[i] for i in rows],
+        raw_bytes=raws, sla_ms=None)
+    asg = Assignment(plan.assignment.tier[rows].copy(),
+                     plan.assignment.scheme[rows].copy(), float("nan"), True)
+    sub_plan = E.PlacementPlan(sub, asg, eng.billing(sub, asg))
+    store = TieredStore(plan.problem.table)
+    keys = store.apply_plan(sub_plan)
+    known = set()
+    for j, key in enumerate(keys):
+        k0 = int(asg.scheme[j])
+        sub.R[j, k0] = sub.spans_gb[j] / store.stored_gb(key)
+        known.add((j, k0))
+    for _ in range(4):
+        mig = eng.reoptimize(sub_plan, new_rho[rows], months_held=MONTHS_HELD)
+        need = {(int(j), int(mig.new_scheme[j]))
+                for j in np.flatnonzero(mig.moved)} - known
+        if not need:
+            break
+        for j, k in need:
+            n_bytes = len(codec_by_name(sub.schemes[k]).compress(raws[j]))
+            sub.R[j, k] = sub.spans_gb[j] / (n_bytes / 1e9)
+            known.add((j, k))
+    else:
+        raise AssertionError("store mirror: measured ratios did not settle "
+                             "in 4 re-optimizations")
+    store.advance_months(MONTHS_HELD)
+    before = dataclasses.asdict(store.meter)
+    store.migrate(mig, keys)
+    after = dataclasses.asdict(store.meter)
+    delta = {f: after[f] - before[f] for f in
+             ("read_cents", "write_cents", "egress_cents", "penalty_cents")}
+    for n in np.flatnonzero(mig.moved):
+        check(store.tier_of(keys[n]) == mig.new_tier[n]
+              and store.codec_of(keys[n]) == sub.schemes[mig.new_scheme[n]],
+              "store mirror: an object is not where the plan put it")
+    return mig, rows, delta
+
+
+def _knapsack_both(optassign, s, c, bc, **kw):
+    """``budgeted_moves`` on the card and on the CPU: (mask, {device: s})."""
+    out, secs = {}, {}
+    for dev in (CARD, "cpu"):
+        optassign.budgeted_moves(s, c, bc, device=dev, **kw)     # warm-up
+        t0 = time.perf_counter()
+        out[dev] = optassign.budgeted_moves(s, c, bc, device=dev, **kw)
+        secs[dev] = time.perf_counter() - t0
+    check(np.array_equal(out[CARD], out["cpu"]),
+          "budgeted_moves: cuda and cpu masks differ")
+    return out[CARD], secs
+
+
+def phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs,
+                smi_line):
+    """Re-optimization under drift, the budget knapsack, multi-cloud
+    placement, placement at scale and the MLP (phase 8)."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import ml, optassign
+    from repro_torch.core.compredict import build_dataset
+    from repro_torch.core.costs import big3_table
+    from repro_torch.kernels import ops
+    from repro_torch.storage.codecs import codec_by_name
+    card = f"| {smi_line}"
+    t_phase = time.perf_counter()
+
+    # 1. drift phase main's greedy and capacitated plans and re-optimize
+    greedy, capac = VARIANTS[1], VARIANTS[2]
+    prob0 = cuda_runs[greedy][0]
+    new_rho = _drift(prob0.rho, SEED)
+    drifted = np.flatnonzero(new_rho != prob0.rho)
+    say("reopt", f"drift (bench_reoptimize's recipe, seed {SEED}): "
+        f"{drifted.size} of {prob0.n} partitions, rho x "
+        f"{np.round(new_rho[drifted] / prob0.rho[drifted], 4).tolist()}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rd_fn = E.compredict_rd_fn(pred, rows, feature_backend="device",
+                               device=CARD)
+    R_d, _ = rd_fn([prob0.partitions[i] for i in drifted], prob0.schemes)
+    torch.cuda.synchronize()
+    t_rd = time.perf_counter() - t0
+    check(np.allclose(R_d, prob0.R[drifted], rtol=1e-5, atol=0),
+          "compredict_rd_fn's ratios differ from the plan's")
+    migs, secs = {}, {}
+    for n in (greedy, capac):
+        problem, assignment, report, _ = cuda_runs[n]
+        plan = E.PlacementPlan(problem, assignment, report)
+        for dev in (CARD, "cpu"):
+            eng = E.PlacementEngine(table, dataclasses.replace(cfgs[n],
+                                                               device=dev))
+            t0 = time.perf_counter()
+            migs[n, dev] = eng.reoptimize(plan, new_rho,
+                                          months_held=MONTHS_HELD)
+            torch.cuda.synchronize()
+            secs[n, dev] = time.perf_counter() - t0
+        rel = _same_migration(migs[n, CARD], migs[n, "cpu"], n)
+        m = migs[n, CARD]
+        say("reopt", f"{n}: reoptimize(months_held={MONTHS_HELD}) moves "
+            f"{m.n_moved} of {m.plan.problem.n} (tiers {m.plan.report.tiering_scheme}), "
+            f"migration {m.migration_cents!r} cents, early delete "
+            f"{m.penalty_cents!r} cents, steady {m.plan.report.total_cents!r} "
+            f"cents; cuda {secs[n, CARD]:.4f} s, cpu {secs[n, 'cpu']:.4f} s; "
+            f"cuda and cpu identical moves, tiers and schemes, cents rel "
+            f"{rel:.3e} {card}")
+    check(migs[greedy, CARD].n_moved > 0, "the drift moved nothing")
+    launches = dict(ops.launch_counts)
+    say("reopt", f"launches in the re-optimization path (compredict_rd_fn "
+        f"on the {drifted.size} drifted partitions, {t_rd:.2f} s, then "
+        f"the four reoptimize calls): {launches}")
+    check(launches.get("entropy_features", 0) > 0,
+          "kernel entropy_features was not launched by the reopt path")
+    eng = E.PlacementEngine(table, cfgs[greedy])
+    t0 = time.perf_counter()
+    m_st, st_rows, delta = _mirror_into_store(
+        E, eng, E.PlacementPlan(*cuda_runs[greedy][:3]), new_rho,
+        np.flatnonzero(migs[greedy, CARD].moved))
+    transfer = float(delta["read_cents"] + delta["write_cents"]
+                     + delta["egress_cents"])
+    r_t = abs(transfer - m_st.migration_cents) / max(m_st.migration_cents,
+                                                     1e-300)
+    r_p = abs(delta["penalty_cents"] - m_st.penalty_cents) \
+        / max(m_st.penalty_cents, 1e-300)
+    check(m_st.n_moved > 0 and r_t <= 1e-9
+          and (r_p <= 1e-9 or abs(delta["penalty_cents"]
+                                  - m_st.penalty_cents) <= 1e-15),
+          f"store meter differs from the plan: transfer rel {r_t}, early "
+          f"delete rel {r_p}")
+    say("reopt", f"TieredStore mirror of partitions {st_rows.tolist()} "
+        f"(apply_plan, advance_months({MONTHS_HELD}), migrate; ratios "
+        f"measured on the payloads): {m_st.n_moved} moves, metered transfer "
+        f"{transfer!r} vs plan {m_st.migration_cents!r} cents (rel "
+        f"{r_t:.2e}), early delete {float(delta['penalty_cents'])!r} vs "
+        f"{m_st.penalty_cents!r} (rel {r_p:.2e}); {time.perf_counter() - t0:.2f} s")
+
+    # 2. the budget knapsack
+    m = migs[greedy, CARD]
+    sav = m.steady_savings_cents()
+    spend = m.move_transfer_cents + m.move_egress_cents + m.move_penalty_cents
+    cand = m.candidate
+    bc = float(0.5 * spend[cand].sum())
+    bg = float(0.5 * m.old_stored_gb[cand].sum())
+    keep, ks = _knapsack_both(optassign, sav, spend, bc, candidates=cand,
+                              move_gb=m.old_stored_gb, budget_gb=bg,
+                              method="greedy")
+    sel = m.select(keep)
+    check(sel.total_move_cents <= bc + 1e-9
+          and m.old_stored_gb[keep].sum() <= bg + 1e-9,
+          "budgeted selection exceeds a cap")
+    say("reopt", f"budgeted_moves on the {int(cand.sum())} candidates at "
+        f"half their spend ({bc!r} cents, {bg!r} GB): keeps "
+        f"{int(keep.sum())}, spends {float(sel.total_move_cents)!r} cents; cuda "
+        f"{ks[CARD] * 1e3:.3f} ms, cpu {ks['cpu'] * 1e3:.3f} ms, identical")
+    rng = np.random.default_rng(SEED + 7)
+    n = KNAPSACK_N
+    s = rng.gamma(1.0, 5.0, n) - 1.0
+    c = rng.uniform(0.0, 3.0, n)
+    c[rng.random(n) < 0.05] = 0.0
+    g = rng.uniform(0.0, 2.0, n)
+    cand = rng.random(n) < 0.8
+    kw = dict(candidates=cand, move_gb=g, method="greedy")
+    # the cents cap at a tenth of the candidates' spend; the GB cap just
+    # under what that selection moves, so that each cap stops some items
+    bc = 0.1 * c[cand].sum()
+    only_c = optassign.budgeted_moves(s, c, bc, device=CARD, **kw)
+    bg = 0.9995 * g[only_c].sum()
+    keep, ks = _knapsack_both(optassign, s, c, bc, budget_gb=bg, **kw)
+    only_g = optassign.budgeted_moves(s, c, np.inf, budget_gb=bg,
+                                      device=CARD, **kw)
+    check(not np.array_equal(keep, only_c)
+          and not np.array_equal(keep, only_g),
+          "the synthetic knapsack's caps do not both bind")
+    check(c[keep].sum() <= bc + 1e-9 and g[keep].sum() <= bg + 1e-9,
+          "budgeted_moves exceeds a cap")
+    say("reopt", f"budgeted_moves, {n:,} synthetic candidates (seed "
+        f"{SEED + 7}), caps {bc:.4f} cents and {bg:.4f} GB, both binding "
+        f"({int((keep != only_c).sum())} and {int((keep != only_g).sum())} "
+        f"rows differ from the cents-only and GB-only selections): keeps "
+        f"{int(keep.sum()):,}; cuda "
+        f"{ks[CARD] * 1e3:.2f} ms (device argsort, host float32 walk), "
+        f"cpu {ks['cpu'] * 1e3:.2f} ms, masks identical {card}")
+
+    # 3. placement across three clouds
+    def engines(tab, **kw):
+        return {dev: E.PlacementEngine(tab, E.ScopeConfig(
+            schemes=MC_SCHEMES, months=6.0, device=dev, **kw))
+            for dev in (CARD, "cpu")}
+
+    def solve_both(tab, what, **kw):
+        engs = engines(tab, **kw)
+        plans, t = {}, {}
+        for dev, e in engs.items():
+            t0 = time.perf_counter()
+            plans[dev] = e.solve(_synthetic(E, tab, e.cfg, MC_N, MC_N))
+            torch.cuda.synchronize()
+            t[dev] = time.perf_counter() - t0
+        _same_plan(plans[CARD], plans["cpu"], what)
+        return engs, plans, t
+
+    big3 = big3_table()
+    engs, plans, t = solve_both(big3, "big3 uncapped")
+    plan = plans[CARD]
+    cross = plan.report.total_cents
+    az = big3.provider_names.index("azure")
+    az_use = float(plan.stored_gb[big3.provider_of_tier[plan.assignment.tier]
+                                  == az].sum())
+    say("reopt", f"big3 ({big3.num_tiers} tiers, providers "
+        f"{big3.provider_names}), N {MC_N:,}, schemes {MC_SCHEMES}: "
+        f"uncapped {cross!r} cents, providers {plan.report.provider_scheme}; "
+        f"cuda {t[CARD]:.3f} s, cpu {t['cpu']:.3f} s, identical")
+    scans = []
+    scan = optassign._lagrangian_scan
+    optassign._lagrangian_scan = lambda *a: scans.append(1) or scan(*a)
+    try:
+        capped = big3_table(azure_capacity_gb=0.5 * az_use)
+        _, cplans, t = solve_both(capped, "big3 azure capped")
+    finally:
+        optassign._lagrangian_scan = scan
+    cp = cplans[CARD]
+    used = float(cp.stored_gb[capped.provider_of_tier[cp.assignment.tier]
+                              == az].sum())
+    check(len(scans) == 2 and cp.assignment.feasible
+          and used <= 0.5 * az_use + 1e-6,
+          "the azure cap did not reach the dual ascent, or was not kept")
+    say("reopt", f"azure capped at half its footprint ({0.5 * az_use:.4f} "
+        f"of {az_use:.4f} GB; provider group rows, dual ascent on both "
+        f"devices): {cp.report.total_cents!r} cents, providers "
+        f"{cp.report.provider_scheme}, azure holds {used:.4f} GB; cuda "
+        f"{t[CARD]:.3f} s, cpu {t['cpu']:.3f} s, identical")
+    singles = {}
+    for p in big3.provider_names:
+        _, sp, _ = solve_both(big3, f"{p} only", provider_whitelist=(p,))
+        singles[p] = sp[CARD].report.total_cents
+    check(cross <= min(singles.values()) + 1e-9,
+          "the cross-provider plan costs more than a single provider's")
+    say("reopt", "single-provider plans (provider_whitelist): "
+        + ", ".join(f"{p} {v!r}" for p, v in singles.items())
+        + f" cents; cross-provider saves "
+        f"{100 * (1 - cross / min(singles.values())):.3f}% against the best")
+    mc_rho = _drift(plan.problem.rho, SEED + 1)
+    mm = {dev: engs[dev].reoptimize(plans[dev], mc_rho,
+                                    months_held=MONTHS_HELD)
+          for dev in engs}
+    _same_migration(mm[CARD], mm["cpu"], "big3 reoptimize")
+    crossed = int(((big3.provider_of_tier[mm[CARD].new_tier]
+                    != big3.provider_of_tier[mm[CARD].old_tier])
+                   & mm[CARD].moved).sum())
+    say("reopt", f"big3 drift: {mm[CARD].n_moved} moves, {crossed} across "
+        f"providers, migration {mm[CARD].migration_cents!r} cents (egress "
+        f"{mm[CARD].egress_cents!r}), early delete "
+        f"{mm[CARD].penalty_cents!r}; identical on cuda and cpu")
+    hot = plan.problem.rho >= np.quantile(plan.problem.rho, 0.9)
+    reps = {dev: engs[dev].plan_replicas(plans[dev], np.where(hot, 3, 1))
+            for dev in engs}
+    a, b = reps[CARD], reps["cpu"]
+    check(all(np.array_equal(getattr(a, f), getattr(b, f))
+              for f in ("copies", "replica_tier", "replica_scheme"))
+          and abs(a.replica_cents - b.replica_cents)
+          <= 1e-6 * abs(b.replica_cents),
+          "plan_replicas differs between cuda and cpu")
+    prov = big3.provider_of_tier
+    for i in np.flatnonzero(a.copies > 1):
+        ps = [prov[plan.assignment.tier[i]]] + [prov[l] for l in
+                                                a.replica_tier[i] if l >= 0]
+        check(len(ps) == len(set(ps)) == a.copies[i],
+              f"partition {i}: two copies on one provider")
+    say("reopt", f"plan_replicas, 3 copies for the hottest 10% "
+        f"({int(hot.sum())}): {a.n_replicated} replicated, copies "
+        f"{np.bincount(a.copies).tolist()} by count, replica "
+        f"{a.replica_cents!r} cents, read rebate {a.read_rebate_cents!r}; "
+        f"every copy on its own provider; identical on cuda and cpu")
+    # a small instance with real payloads, priced at a 0.5 c/GB
+    # interconnect so that moves cross providers (the example's recipe)
+    from repro_torch.storage.store import TieredStore
+    inter = np.full((3, 3), 0.5)
+    np.fill_diagonal(inter, 0.0)
+    disc = dataclasses.replace(big3, egress_cents_gb=inter)
+    cfg = E.ScopeConfig(schemes=("none",), months=6.0, device=CARD)
+    rng = np.random.default_rng(7)
+    raws = [b"\xa5" * max(int(x * 1e9), 1)
+            for x in rng.lognormal(0.0, 1.3, 120) * 2e-5]
+    small = E.PlacementProblem(
+        spans_gb=np.array([len(r) / 1e9 for r in raws]),
+        rho=rng.gamma(0.6, 30.0, 120), current_tier=np.full(120, -1),
+        R=np.ones((120, 1)), D=np.zeros((120, 1)), schemes=("none",),
+        table=disc, cfg=cfg, raw_bytes=raws)
+    e_d = E.PlacementEngine(disc, cfg)
+    p_d = e_d.solve(small)
+    store = TieredStore(disc)
+    keys = store.apply_plan(p_d)
+    store.advance_months(0.5)
+    flip = np.random.default_rng(11).random(120) < 0.2
+    rho_d = small.rho.copy()
+    rho_d[flip] *= np.random.default_rng(12).choice([1e-3, 200.0],
+                                                    int(flip.sum()))
+    m_d = e_d.reoptimize(p_d, rho_d, months_held=0.5)
+    e0 = store.meter.egress_cents
+    store.migrate(m_d, keys)
+    eg = float(store.meter.egress_cents - e0)
+    check(m_d.egress_cents > 0
+          and abs(eg - m_d.egress_cents) <= 1e-9 * m_d.egress_cents,
+          f"store egress {eg} differs from the plan's {m_d.egress_cents}")
+    say("reopt", f"TieredStore mirror, 120 partitions of real payloads at a "
+        f"0.5 c/GB interconnect: {m_d.n_moved} moves, metered egress "
+        f"{eg!r} cents, plan {m_d.egress_cents!r}")
+
+    # 4. scale, on the card only
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for N, capped_run in ((SCALE_N_CAP, True), (SCALE_N, False)):
+        cfg = E.ScopeConfig(schemes=MC_SCHEMES, months=6.0, device=CARD)
+        tab = big3
+        if capped_run:
+            g = E.PlacementEngine(big3, cfg).solve(
+                _synthetic(E, big3, cfg, N, N))
+            use = float(g.stored_gb[big3.provider_of_tier[g.assignment.tier]
+                                    == az].sum())
+            tab = big3_table(azure_capacity_gb=0.5 * use)
+        e = E.PlacementEngine(tab, cfg)
+        prob = _synthetic(E, tab, cfg, N, N)
+        secs = {"solve": {}, "reoptimize": {}}
+        scans = {"solve": [], "reoptimize": []}
+        t = {}
+        for step in ("solve", "reoptimize"):
+            undo = _timed_stages(torch, e, optassign, secs[step], scans[step])
+            try:
+                t0 = time.perf_counter()
+                if step == "solve":
+                    plan_s = e.solve(prob)
+                else:
+                    mig_s = e.reoptimize(plan_s, _drift(prob.rho, N + 1),
+                                         months_held=MONTHS_HELD)
+                torch.cuda.synchronize()
+                t[step] = time.perf_counter() - t0
+            finally:
+                undo()
+        check(plan_s.assignment.feasible and mig_s.plan.assignment.feasible,
+              f"N {N:,}: infeasible plan")
+        what = ("azure capped at half its footprint, capacitated"
+                if capped_run else "uncapped, greedy")
+        for step in ("solve", "reoptimize"):
+            dual = [device_ms(lambda: optassign._lagrangian_scan(*a), torch,
+                              iters=1)[0] for a in scans[step]]
+            dual_txt = (", ".join("not measured (no device records)"
+                                  if d is None else f"{d:.3f} ms"
+                                  for d in dual)
+                        if dual else "none (the unconstrained optimum "
+                        "fits the capacities)")
+            say("reopt", f"scale N {N:,} on big3 ({what}): {step} "
+                f"{t[step]:.3f} s ({_stage_line(secs[step])}); dual ascent "
+                f"device time {dual_txt}"
+                + (f"; {mig_s.n_moved:,} moves" if step == "reoptimize"
+                   else "") + f" {card}")
+    say("reopt", f"peak device memory of the scale runs "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB {card}")
+
+    # 5. the MLP on COMPREDICT's labelled set (phase main's 80 samples)
+    ds = build_dataset(samples, codec_by_name("zlib-6"), "col")
+    init = ml._mlp_init((ds.X.shape[1], 64, 64, 1), seed=SEED)
+    fits, t = {}, {}
+    for dev in (CARD, "cpu"):
+        t0 = time.perf_counter()
+        fits[dev] = ml.MLP(hidden=(64, 64), epochs=500, init_params=init,
+                           device=dev).fit(ds.X, ds.ratio)
+        torch.cuda.synchronize()
+        t[dev] = time.perf_counter() - t0
+    check(all(p.device.type == "cuda" for p in fits[CARD].net.parameters()),
+          "the MLP did not train on the card")
+    pa, pb = fits[CARD].predict(ds.X), fits["cpu"].predict(ds.X)
+    err = float(np.abs(pa - pb).max() / np.abs(pb).max())
+    dp = max(float(np.abs(a[k] - b[k]).max()) for a, b in
+             zip(fits[CARD].params, fits["cpu"].params) for k in ("w", "b"))
+    check(err <= 1e-4, f"MLP on cuda and cpu differ by rel {err} (bar 1e-4, "
+          f"tests/test_torch_ml.py)")
+    say("reopt", f"MLP(hidden=(64, 64), epochs=500) on {len(ds.X)} samples x "
+        f"{ds.X.shape[1]} features (zlib-6 ratios): fit {t[CARD]:.3f} s on "
+        f"the card, {t['cpu']:.3f} s on the CPU; predictions rel {err:.3e} "
+        f"(bar 1e-4), parameters {dp:.3e} apart {card}")
+    say("reopt", f"phase reopt took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------------- serve phase
@@ -1674,11 +2207,12 @@ def main() -> int:
 
     say("main", f"reduced: scale_rows 6,000,000 -> {SCALE_ROWS:,} "
         f"(host-side string encoding time)")
-    parts, rows, pred, total_gb = make_inputs()
+    parts, rows, pred, total_gb, samples = make_inputs()
     recorded = {}
     table, cfgs, cuda_runs, launches = phase_main(
         torch, parts, rows, pred, total_gb, recorded)
     phase_cpu(torch, parts, rows, table, cfgs, cuda_runs)
+    phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs, smi_line)
     served = {}
     serve_launches = phase_serve(torch, served)
     trained = phase_train(torch)

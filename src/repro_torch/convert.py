@@ -13,7 +13,13 @@ so differ from fit to fit) can be used here unchanged. Each entry of
 
 * ``"RandomForest"``: ``"trees"``, a list of dicts of flat node arrays
   ``feature``, ``thresh``, ``left``, ``right``, ``value`` (preorder; a
-  node is a leaf when ``left < 0``);
+  node is a leaf when ``left < 0``), plus ``probs`` (n_nodes, n_classes)
+  for a classification forest;
+* ``"NeuralNetwork"`` (the MLP): ``params``, a list of per-layer dicts
+  ``{"w": (in, out), "b": (out,)}`` of float32 arrays, the float32
+  standardization ``mu`` and ``sd`` (and ``ymu``, ``ysd`` for
+  regression), ``task``, ``n_classes`` and ``hidden``; its network is
+  built on ``device``;
 * ``"SVR"`` (kernel ridge): ``mu``, ``sd``, ``Xtr``, ``g``, ``coef``;
 * ``"Averaging"``: ``mean``.
 """
@@ -36,14 +42,30 @@ from repro_torch.training.optimizer import AdamWState
 Key = Tuple[str, str, str]          # (scheme, layout, 'ratio' | 'dspeed')
 
 
-def model_from_arrays(a: Mapping[str, object]):
+def model_from_arrays(a: Mapping[str, object], device: DeviceLike = "cuda"):
+    """One fitted model from its arrays; only ``"NeuralNetwork"`` touches
+    ``device``."""
     kind = a["model"]
     if kind == "RandomForest":
-        rf = ml.RandomForest(n_trees=len(a["trees"]))
-        rf.trees = [ml.DecisionTree.from_arrays(
-            t["feature"], t["thresh"], t["left"], t["right"], t["value"])
-            for t in a["trees"]]
+        trees = [ml.DecisionTree.from_arrays(
+            t["feature"], t["thresh"], t["left"], t["right"], t["value"],
+            t.get("probs")) for t in a["trees"]]
+        clf = trees[0].probs is not None
+        rf = ml.RandomForest(n_trees=len(trees),
+                             task="clf" if clf else "reg",
+                             n_classes=trees[0].n_classes if clf else 2)
+        rf.trees = trees
         return rf
+    if kind == "NeuralNetwork":
+        mlp = ml.MLP(hidden=tuple(a["hidden"]), task=a["task"],
+                     n_classes=int(a["n_classes"]), device=device)
+        mlp.net = ml._Net(a["params"], mlp.device)
+        mlp.mu = np.asarray(a["mu"], np.float32)
+        mlp.sd = np.asarray(a["sd"], np.float32)
+        if a["task"] == "reg":
+            mlp.ymu = np.float32(a["ymu"])
+            mlp.ysd = np.float32(a["ysd"])
+        return mlp
     if kind == "SVR":
         kr = ml.KernelRidge()
         kr.mu = np.asarray(a["mu"], np.float64)
@@ -62,15 +84,19 @@ def model_from_arrays(a: Mapping[str, object]):
 def predictor_from_arrays(arrays: Mapping[Key, Mapping[str, object]], *,
                           feature_kind: str = "weighted_entropy",
                           feature_backend: str = "numpy",
+                          device: DeviceLike = "cuda",
                           ) -> CompressionPredictor:
-    """A fitted :class:`CompressionPredictor` from per-key model arrays."""
+    """A fitted :class:`CompressionPredictor` from per-key model arrays;
+    an ``"NeuralNetwork"`` predictor's MLPs live on ``device``."""
     kinds = {a["model"] for a in arrays.values()}
     if len(kinds) != 1:
         raise ValueError(f"one model type per predictor, got {sorted(kinds)}")
     pred = CompressionPredictor(feature_kind=feature_kind,
                                 model_name=kinds.pop(),
-                                feature_backend=feature_backend)
-    pred.models = {tuple(k): model_from_arrays(a) for k, a in arrays.items()}
+                                feature_backend=feature_backend,
+                                device=device)
+    pred.models = {tuple(k): model_from_arrays(a, device)
+                   for k, a in arrays.items()}
     return pred
 
 

@@ -1,7 +1,7 @@
 """Serving cache tier: forecast-driven admission in front of the tiered store.
 
-A copy of the parts of ``repro.core.cache`` that the batch placement path
-prices. A :class:`CacheConfig` on ``ScopeConfig.cache`` puts a
+A copy of ``repro.core.cache``: what the batch placement path prices, and
+the reactive LRU baseline (:class:`ReactiveLRUCache`). A :class:`CacheConfig` on ``ScopeConfig.cache`` puts a
 fixed-capacity hot cache in front of the placement: admitted partitions
 serve ``1 - miss_rate`` of their reads at ``hit_latency_ms``. Cache
 **storage/fill spend is real cents**; SLA **latency penalties are not
@@ -11,14 +11,15 @@ cents** and are reported separately.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
 from repro_torch.core.costs import CostTable, Weights
 
 __all__ = ["CacheConfig", "forecast_admission", "cache_access_adjustment",
-           "cache_cents", "served_latency_terms", "weighted_p99_ms"]
+           "cache_cents", "served_latency_terms", "weighted_p99_ms",
+           "ReactiveLRUCache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,3 +117,50 @@ def weighted_p99_ms(lat_ms: np.ndarray, weights: np.ndarray,
     cum = np.cumsum(w[order])
     i = int(np.searchsorted(cum, q * total, side="left"))
     return float(lat_ms[order][min(i, lat_ms.size - 1)])
+
+
+class ReactiveLRUCache:
+    """Reactive admit-on-access LRU cache — the benchmark baseline.
+
+    No forecast: a partition enters the cache only when it is actually
+    read, so the first (spiky) month of traffic is always served from the
+    backing tier. Eviction is least-recently-used by access order.
+    """
+
+    def __init__(self, capacity_gb: float):
+        self.capacity_gb = float(capacity_gb)
+        self._sizes: Dict[int, float] = {}     # key -> GB, insertion = LRU
+        self._used = 0.0
+
+    @property
+    def used_gb(self) -> float:
+        return self._used
+
+    def contains(self, key: int) -> bool:
+        return key in self._sizes
+
+    def access(self, key: int, gb: float) -> bool:
+        """Touch ``key``; admit (evicting LRU victims) if absent.
+
+        Returns True when the access was a HIT (already resident)."""
+        hit = key in self._sizes
+        if hit:
+            self._sizes[key] = self._sizes.pop(key)   # move to MRU end
+            return True
+        gb = float(gb)
+        if gb > self.capacity_gb:
+            return False                              # can never fit
+        while self._used + gb > self.capacity_gb and self._sizes:
+            lru = next(iter(self._sizes))             # oldest insertion
+            self._used -= self._sizes.pop(lru)
+        self._sizes[key] = gb
+        self._used += gb
+        return False
+
+    def mask(self, n: int) -> np.ndarray:
+        """(n,) bool residency mask over integer keys ``0..n-1``."""
+        out = np.zeros(n, bool)
+        for k in self._sizes:
+            if 0 <= k < n:
+                out[k] = True
+        return out

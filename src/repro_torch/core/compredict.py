@@ -1,9 +1,9 @@
 """COMPREDICT — compression ratio / decompression-speed prediction (paper §V).
 
-Port of ``repro.core.compredict``'s placement-path pieces: the
-weighted-entropy features (per partition in numpy, or batched on the
-device), label generation from measured codecs, and the fitted
-:class:`CompressionPredictor`. The batched backend ``'device'`` runs
+Port of ``repro.core.compredict``: the weighted-entropy features (per
+partition in numpy, or batched on the device), sampling, label generation
+from measured codecs, the evaluation harness (:func:`train_eval`) and the
+fitted :class:`CompressionPredictor`. The batched backend ``'device'`` runs
 :func:`repro_torch.kernels.ops.weighted_entropy_features` on ``device``:
 the CUDA kernel on the card, its plain tensor version on the CPU.
 """
@@ -177,6 +177,17 @@ def extract_features_batch(tables: Sequence[Table], layout: str,
 
 
 # ------------------------------------------------------------------ sampling
+def random_samples(table: Table, n_samples: int, rows_each: int,
+                   seed: int = 0) -> List[Table]:
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_samples):
+        k = min(rows_each, table.num_rows)
+        idx = rng.choice(table.num_rows, size=k, replace=False)
+        out.append(table.select(np.sort(idx)))
+    return out
+
+
 def query_samples(queries, db_tables: Dict[str, Table],
                   max_rows: int = 4000) -> List[Table]:
     """Partitions derived from query results — the paper's better sampler."""
@@ -217,11 +228,45 @@ def build_dataset(samples: Sequence[Table], codec: Codec, layout: str,
 
 
 # ------------------------------------------------------------------ pipeline
+#: model name -> constructor taking the device a model trains on (only the
+#: MLP uses it; the others are numpy)
 MODELS = {
-    "Averaging": lambda: ml.Averaging(),
-    "RandomForest": lambda: ml.RandomForest(n_trees=30, max_depth=12),
-    "SVR": lambda: ml.KernelRidge(alpha=1e-2),
+    "Averaging": lambda device: ml.Averaging(),
+    "RandomForest": lambda device: ml.RandomForest(n_trees=30, max_depth=12),
+    "NeuralNetwork": lambda device: ml.MLP(hidden=(64, 64), epochs=500,
+                                           device=device),
+    "SVR": lambda device: ml.KernelRidge(alpha=1e-2),
 }
+
+
+@dataclasses.dataclass
+class EvalResult:
+    model: str
+    target: str               # 'ratio' | 'dspeed'
+    mae: float
+    mape: float
+    r2: float
+
+
+def train_eval(ds: LabeledSet, model_name: str, target: str,
+               train_frac: float = 0.7, seed: int = 0, *,
+               device: DeviceLike = "cuda") -> Tuple[object, EvalResult]:
+    """Fit ``model_name`` on a seeded ``train_frac`` split of ``ds`` and
+    score it on the rest; the MLP trains on ``device``."""
+    dev = resolve(device)
+    rng = np.random.default_rng(seed)
+    n = len(ds.X)
+    order = rng.permutation(n)
+    cut = max(int(n * train_frac), 1)
+    tr, te = order[:cut], order[cut:]
+    y = ds.ratio if target == "ratio" else ds.dspeed
+    model = MODELS[model_name](dev)
+    model.fit(ds.X[tr], y[tr])
+    pred = model.predict(ds.X[te] if len(te) else ds.X[tr])
+    ytrue = y[te] if len(te) else y[tr]
+    res = EvalResult(model_name, target, ml.mae(ytrue, pred),
+                     ml.mape(ytrue, pred), ml.r2(ytrue, pred))
+    return model, res
 
 
 class CompressionPredictor:
@@ -232,17 +277,20 @@ class CompressionPredictor:
     features for a batch of partitions ('numpy' | 'device', see
     :func:`extract_features_batch`); training always uses the numpy path.
     ``models`` maps ``(scheme, layout, target)`` to a fitted model, target
-    being 'ratio' or 'dspeed'."""
+    being 'ratio' or 'dspeed'. ``device`` is where an ``"NeuralNetwork"``
+    predictor's MLPs train and predict; the numpy models ignore it."""
 
     def __init__(self, feature_kind: str = "weighted_entropy",
                  model_name: str = "RandomForest",
-                 feature_backend: str = "numpy"):
+                 feature_backend: str = "numpy",
+                 device: DeviceLike = "cuda"):
         if feature_backend not in FEATURE_BACKENDS:
             raise ValueError(f"feature_backend must be one of "
                              f"{FEATURE_BACKENDS}, got {feature_backend!r}")
         self.feature_kind = feature_kind
         self.model_name = model_name
         self.feature_backend = feature_backend
+        self.device = device
         self.models: Dict[Tuple[str, str, str], object] = {}
 
     def fit(self, samples: Sequence[Table], layouts: Sequence[str] = ("row", "col"),
@@ -252,7 +300,7 @@ class CompressionPredictor:
             for codec in codecs:
                 ds = build_dataset(samples, codec, layout, self.feature_kind)
                 for target in ("ratio", "dspeed"):
-                    m = MODELS[self.model_name]()
+                    m = MODELS[self.model_name](self.device)
                     y = ds.ratio if target == "ratio" else ds.dspeed
                     m.fit(ds.X, y)
                     self.models[(codec.name, layout, target)] = m

@@ -1,13 +1,17 @@
 """DATAPART — access-pattern-aware data partitioning (paper §VI).
 
-Port of the G-PART part of ``repro.core.datapart``; only the dense
-overlap sweep (``PartitionIndex.overlap_matrix``) runs on the device,
-through :mod:`repro_torch.kernels.ops`.
+Port of ``repro.core.datapart``, all but the sharded overlap matrix (which
+waits for ``distributed/``). Only the dense overlap sweep
+(``PartitionIndex.overlap_matrix``) runs on the device, through
+:mod:`repro_torch.kernels.ops`.
 
 * Initial partitions = query families (the file sets each distinct query
   touches), built from access logs.
 * G-PART (Algorithm 1): greedy max-heap merging on fractional-overlap edge
   weights, with access-comparability feasibility and an S_thresh span cap.
+* Ordered (time-series) case: exact pseudo-polynomial DP (Thm 5) + the
+  epsilon-bucketed (1, 1+N*eps) bi-criteria approximation (Thm 6), host
+  numpy and Python as in the reference.
 
 Array-native core: :class:`PartitionIndex` interns file ids into int32
 codes and stores family membership as a CSR matrix. :func:`g_part`
@@ -88,6 +92,10 @@ def make_partitions(query_files: Sequence[Tuple[Tuple[str, ...], float]],
     return [Partition(k, r, fs) for k, r in fam.items()]
 
 
+def overlap(a: Partition, b: Partition) -> float:
+    return a.sizes.span(a.files & b.files)
+
+
 def fractional_overlap(a: Partition, b: Partition) -> float:
     # exact-zero for disjoint sets: summing spans in set-iteration order is
     # PYTHONHASHSEED-dependent, and a +1e-16 residue here would let G-PART
@@ -105,6 +113,21 @@ def feasible_pair(a: Partition, b: Partition, rho_c: float,
     hi = max(a.rho, b.rho)
     lo = max(min(a.rho, b.rho), 1e-12)
     return (hi / lo) <= rho_c or abs(a.rho - b.rho) <= rho_c_abs
+
+
+def read_cost(parts: Sequence[Partition]) -> float:
+    """C(Z) = sum Sp(M) * rho(M) — expected scan volume."""
+    return float(sum(p.span * p.rho for p in parts))
+
+
+def duplication(parts: Sequence[Partition]) -> float:
+    """1 - distinct/total span (paper Fig 7 footnote)."""
+    total = sum(p.span for p in parts)
+    if total <= 0:
+        return 0.0
+    distinct_files = frozenset(itertools.chain.from_iterable(p.files for p in parts))
+    distinct = parts[0].sizes.span(distinct_files) if parts else 0.0
+    return 1.0 - distinct / total
 
 
 # ------------------------------------------------------- array-native index
@@ -557,3 +580,124 @@ def merge_all(parts: List[Partition]) -> List[Partition]:
         return []
     files = frozenset(itertools.chain.from_iterable(p.files for p in parts))
     return [Partition(files, sum(p.rho for p in parts), parts[0].sizes)]
+
+
+# --------------------------------------------------- ordered (time-series) DP
+@dataclasses.dataclass
+class OrderedSolution:
+    groups: List[Tuple[int, int]]   # inclusive [lo, hi] runs over partition idx
+    space: float
+    cost: float
+
+
+def _run_spans(parts: List[Partition]) -> np.ndarray:
+    """span[i][k] = Sp(P_{i-k} u ... u P_i), shape (N, N) (upper-tri by k<=i).
+
+    Derived from the interned index: each row extends a running
+    seen-files mask instead of re-summing the frozenset union at every
+    (i, k) — O(N * nnz) rather than O(N^2 * union size).
+    """
+    N = len(parts)
+    spans = np.zeros((N, N))
+    if N == 0:
+        return spans
+    index = PartitionIndex.from_partitions(parts)
+    sizes = index.interner.sizes
+    seen = np.zeros(index.n_files, bool)
+    for i in range(N):
+        seen.fill(False)
+        acc = 0.0
+        for k in range(i + 1):
+            c = index.row(i - k)
+            new = c[~seen[c]]
+            acc += float(sizes[new].sum())
+            seen[c] = True
+            spans[i, k] = acc
+    return spans
+
+
+def ordered_dp(parts: List[Partition], c_thresh: float,
+               n_buckets: int = 200) -> Optional[OrderedSolution]:
+    """Thm 5 DP with cost discretized onto ``n_buckets`` units.
+
+    ALG[i][c] = min span to cover P_1..P_i within cost budget c.
+    Exact in the bucketed cost; Thm 6's scheme = call with
+    n_buckets = ceil(N/eps) and budget stretched to (1+N*eps)*C.
+    """
+    N = len(parts)
+    if N == 0:
+        return OrderedSolution([], 0.0, 0.0)
+    spans = _run_spans(parts)
+    rho_prefix = np.concatenate([[0.0], np.cumsum([p.rho for p in parts])])
+    unit = c_thresh / n_buckets if c_thresh > 0 else 1.0
+
+    def cost_units(i: int, k: int) -> int:
+        rho = rho_prefix[i + 1] - rho_prefix[i - k]
+        return int(np.ceil(spans[i, k] * rho / unit - 1e-12))
+
+    INF = float("inf")
+    # dp[i][c] = min space covering first i partitions (i in 0..N) w/ budget c
+    dp = np.full((N + 1, n_buckets + 1), INF)
+    choice = np.full((N + 1, n_buckets + 1), -1, int)
+    dp[0, :] = 0.0
+    for i in range(1, N + 1):
+        for k in range(i):                  # merge [i-k .. i] (1-indexed)
+            cu = cost_units(i - 1, k)
+            if cu > n_buckets:
+                continue
+            sp = spans[i - 1, k]
+            prev = i - k - 1
+            for c in range(cu, n_buckets + 1):
+                cand = dp[prev, c - cu] + sp
+                if cand < dp[i, c] - 1e-12:
+                    dp[i, c] = cand
+                    choice[i, c] = k
+    if not np.isfinite(dp[N, n_buckets]):
+        return None
+    # backtrack
+    groups: List[Tuple[int, int]] = []
+    i, c = N, n_buckets
+    total_cost = 0.0
+    while i > 0:
+        k = choice[i, c]
+        groups.append((i - k - 1, i - 1))
+        cu = cost_units(i - 1, k)
+        rho = rho_prefix[i] - rho_prefix[i - k - 1]
+        total_cost += spans[i - 1, k] * rho
+        i, c = i - k - 1, c - cu
+    groups.reverse()
+    return OrderedSolution(groups, float(dp[N, n_buckets]), total_cost)
+
+
+def ordered_approx(parts: List[Partition], c_thresh: float,
+                   eps: float) -> Optional[OrderedSolution]:
+    """Thm 6: (1, 1+N*eps) bi-criteria — bucket by eps*C, extend budget."""
+    N = len(parts)
+    stretched = c_thresh * (1.0 + N * eps)
+    n_buckets = int(np.ceil((1.0 + N * eps) / eps))
+    return ordered_dp(parts, stretched, n_buckets=n_buckets)
+
+
+def ordered_brute_force(parts: List[Partition],
+                        c_thresh: float) -> Optional[OrderedSolution]:
+    """Exact oracle over all contiguous groupings (2^(N-1)) — tests only."""
+    N = len(parts)
+    spans = _run_spans(parts)
+    rho_prefix = np.concatenate([[0.0], np.cumsum([p.rho for p in parts])])
+    best: Optional[OrderedSolution] = None
+    for cuts in itertools.product([0, 1], repeat=max(N - 1, 0)):
+        groups, lo = [], 0
+        for i, c in enumerate(cuts):
+            if c:
+                groups.append((lo, i))
+                lo = i + 1
+        groups.append((lo, N - 1))
+        space = cost = 0.0
+        for a, b in groups:
+            sp = spans[b, b - a]
+            rho = rho_prefix[b + 1] - rho_prefix[a]
+            space += sp
+            cost += sp * rho
+        if cost <= c_thresh + 1e-9 and (best is None or space < best.space - 1e-12):
+            best = OrderedSolution(groups, space, cost)
+    return best

@@ -7,15 +7,20 @@ reference runs them in float32 under JAX's default precision; everything
 else is the reference's numpy, copied.
 
 ``greedy_assign``       exact for unbounded capacities (Thm 3), O(NLK).
+``matching_assign``     exact for equal-size/no-compression with capacities
+                        (Thm 2) via min-cost flow, on the host.
 ``capacitated_assign``  general capacitated case: Lagrangian dual ascent
                         on ``device`` + argsort-based greedy repair +
                         delta-matrix 1-swap local search in numpy.
+``budgeted_moves``      the migration-budget knapsack: candidates ranked on
+                        ``device``, the greedy walk on the host.
 ``capacitated_assign_ref``  the original pure-Python solver (test oracle).
 ``brute_force``         exact enumeration oracle for tiny instances.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
 from typing import List, Optional, Tuple
@@ -83,6 +88,93 @@ def greedy_assign(cost: np.ndarray, feasible: np.ndarray, *,
     total = float(np.asarray(cost, np.float64)[n, tier, scheme].sum()) if ok \
         else float("inf")
     return Assignment(tier, scheme, total, ok)
+
+
+# ------------------------------------------------------------------- matching
+class _MCMF:
+    """Successive-shortest-path min-cost max-flow (SPFA variant). Exact."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.to: list[int] = []
+        self.cap: list[float] = []
+        self.cost: list[float] = []
+        self.head: list[list[int]] = [[] for _ in range(n)]
+
+    def add(self, u: int, v: int, cap: float, cost: float) -> None:
+        self.head[u].append(len(self.to)); self.to.append(v)
+        self.cap.append(cap); self.cost.append(cost)
+        self.head[v].append(len(self.to)); self.to.append(u)
+        self.cap.append(0.0); self.cost.append(-cost)
+
+    def run(self, s: int, t: int):
+        flow = cost = 0.0
+        INF = float("inf")
+        while True:
+            dist = [INF] * self.n
+            in_q = [False] * self.n
+            prev_e = [-1] * self.n
+            dist[s] = 0.0
+            queue = collections.deque([s])
+            in_q[s] = True
+            while queue:
+                u = queue.popleft()
+                in_q[u] = False
+                for e in self.head[u]:
+                    if self.cap[e] > 1e-12 and dist[u] + self.cost[e] < dist[self.to[e]] - 1e-12:
+                        dist[self.to[e]] = dist[u] + self.cost[e]
+                        prev_e[self.to[e]] = e
+                        if not in_q[self.to[e]]:
+                            queue.append(self.to[e])
+                            in_q[self.to[e]] = True
+            if dist[t] == INF:
+                return flow, cost
+            # bottleneck
+            push, v = INF, t
+            while v != s:
+                e = prev_e[v]
+                push = min(push, self.cap[e])
+                v = self.to[e ^ 1]
+            v = t
+            while v != s:
+                e = prev_e[v]
+                self.cap[e] -= push
+                self.cap[e ^ 1] += push
+                v = self.to[e ^ 1]
+            flow += push
+            cost += push * dist[t]
+
+
+def matching_assign(cost_nl: np.ndarray, feasible_nl: np.ndarray,
+                    capacity_units: np.ndarray) -> Assignment:
+    """Equal-size partitions, no compression (Thm 2).
+
+    Min-weight bipartite matching of N unit-size partitions onto Z_l tier
+    copies; the tier-copy graph collapses to a transportation problem solved
+    exactly by min-cost max-flow (source -> partition -> tier -> sink).
+    """
+    N, L = cost_nl.shape
+    cost = _masked(cost_nl, feasible_nl)
+    cap = np.minimum(capacity_units.astype(np.float64), N)
+    S, T = N + L, N + L + 1
+    g = _MCMF(N + L + 2)
+    for n in range(N):
+        g.add(S, n, 1.0, 0.0)
+        for l in range(L):
+            if cost[n, l] < BIG:
+                g.add(n, N + l, 1.0, float(cost[n, l]))
+    for l in range(L):
+        g.add(N + l, T, float(cap[l]), 0.0)
+    flow, total = g.run(S, T)
+    if flow < N - 1e-9:
+        return Assignment(np.full(N, -1), np.zeros(N, int), float("inf"), False)
+    assign = np.full(N, -1, np.int64)
+    for n in range(N):
+        for e in g.head[n]:
+            v = g.to[e]
+            if N <= v < N + L and e % 2 == 0 and g.cap[e] < 0.5:
+                assign[n] = v - N
+    return Assignment(assign, np.zeros(N, int), float(total), True)
 
 
 # ---------------------------------------------------------------- capacitated
@@ -484,6 +576,146 @@ def capacitated_assign_ref(
         tier, scheme = solve(lam)
         best = repair_and_score(tier, scheme)
     return best
+
+
+# ------------------------------------------------------------ budgeted moves
+def _knapsack_scan(order: np.ndarray, cents: np.ndarray, gb: np.ndarray,
+                   ok: np.ndarray, cap_cents: float,
+                   cap_gb: float) -> np.ndarray:
+    """Greedy knapsack walk over pre-ranked items, in float32 on the host.
+
+    Items arrive in ``order`` (best ratio first); each is taken iff it is
+    eligible and fits both remaining budgets. Returns take flags in walk
+    order (scatter back through ``order``).
+
+    The reference runs this walk as a jitted float32 ``lax.scan``. It is
+    the one such scan that the port runs on the host: each item depends on
+    the budgets the one before left, so on the device it would be a loop
+    of about six launches per item (600,000 at N = 100,000). ``np.float32``
+    scalars give the scan's bits: every subtraction and comparison is one
+    float32 operation, as in the scan.
+    """
+    f32 = np.float32
+    c = np.asarray(cents, np.float64).astype(f32)[order]
+    g = np.asarray(gb, np.float64).astype(f32)[order]
+    elig = np.asarray(ok, bool)[order]
+    tol = f32(1e-9)
+    rem_c, rem_g = f32(cap_cents), f32(cap_gb)
+    takes = np.zeros(order.shape[0], bool)
+    for i in np.flatnonzero(elig):
+        ci, gi = c[i], g[i]
+        if ci <= rem_c + tol and gi <= rem_g + tol:
+            takes[i] = True
+            rem_c = rem_c - ci
+            rem_g = rem_g - gi
+    return takes
+
+
+def _exact_moves(savings: np.ndarray, cents: np.ndarray, gb: np.ndarray,
+                 cand: np.ndarray, budget_cents: float, budget_gb: float,
+                 ) -> np.ndarray:
+    """Exact subset enumeration (vectorized bit-matrix), tiny instances only.
+
+    Maximizes total (priority-weighted) savings subject to both caps;
+    ties broken toward the cheaper subset, then the lexicographically
+    first one, so the result is deterministic."""
+    idx = np.where(cand)[0]
+    n = idx.size
+    M = ((np.arange(1 << n)[:, None] >> np.arange(n)) & 1).astype(bool)
+    tot_c = M @ cents[idx]
+    tot_g = M @ gb[idx]
+    obj = M @ savings[idx]
+    feas = (tot_c <= budget_cents + 1e-9) & (tot_g <= budget_gb + 1e-9)
+    obj = np.where(feas, obj, -np.inf)
+    # lexsort keys: last key is primary — max obj, then min cost, then the
+    # smallest subset id (M rows are already in lexicographic order)
+    best = int(np.lexsort((np.arange(1 << n), tot_c, -obj))[0])
+    keep = np.zeros(savings.shape[0], bool)
+    keep[idx[M[best]]] = True
+    return keep
+
+
+def budgeted_moves(
+    savings_cents: np.ndarray,   # (N,) projected steady-state saving per move
+    move_cents: np.ndarray,      # (N,) one-off charge per move (cents)
+    budget_cents: float,         # per-cycle cents cap (np.inf = unbounded)
+    *,
+    candidates: Optional[np.ndarray] = None,   # (N,) bool; None = all
+    move_gb: Optional[np.ndarray] = None,      # (N,) bytes leaving their cell
+    budget_gb: float = np.inf,                 # per-cycle GB cap
+    priority: Optional[np.ndarray] = None,     # (N,) aging boost (>= 1)
+    method: str = "auto",                      # 'auto' | 'greedy' | 'exact'
+    exact_max: int = 12,
+    paid_cents: Optional[np.ndarray] = None,   # (N,) credit already banked
+    device: DeviceLike = "cuda",
+) -> np.ndarray:
+    """Select which candidate migrations to execute under a per-cycle budget.
+
+    The savings-per-migration-cent knapsack of the re-optimization daemon:
+    maximize total projected steady-state savings subject to a cents cap
+    (and optionally a GB cap) on the one-off migration spend. The
+    production path is a greedy-ratio walk: rank every candidate by
+    ``priority * savings / cents`` on ``device`` (a stable argsort of the
+    float32 ratios, as the reference ranks them), then take items in rank
+    order while they fit both budgets (:func:`_knapsack_scan`, on the
+    host). ``method='exact'`` enumerates subsets instead (tiny
+    instances; the validation oracle for the greedy path). ``'auto'``
+    uses the exact path when there are at most ``exact_max`` candidates.
+
+    Zero-cost moves rank first and never consume budget; with both caps
+    infinite every candidate is selected (the daemon's parity mode).
+    Candidates with non-positive projected savings stay eligible — the
+    assignment solver already justified the move (its objective sees
+    constraint and one-off terms this per-cell projection does not), and
+    selection only schedules spend — but their selection value is floored
+    at a priority-scaled epsilon, so they rank below every
+    positive-savings candidate on BOTH paths and only fill leftover
+    budget. Returns an (N,) boolean mask — always a subset of
+    ``candidates``.
+
+    ``paid_cents`` is per-move credit already banked by earlier cycles
+    (the daemon's amortized move-splitting): each candidate is weighed
+    against the budgets at its *residual* charge ``max(move_cents -
+    paid_cents, 0)``, so an oversized move whose installments have
+    accumulated eventually fits the per-cycle cap and lands.
+    """
+    dev = resolve(device)
+    s = np.asarray(savings_cents, np.float64)
+    c = np.asarray(move_cents, np.float64)
+    if paid_cents is not None:
+        c = np.maximum(c - np.asarray(paid_cents, np.float64), 0.0)
+    N = s.shape[0]
+    cand = (np.ones(N, bool) if candidates is None
+            else np.asarray(candidates, bool).copy())
+    g = (np.zeros(N) if move_gb is None
+         else np.asarray(move_gb, np.float64))
+    pr = np.ones(N) if priority is None else np.asarray(priority, np.float64)
+    if N == 0 or not cand.any():
+        return np.zeros(N, bool)
+    if np.isinf(budget_cents) and np.isinf(budget_gb):
+        return cand
+    if method not in ("auto", "greedy", "exact"):
+        raise ValueError(f"unknown method {method!r}")
+    val = pr * s
+    val = np.where(val > 0, val, 1e-9 * pr)   # take-if-fits, ranked last
+    if method == "exact" or (method == "auto"
+                             and int(cand.sum()) <= exact_max):
+        return _exact_moves(val, c, g, cand, budget_cents, budget_gb)
+
+    ratio = np.where(cand, val / np.maximum(c, 1e-12), -np.inf)
+    key = torch.as_tensor(ratio, dtype=torch.float32, device=dev)
+    order = torch.argsort(-key, stable=True).cpu().numpy()
+    takes = _knapsack_scan(order, c, g, cand, budget_cents, budget_gb)
+    keep = np.zeros(N, bool)
+    keep[order] = takes
+    keep &= cand
+    # the scan ran in f32; re-walk the selected set in f64 and shed the
+    # worst-ratio items if rounding let the total creep past a cap
+    while keep.any() and (c[keep].sum() > budget_cents + 1e-9
+                          or g[keep].sum() > budget_gb + 1e-9):
+        sel = np.where(keep)[0]
+        keep[sel[np.argmin(ratio[sel])]] = False
+    return keep
 
 
 # ---------------------------------------------------------------- brute force

@@ -2,6 +2,8 @@
 
 Port of ``repro.core.scope``:
 
+ * ``MigrationPlan`` — re-exported from the engine, as the reference
+   does, for :meth:`PlacementEngine.reoptimize`'s result;
  * ``run_pipeline`` — one-shot batch optimization through
    :class:`~repro_torch.core.engine.PlacementEngine`, returning its
    :class:`PipelineReport`;
@@ -20,13 +22,13 @@ import numpy as np
 
 from repro_torch.core import datapart
 from repro_torch.core.costs import CostTable, Weights
-from repro_torch.core.engine import (PipelineReport, PlacementEngine,
-                                     PlacementPlan, PlacementProblem,
-                                     ScopeConfig)
+from repro_torch.core.engine import (MigrationPlan, PipelineReport,
+                                     PlacementEngine, PlacementPlan,
+                                     PlacementProblem, ScopeConfig)
 from repro_torch.data.tables import Table
 
 __all__ = [
-    "PipelineReport", "PlacementEngine", "PlacementPlan", "PlacementProblem",
+    "MigrationPlan", "PipelineReport", "PlacementEngine", "PlacementPlan", "PlacementProblem",
     "ScopeConfig", "paper_variants", "run_pipeline",
 ]
 

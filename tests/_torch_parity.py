@@ -3,8 +3,9 @@
 The port may not import ``repro``, so what crosses between the packages
 goes through here: the flattener that turns a fitted ``repro`` COMPREDICT
 predictor into the plain arrays :func:`repro_torch.convert.predictor_from_arrays`
-takes, the one that turns ``repro`` model parameters into the float32
-numpy tree :func:`repro_torch.convert.model_params_from_arrays` takes, and
+takes, the one that turns a ``repro`` MLP's pytree into per-layer numpy
+(:func:`mlp_param_arrays`), the one that turns ``repro`` model parameters
+into the float32 numpy tree :func:`repro_torch.convert.model_params_from_arrays` takes, and
 the one for a ``repro`` training state
 (:func:`repro_torch.convert.train_state_from_arrays`).
 """
@@ -19,12 +20,16 @@ from repro.core import ml as jml
 
 
 def _tree_arrays(tree: jml.DecisionTree) -> Dict[str, np.ndarray]:
-    """Preorder flat node arrays of a fitted ``repro`` CART tree."""
+    """Preorder flat node arrays of a fitted ``repro`` CART tree, with
+    ``probs`` (zeros at inner nodes) for a classification tree."""
     rows: List[list] = []
+    clf = tree.task == "clf"
 
     def walk(node) -> int:
         nid = len(rows)
-        rows.append([-1, 0.0, -1, -1, float(node.value)])
+        rows.append([-1, 0.0, -1, -1, float(node.value),
+                     node.probs if node.probs is not None
+                     else np.zeros(tree.n_classes)])
         if node.left is not None:
             left = walk(node.left)
             right = walk(node.right)
@@ -33,17 +38,35 @@ def _tree_arrays(tree: jml.DecisionTree) -> Dict[str, np.ndarray]:
 
     walk(tree.root)
     cols = list(zip(*rows))
-    return {"feature": np.asarray(cols[0], np.int64),
-            "thresh": np.asarray(cols[1], np.float64),
-            "left": np.asarray(cols[2], np.int64),
-            "right": np.asarray(cols[3], np.int64),
-            "value": np.asarray(cols[4], np.float64)}
+    out = {"feature": np.asarray(cols[0], np.int64),
+           "thresh": np.asarray(cols[1], np.float64),
+           "left": np.asarray(cols[2], np.int64),
+           "right": np.asarray(cols[3], np.int64),
+           "value": np.asarray(cols[4], np.float64)}
+    if clf:
+        out["probs"] = np.stack(cols[5]).astype(np.float64)
+    return out
+
+
+def mlp_param_arrays(params) -> List[Dict[str, np.ndarray]]:
+    """``repro`` MLP pytree (a list of ``{"w", "b"}`` dicts of jax arrays)
+    -> the same list with float32 numpy leaves, as
+    :class:`repro_torch.core.ml.MLP` takes for ``init_params``."""
+    return [{"w": np.array(l["w"], np.float32),
+             "b": np.array(l["b"], np.float32)} for l in params]
 
 
 def model_arrays(m) -> Dict[str, object]:
     if isinstance(m, jml.RandomForest):
         return {"model": "RandomForest",
                 "trees": [_tree_arrays(t) for t in m.trees]}
+    if isinstance(m, jml.MLP):
+        a = {"model": "NeuralNetwork", "params": mlp_param_arrays(m.params),
+             "mu": m.mu, "sd": m.sd, "task": m.task,
+             "n_classes": m.n_classes, "hidden": tuple(m.hidden)}
+        if m.task == "reg":
+            a.update(ymu=m.ymu, ysd=m.ysd)
+        return a
     if isinstance(m, jml.KernelRidge):
         return {"model": "SVR", "mu": m.mu, "sd": m.sd, "Xtr": m.Xtr,
                 "g": m.g, "coef": m.coef}

@@ -17,9 +17,11 @@ import torch
 
 from repro_torch.core import compredict as tcp
 from repro_torch.core import datapart as tdp
+from repro_torch.core import engine as teng
+from repro_torch.core import ml as tml
 from repro_torch.core import optassign as topt
 from repro_torch.core import scope as tscope
-from repro_torch.core.costs import azure_table
+from repro_torch.core.costs import azure_table, big3_table
 from repro_torch.data import tpch
 from repro_torch.data.tables import Table
 from repro_torch.configs.registry import get_config
@@ -248,6 +250,117 @@ def test_pipeline_on_card_matches_cpu(card):
         assert b.total_cents == pytest.approx(a.total_cents, rel=1e-6), name
     assert ops.launch_counts["overlap"] > 0
     assert ops.launch_counts["entropy_features"] > 0
+
+
+def _placement(table, N, seed, **cfg_kw):
+    """``{device: (engine, problem)}`` for one seeded synthetic problem (the
+    recipe of the repository's re-optimization benchmark)."""
+    rng = np.random.default_rng(seed)
+    spans = rng.lognormal(0.0, 1.2, N) * 2.0
+    rho = rng.gamma(0.7, 25.0, N)
+    R = np.concatenate([np.ones((N, 1)), rng.uniform(1.2, 6.0, (N, 2))], 1)
+    D = np.concatenate([np.zeros((N, 1)),
+                        rng.uniform(0.01, 2.0, (N, 2)) * spans[:, None]], 1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cfg = teng.ScopeConfig(schemes=("none", "lz4", "zstd"), device=dev,
+                               **cfg_kw)
+        prob = teng.PlacementProblem(
+            spans_gb=spans.copy(), rho=rho.copy(), current_tier=np.full(N, -1),
+            R=R.copy(), D=D.copy(), schemes=cfg.schemes, table=table,
+            cfg=cfg)
+        out[dev] = (teng.PlacementEngine(table, cfg), prob)
+    return out
+
+
+@pytest.mark.parametrize("table,cfg_kw", [
+    ("azure", {}),
+    ("azure", dict(capacity_gb=np.array([np.inf, np.inf, 100.0, np.inf]))),
+    ("big3", dict(months=6.0)),
+    ("big3_capped", dict(months=6.0)),
+])
+def test_reoptimize_on_card_matches_cpu(card, table, cfg_kw):
+    t = {"azure": azure_table(), "big3": big3_table(),
+         "big3_capped": big3_table(azure_capacity_gb=60.0)}[table]
+    runs = _placement(t, 300, 0, **cfg_kw)
+    plans = {d: e.solve(p) for d, (e, p) in runs.items()}
+    np.testing.assert_array_equal(plans["cuda"].assignment.tier,
+                                  plans["cpu"].assignment.tier)
+    rng = np.random.default_rng(1)
+    rho = plans["cpu"].problem.rho.copy()
+    hot = rng.random(rho.size) < 0.10
+    cold = ~hot & (rng.random(rho.size) < 0.10)
+    rho[hot] *= rng.uniform(20.0, 100.0, int(hot.sum()))
+    rho[cold] /= rng.uniform(20.0, 100.0, int(cold.sum()))
+    migs = {d: runs[d][0].reoptimize(plans[d], rho.copy(), months_held=0.25)
+            for d in runs}
+    a, b = migs["cuda"], migs["cpu"]
+    assert b.n_moved > 0
+    for f in ("moved", "new_tier", "new_scheme"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+    for f in ("migration_cents", "penalty_cents", "egress_cents"):
+        assert getattr(a, f) == pytest.approx(getattr(b, f), rel=1e-6,
+                                              abs=1e-12), f
+    assert a.plan.report.provider_scheme == b.plan.report.provider_scheme
+
+
+@pytest.mark.parametrize("table", ["azure", "big3"])
+def test_plan_replicas_on_card_matches_cpu(card, table):
+    t = azure_table() if table == "azure" else big3_table()
+    runs = _placement(t, 200, 2, replicas=3, replica_rho_min=30.0)
+    reps = {d: e.plan_replicas(e.solve(p)) for d, (e, p) in runs.items()}
+    a, b = reps["cuda"], reps["cpu"]
+    assert b.n_replicated > 0
+    for f in ("copies", "replica_tier", "replica_scheme"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), f)
+    assert a.replica_cents == pytest.approx(b.replica_cents, rel=1e-6)
+    assert a.read_rebate_cents == pytest.approx(b.read_rebate_cents, rel=1e-6)
+
+
+@pytest.mark.parametrize("n", [50, 100_000])
+def test_budgeted_moves_on_card_matches_cpu(card, n):
+    rng = np.random.default_rng(n)
+    s = rng.gamma(1.0, 5.0, n) - 1.0
+    c = rng.uniform(0.0, 3.0, n)
+    c[rng.random(n) < 0.05] = 0.0
+    g = rng.uniform(0.0, 2.0, n)
+    cand = rng.random(n) < 0.8
+    kw = dict(candidates=cand, move_gb=g, budget_gb=0.4 * g[cand].sum(),
+              method="greedy")
+    a = topt.budgeted_moves(s, c, 0.5 * c[cand].sum(), device=card, **kw)
+    b = topt.budgeted_moves(s, c, 0.5 * c[cand].sum(), device="cpu", **kw)
+    np.testing.assert_array_equal(a, b)
+    assert 0 < a.sum() < cand.sum()
+
+
+@pytest.mark.parametrize("task", ["reg", "clf"])
+def test_mlp_on_card_matches_cpu(card, task):
+    """The same initial parameters on the card and on the CPU: parameters
+    within 1e-5 after 10 Adam steps; after 500, regression predictions
+    within rel 1e-4 and classification logits within 1e-3 (the CPU
+    tests' bars against the reference)."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(80, 18)) * rng.uniform(0.5, 20.0, 18)
+    y = 3.0 + X[:, 0] / 10 + np.sin(X[:, 1]) + 0.1 * rng.normal(size=80)
+    if task == "clf":
+        y = (X[:, 0] / 10 + X[:, 2] / 5 > 0).astype(int)
+    Xq = rng.normal(size=(40, 18)) * 5.0
+    init = tml._mlp_init((18, 64, 64, 1 if task == "reg" else 2), seed=3)
+    for epochs in (10, 500):
+        m = {d: tml.MLP(hidden=(64, 64), task=task, epochs=epochs,
+                        init_params=init, device=d).fit(X, y)
+             for d in ("cuda", "cpu")}
+        if epochs == 10:
+            for a, b in zip(m["cuda"].params, m["cpu"].params):
+                np.testing.assert_allclose(a["w"], b["w"], rtol=0, atol=1e-5)
+                np.testing.assert_allclose(a["b"], b["b"], rtol=0, atol=1e-5)
+        elif task == "reg":
+            pa, pb = m["cuda"].predict(Xq), m["cpu"].predict(Xq)
+            np.testing.assert_allclose(pa, pb, rtol=1e-4,
+                                       atol=1e-4 * np.abs(pb).max())
+        else:
+            np.testing.assert_allclose(m["cuda"]._raw(Xq), m["cpu"]._raw(Xq),
+                                       rtol=0, atol=1e-3)
 
 
 def _randn(seed, *shapes, dtype=torch.float32, device="cpu", scale=1.0):

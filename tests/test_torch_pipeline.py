@@ -34,6 +34,8 @@ from repro.data import tpch as jtpch
 from repro_torch import convert
 from repro_torch.core import compredict as tcp
 from repro_torch.core import datapart as tdp
+from repro_torch.core import engine as tengine
+from repro_torch.core import ml as tml
 from repro_torch.core import optassign as topt
 from repro_torch.core import scope as tscope
 from repro_torch.core.costs import azure_table as t_azure
@@ -214,6 +216,17 @@ ENTRY_POINTS = {
         np.zeros((1, 1), np.int32), np.ones(1), np.ones(1)),
     "ops.weighted_entropy_features": lambda: ops.weighted_entropy_features(
         np.zeros((1, 1), np.int32), [1], [1], [1], np.ones(1)),
+    "budgeted_moves": lambda: topt.budgeted_moves(
+        np.ones(20), np.ones(20), 3.0, method="greedy"),
+    "MLP": lambda: tml.MLP(),
+    "train_eval": lambda: tcp.train_eval(
+        tcp.LabeledSet(np.ones((4, 2)), np.ones(4), np.ones(4), "zlib-6",
+                       "col", "weighted_entropy"), "Averaging", "ratio"),
+    "compredict_rd_fn": lambda: tengine.compredict_rd_fn(None, {}),
+    "model_from_arrays NeuralNetwork": lambda: convert.model_from_arrays(
+        {"model": "NeuralNetwork", "hidden": (4,), "task": "reg",
+         "n_classes": 2, "params": [], "mu": 0.0, "sd": 1.0, "ymu": 0.0,
+         "ysd": 1.0}),
 }
 
 
