@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: SCOPe's placement
-path and its re-optimization under drift, zamba2-2.7b serving and
+path, its re-optimization under drift, streaming placement, access
+forecasting and the multi-tenant fleet solver, zamba2-2.7b serving and
 zamba2-2.7b training.
 
     python3 chip_smoke.py            # from the root of a checkout
@@ -65,6 +66,39 @@ non-zero (with no result line):
             cpu: predictions within rel 1e-4 of the largest (the bar of
             ``tests/test_torch_ml.py``); the fit time on the card. Its
             lines end with the card's name and power limit.
+9. stream   runs after phase 8, on phase main's inputs; each part on cuda
+            and on cpu, its lines ending with the card's name and power
+            limit. (1) ``benchmarks/bench_stream.py``'s large trace (760
+            datasets, 18 months, seed 7) month by month through
+            ``StreamingEngine`` (uncompressed, drift threshold 0.5):
+            identical step counts, tiers and schemes, cents within rel
+            1e-6; ms a month, compactions, fold merges, moves, steady
+            cents. (2) Phase main's 217 query families as a compressed
+            stream (the first half, then all of them with every other
+            family's rho x3, then x0.3), file sizes from the file rows,
+            re-predicted by ``compredict_rd_fn`` with device features and
+            a RandomForest predictor (phase main's measured sample ratios;
+            each codec's median decompression speed): K2 must launch
+            (counts zeroed before, read after), cuda and cpu identical
+            with the same predicted R and D (rel 1e-5), some scheme past
+            "none"; seconds per batch split into partitioner,
+            re-prediction and solve. Phase main's SVR predicts a ratio of
+            1 (its floor) for every partition, whose sizes lie far beyond
+            its samples, so no scheme could beat "none" under it. (3)
+            ``train_tier_predictor`` on ``bench_access_predict.py``'s
+            trace and an ``AccessForecaster`` fitted at month 15 of
+            ``bench_forecast.py``'s enterprise trace, ``forecast_rho`` for
+            months 15-29: identical labels, predicted tiers and forecasts
+            (float64, exact); F1, ECE, seconds. (4) ``bench_fleet.py``'s
+            fleets at T 8, 64 and 256 (mean N 24), its pinned
+            shared-capacity fleet and one whose shared cap binds (T 256),
+            ``FleetEngine.solve`` and ``reoptimize`` at T 128 against a
+            per-tenant ``PlacementEngine`` loop, and T 1,024 at mean N
+            120 (reduced from 200: the host finish grows as N squared):
+            identical plans on cuda and cpu (at T 1,024 the scan's
+            cells) and, uncoupled, to the per-tenant solves; the scan's
+            device time (torch.profiler, outside the timed run), its
+            operations on the card, the host finish, peak device memory.
 6. serve    zamba2-2.7b at full width and depth (54 Mamba2 layers, one
             shared attention block used 9 times), bfloat16, random weights
             from ``torch.Generator(device="cuda").manual_seed(0)``, 4 random
@@ -378,9 +412,30 @@ def phase_build(build):
             f"{i2['smem_bytes']:,} bytes of shared memory per block")
 
 
+def _fitted(pred, dsets, dspeed=None):
+    """``pred`` fitted as ``CompressionPredictor.fit`` fits it, on the
+    labelled sets ``dsets`` (one per codec, measured once); ``dspeed``, where
+    given, replaces each set's measured decompression speeds by one value
+    per codec."""
+    from repro_torch.core.compredict import MODELS
+    for ds in dsets:
+        y_d = (ds.dspeed if dspeed is None
+               else np.full_like(ds.dspeed, dspeed[ds.scheme]))
+        for target, y in (("ratio", ds.ratio), ("dspeed", y_d)):
+            m = MODELS[pred.model_name](pred.device)
+            m.fit(ds.X, y)
+            pred.models[(ds.scheme, ds.layout, target)] = m
+    return pred
+
+
 def make_inputs():
-    from repro_torch.core.compredict import CompressionPredictor, query_samples
+    """Phase main's TPC-H data, its 80 query samples, the SVR predictor
+    fitted on them and the stream's forest (phase 9), both from one
+    measurement of the samples under every codec."""
+    from repro_torch.core.compredict import (CompressionPredictor,
+                                             build_dataset, query_samples)
     from repro_torch.data import tpch
+    from repro_torch.storage.codecs import available_schemes, default_codecs
     t0 = time.perf_counter()
     db = tpch.generate(scale_rows=SCALE_ROWS, seed=SEED)
     qs = tpch.generate_queries(db, n_per_template=20, seed=SEED + 1,
@@ -388,15 +443,23 @@ def make_inputs():
     parts, rows = tpch.partitions_from_queries(db, qs, rows_per_file=500)
     t1 = time.perf_counter()
     samples = query_samples(qs, db.tables, max_rows=6000)[:80]
-    pred = CompressionPredictor(model_name="SVR").fit(samples,
-                                                      layouts=("col",))
+    dsets = [build_dataset(samples, c, "col") for c in default_codecs()
+             if c.name != "none"]
+    pred = _fitted(CompressionPredictor(model_name="SVR"), dsets)
+    # the stream's forest, for the schemes its config takes: the measured
+    # ratios, and each codec's median decompression speed, so that no
+    # timing noise reaches its splits
+    forest = _fitted(CompressionPredictor(model_name="RandomForest"),
+                     [ds for ds in dsets if ds.scheme in available_schemes()],
+                     {ds.scheme: float(np.median(ds.dspeed))
+                      for ds in dsets})
     t2 = time.perf_counter()
     total_gb = sum(p.span for p in parts) / 1e9
     say("main", f"TPC-H scale_rows={SCALE_ROWS:,}: {len(qs)} queries, "
         f"{len(parts)} query-family partitions over {len(rows):,} files, "
         f"{total_gb:.4f} GB of family spans; data {t1 - t0:.1f} s, "
-        f"predictor fit {t2 - t1:.1f} s")
-    return parts, rows, pred, total_gb, samples
+        f"predictors (measurement and fits) {t2 - t1:.1f} s")
+    return parts, rows, pred, total_gb, samples, forest
 
 
 def run_variant(engine_cls, table, cfg, parts, rows, torch):
@@ -818,7 +881,7 @@ def _timed_stages(torch, eng, optassign, secs, scans):
 
     undo = [wrap(eng.assign, "cost_and_feasibility", "cost+feasibility"),
             wrap(optassign, "_lagrangian_scan", "dual ascent", scans),
-            wrap(optassign, "_best_from_candidates", "repair+local search"),
+            wrap(optassign, "_batch_candidate_finish", "repair+local search"),
             wrap(eng, "_migration_terms", "migration terms"),
             wrap(eng, "_finalize_migration", "finalize (with its billing)"),
             wrap(eng, "billing", "billing")]
@@ -1224,6 +1287,527 @@ def phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs,
         f"the card, {t['cpu']:.3f} s on the CPU; predictions rel {err:.3e} "
         f"(bar 1e-4), parameters {dp:.3e} apart {card}")
     say("reopt", f"phase reopt took {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------- stream phase
+STREAM_TRACE = (760, 18, 7)          # bench_stream's "large" trace
+PREDICT_TRACE = (760, 24, 7)         # bench_access_predict's trace
+FORECAST_TRACE = (150, 30, 11)       # bench_forecast's "enterprise" trace
+FORECAST_PATTERNS = {"decreasing": 0.2, "constant": 0.1, "periodic": 0.35,
+                     "spike": 0.15, "cold": 0.2}
+FORECAST_FIT_MONTH = 15
+# the TPC-H stream's batches after the first: every other family's rho
+# times each factor (three of the four batches the first design had: each
+# batch re-renders every partition's values on the host, ~15 s a device)
+TPCH_STREAM_RHO = (3.0, 0.3)
+FLEET_T = (8, 64, 256)               # bench_fleet's fleets, mean N 24
+FLEET_MEAN_N = 24
+ENGINE_T = 128
+# the scale point: T 1,024 at mean N 120, reduced from 200, where the host
+# finish (the lockstep 1-swap search, N squared) took 105.5 s on the host
+# of an NVIDIA H100 80GB HBM3 (700.00 W) machine
+SCALE_T, SCALE_MEAN_N = 1_024, 120
+
+
+def _same_stream(a, b, what):
+    """Two ``StreamingEngine`` runs: identical step counts, tiers and
+    schemes in every batch, cents within rel 1e-6. Returns the largest
+    relative cents difference."""
+    check(len(a) == len(b), f"{what}: {len(a)} and {len(b)} batches")
+    worst = 0.0
+    for i, ((ra, ma), (rb, mb)) in enumerate(zip(a, b)):
+        for f in ("n_partitions", "n_new", "n_moved", "compacted",
+                  "n_deferred"):
+            check(getattr(ra, f) == getattr(rb, f),
+                  f"{what}, batch {i}: {f} differs between cuda and cpu")
+        check(np.array_equal(ma.plan.assignment.tier, mb.plan.assignment.tier)
+              and np.array_equal(ma.plan.assignment.scheme,
+                                 mb.plan.assignment.scheme),
+              f"{what}, batch {i}: cuda and cpu tiers or schemes differ")
+        for f in ("steady_cents", "migration_cents", "penalty_cents"):
+            x, y = getattr(ra, f), getattr(rb, f)
+            r = abs(x - y) / abs(y) if y else abs(x)
+            check(r <= 1e-6, f"{what}, batch {i}: {f} differs by rel {r}")
+            worst = max(worst, r)
+    return worst
+
+
+def _stream_run(torch, E, stream_mod, table, cfg, sizes, batches,
+                rd_fn=None):
+    """One ``StreamingEngine`` over ``batches``: [(report, migration)],
+    the engine, and the host seconds of each batch split into partitioner
+    (ingest and compact), re-prediction (``rd_fn``) and the rest (the
+    solve, with its billing and bookkeeping)."""
+    secs = []
+    part = {"s": 0.0}
+    cls = stream_mod.StreamingPartitioner
+    orig = {n: getattr(cls, n) for n in ("ingest", "compact")}
+
+    def timed(fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            part["s"] += time.perf_counter() - t0
+            return out
+        return run
+
+    rd = {"s": 0.0}
+    if rd_fn is not None:
+        inner = rd_fn
+
+        def rd_fn(parts, schemes):
+            t0 = time.perf_counter()
+            out = inner(parts, schemes)
+            torch.cuda.synchronize()
+            rd["s"] += time.perf_counter() - t0
+            return out
+    eng = E.StreamingEngine(table, cfg, sizes, drift_threshold=0.5,
+                            rd_fn=rd_fn)
+    out = []
+    for n, fn in orig.items():
+        setattr(cls, n, timed(fn))
+    try:
+        for batch in batches:
+            part["s"] = rd["s"] = 0.0
+            t0 = time.perf_counter()
+            mig = eng.ingest_and_reoptimize(batch, months=1.0)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            out.append((eng.history[-1], mig))
+            secs.append({"partitioner": part["s"], "re-prediction": rd["s"],
+                         "solve": total - part["s"] - rd["s"],
+                         "total": total})
+    finally:
+        for n, fn in orig.items():
+            setattr(cls, n, fn)
+    return out, eng, secs
+
+
+def _bench_fleet(T, mean_n, seed, K=3):
+    """``benchmarks/bench_fleet.py``'s ``_fleet``: T ragged Azure tenants
+    (N uniform in [mean_n / 2, 2 mean_n)), K 3, each with its hottest
+    greedy tier capped at 90% of its greedy use."""
+    from repro_torch.core.costs import (Weights, azure_table, cost_tensor,
+                                        latency_feasible)
+    rng = np.random.default_rng(seed)
+    table = azure_table()
+    out = []
+    for _ in range(T):
+        N = int(rng.integers(max(1, mean_n // 2), 2 * mean_n))
+        spans = rng.uniform(0.5, 50.0, N)
+        rho = rng.gamma(1.0, 20.0, N)
+        cur = rng.integers(-1, table.num_tiers, N)
+        R = np.concatenate([np.ones((N, 1)),
+                            rng.uniform(1.2, 6.0, (N, K - 1))], 1)
+        D = np.concatenate([np.zeros((N, 1)),
+                            rng.uniform(0.01, 3.0, (N, K - 1))], 1)
+        lat = rng.choice([0.1, 1.0, 5.0, np.inf], N)
+        cost = cost_tensor(spans, rho, cur, R, D, table, Weights(), months=6)
+        feas = latency_feasible(D, lat, table)
+        stored = np.repeat((spans[:, None] / R)[:, None, :],
+                           table.num_tiers, 1)
+        flat = np.where(feas, cost, np.inf).reshape(N, -1)
+        t, s = flat.argmin(1) // K, flat.argmin(1) % K
+        use = np.zeros(table.num_tiers)
+        np.add.at(use, t, stored[np.arange(N), t, s])
+        cap = np.full(table.num_tiers, np.inf)
+        cap[use.argmax()] = 0.9 * use.max()
+        out.append((cost, feas, stored, cap))
+    return out
+
+
+def _same_fleet(a, b, what):
+    """Two fleet solves: identical feasibility, tiers and schemes for each
+    tenant, cents within rel 1e-6."""
+    check(a.feasible == b.feasible, f"{what}: feasibility differs")
+    for t, (x, y) in enumerate(zip(a.assignments, b.assignments)):
+        check(np.array_equal(x.tier, y.tier)
+              and np.array_equal(x.scheme, y.scheme),
+              f"{what}: tenant {t}'s tiers or schemes differ")
+        r = (abs(x.cost - y.cost) / max(abs(y.cost), 1e-300)
+             if np.isfinite(y.cost) else float(np.isfinite(x.cost)))
+        check(r <= 1e-6, f"{what}: tenant {t}'s cents differ by rel {r}")
+
+
+def _fleet_solve(torch, optassign, cols, dev, **kw):
+    """``capacitated_assign_batch`` on ``dev``: (fleet, seconds, scan
+    seconds, the scan's arguments or None)."""
+    box = {"s": 0.0, "args": None}
+    scan = optassign._fleet_scan
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scan(*a)
+        torch.cuda.synchronize()
+        box["s"] += time.perf_counter() - t0
+        box["args"] = a
+        return out
+    optassign._fleet_scan = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fl = optassign.capacitated_assign_batch(*cols, device=dev, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+    finally:
+        optassign._fleet_scan = scan
+    return fl, t, box["s"], box["args"]
+
+
+def _scan_numbers(torch, optassign, args, top=0):
+    """The scan's device ms (torch.profiler, outside the timed run), with
+    its ``top`` costliest device operations, and its operations on the
+    card per call."""
+    fn = lambda: optassign._fleet_scan(*args)
+    ms, by = device_ms(fn, torch, iters=1)
+    n = launches_per_call(fn, torch, iters=1)
+    if ms is None:
+        return "not measured (no device records)", n
+    most = dict(sorted(by.items(), key=lambda kv: -kv[1])[:top])
+    return f"{ms:.3f} ms" + (f" ({_short(most)})" if most else ""), n
+
+
+def _engine_problems(E, T, mean_n, table, cfg, seed=1, K=2):
+    """``bench_fleet._problems``: T ragged tenants, lognormal spans."""
+    rng = np.random.default_rng(seed)
+    probs = []
+    for _ in range(T):
+        N = int(rng.integers(max(1, mean_n // 2), 2 * mean_n))
+        spans = rng.lognormal(0.0, 1.2, N) * 50.0
+        rho = rng.gamma(0.7, 25.0, N)
+        R = np.concatenate([np.ones((N, 1)),
+                            rng.uniform(1.2, 6.0, (N, K - 1))], 1)
+        D = np.concatenate([np.zeros((N, 1)),
+                            rng.uniform(0.01, 2.0, (N, K - 1))
+                            * spans[:, None]], 1)
+        probs.append(E.PlacementProblem(
+            spans_gb=spans, rho=rho, current_tier=np.full(N, -1), R=R, D=D,
+            schemes=cfg.schemes, table=table, cfg=cfg))
+    return probs
+
+
+def phase_stream(torch, parts, rows, forest, smi_line):
+    """Streaming placement, access forecasting and the multi-tenant fleet
+    solver (phase 9); ``forest`` re-predicts the TPC-H stream."""
+    from repro_torch.core import access_predict as ap
+    from repro_torch.core import engine as E
+    from repro_torch.core import forecast as fcm
+    from repro_torch.core import optassign, stream
+    from repro_torch.core.costs import azure_table
+    from repro_torch.core.fleet import FleetEngine
+    from repro_torch.data import workloads as wl
+    from repro_torch.kernels import ops
+    card = f"| {smi_line}"
+    t_phase = time.perf_counter()
+    table = azure_table()
+
+    # 1. the enterprise access-log stream, month by month
+    n_ds, n_mo, seed = STREAM_TRACE
+    w = wl.generate_workload(n_datasets=n_ds, n_months=n_mo, seed=seed)
+    sizes = wl.dataset_file_sizes(w)
+    batches = [b for b in wl.stream_query_log(w, np.random.default_rng(seed))
+               if b]
+    runs = {}
+    for dev in (CARD, "cpu"):
+        cfg = E.ScopeConfig(use_compression=False, months=1.0, device=dev)
+        runs[dev] = _stream_run(torch, E, stream, table, cfg, sizes, batches)
+    rel = _same_stream(runs[CARD][0], runs["cpu"][0], "enterprise stream")
+    eng = runs[CARD][1]
+    st = eng.partitioner.stats
+    hist = eng.history
+    per = {d: 1e3 * sum(s["total"] for s in runs[d][2]) / len(batches)
+           for d in runs}
+    say("stream", f"enterprise stream (bench_stream's large trace: "
+        f"{n_ds} datasets, {n_mo} months, seed {seed}; {len(sizes):,} files, "
+        f"{eng.partitioner.n_families:,} families): {len(batches)} months, "
+        f"{hist[-1].n_partitions} partitions at the end, "
+        f"{st.n_compactions} compactions, {st.n_fold_merges} fold merges, "
+        f"{sum(r.n_new for r in hist)} new, {sum(r.n_moved for r in hist)} "
+        f"moves, migration {sum(m.total_move_cents for _, m in runs[CARD][0])!r}"
+        f" cents, steady {hist[-1].steady_cents!r} cents; "
+        f"{per[CARD]:.2f} ms/month on cuda, {per['cpu']:.2f} on cpu; "
+        f"cuda and cpu identical steps, tiers and schemes, cents rel "
+        f"{rel:.3e} {card}")
+    for dev in (CARD, "cpu"):
+        say("stream", f"enterprise stream, {dev} ms/month by stage: "
+            + ", ".join(f"{k} {1e3 * sum(s[k] for s in runs[dev][2]) / len(batches):.2f}"
+                        for k in ("partitioner", "solve")))
+
+    # 2. a compressed TPC-H stream: COMPREDICT re-predicts on the card
+    fams = [(tuple(sorted(p.files)), p.rho) for p in parts]
+    t0 = time.perf_counter()
+    fsizes = {f: rows[f][0].select(rows[f][1]).nbytes("col") / 1e9
+              for f in sorted({f for p in parts for f in p.files})}
+    t_sizes = time.perf_counter() - t0
+    tb = [fams[:len(fams) // 2]] + [
+        [(f, r * (mult if i % 2 else 1.0)) for i, (f, r) in enumerate(fams)]
+        for mult in TPCH_STREAM_RHO]
+    runs = {}
+    for dev in (CARD, "cpu"):
+        # phase main's billing window (the paper's 5.5 months) and schemes
+        cfg = E.ScopeConfig(device=dev)
+        rd = E.compredict_rd_fn(forest, rows, feature_backend="device",
+                                device=dev)
+        if dev == CARD:
+            ops.reset_launch_counts()
+        runs[dev] = _stream_run(torch, E, stream, table, cfg, fsizes, tb, rd)
+        if dev == CARD:
+            launches = dict(ops.launch_counts)
+    rel = _same_stream(runs[CARD][0], runs["cpu"][0], "TPC-H stream")
+    say("stream", f"launches in the compressed TPC-H stream (cuda run): "
+        f"{launches}")
+    check(launches.get("entropy_features", 0) > 0,
+          "kernel entropy_features was not launched by the stream path")
+    # the predicted ratios and decompression times, K2's features on the
+    # card against the plain version's on the CPU (the kernel tolerance)
+    last = runs[CARD][0][-1][1].plan
+    ref = runs["cpu"][0][-1][1].plan.problem
+    check(np.allclose(last.problem.R, ref.R, rtol=1e-5, atol=0)
+          and np.allclose(last.problem.D, ref.D, rtol=1e-5, atol=1e-12),
+          "TPC-H stream: the re-predicted R or D differ between cuda and cpu")
+    schemes = last.problem.schemes
+    used = np.bincount(last.assignment.scheme, minlength=len(schemes))
+    check(used[1:].sum() > 0, "TPC-H stream: no partition compressed")
+    R = last.problem.R[:, 1:]
+    say("stream", f"TPC-H stream, last batch: predicted ratios "
+        f"{float(R.min())!r} to {float(R.max())!r} over {R.shape[0]} "
+        f"partitions x {R.shape[1]} codecs (RandomForest; the ratios "
+        f"measured on phase main's samples, each codec's median "
+        f"decompression speed)")
+    say("stream", f"TPC-H SF0.1 stream ({len(fams)} query families over "
+        f"{len(fsizes):,} files, file sizes {t_sizes:.1f} s): batches of "
+        f"{[len(b) for b in tb]} families (the first half, then all with "
+        f"every other rho x{', x'.join(map(str, TPCH_STREAM_RHO))}); "
+        f"partitions "
+        f"{[r.n_partitions for r, _ in runs[CARD][0]]}, moves "
+        f"{[r.n_moved for r, _ in runs[CARD][0]]}, compacted "
+        f"{[r.compacted for r, _ in runs[CARD][0]]}, steady "
+        f"{[r.steady_cents for r, _ in runs[CARD][0]]} cents; schemes of "
+        f"the last plan {dict(zip(schemes, used.tolist()))}; cuda and cpu "
+        f"identical, cents rel {rel:.3e} {card}")
+    for dev in (CARD, "cpu"):
+        say("stream", f"TPC-H stream on {dev}, seconds per batch: "
+            + "; ".join(f"batch {i}: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in s.items())
+                for i, s in enumerate(runs[dev][2])))
+
+    # 3. access forecasting
+    n_ds, n_mo, seed = PREDICT_TRACE
+    w = wl.generate_workload(n_datasets=n_ds, n_months=n_mo, seed=seed,
+                             size_lognorm=(4.5, 2.0))
+    out, t = {}, {}
+    for dev in (CARD, "cpu"):
+        t0 = time.perf_counter()
+        clf, rep = ap.train_tier_predictor(w, table, train_month=12,
+                                           horizon=2, device=dev)
+        torch.cuda.synchronize()
+        t[dev] = time.perf_counter() - t0
+        labels = [ap.optimal_tiers(w, table, lo, lo + 2, (1, 2), device=dev)
+                  for lo in (12, 14)]
+        out[dev] = (rep, labels, ap.predicted_tiers(clf, w, 14))
+    (ra, la, pa), (rb, lb, pb) = out[CARD], out["cpu"]
+    check(all(np.array_equal(x, y) for x, y in zip(la, lb))
+          and np.array_equal(pa, pb)
+          and np.array_equal(ra.confusion, rb.confusion) and ra.f1 == rb.f1,
+          "train_tier_predictor: cuda and cpu labels or predictions differ")
+    say("stream", f"train_tier_predictor (bench_access_predict's trace: "
+        f"{n_ds} datasets, {n_mo} months, seed {seed}, train month 12, "
+        f"horizon 2): F1 {ra.f1!r}, accuracy {ra.accuracy!r}, confusion "
+        f"{ra.confusion.tolist()}; {t[CARD]:.3f} s on cuda, {t['cpu']:.3f} s "
+        f"on cpu; labels and predicted tiers identical {card}")
+    n_ds, n_mo, seed = FORECAST_TRACE
+    w = wl.generate_workload(n_datasets=n_ds, n_months=n_mo, seed=seed,
+                             pattern_probs=FORECAST_PATTERNS)
+    obs = lambda m: np.array([float(d.reads[m]) for d in w.datasets])
+    out, t = {}, {}
+    for dev in (CARD, "cpu"):
+        fc = fcm.AccessForecaster(table, tiers=(1, 2), horizon=2, history=4,
+                                  n_trees=24, refit_every=4, seed=0,
+                                  device=dev)
+        t0 = time.perf_counter()
+        rep = fc.fit(w, fit_month=FORECAST_FIT_MONTH)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t0
+        fc.bind(month0=FORECAST_FIT_MONTH - 1)
+        preds, steps = [], []
+        for m in range(FORECAST_FIT_MONTH, n_mo):
+            window = [obs(j) for j in range(max(FORECAST_FIT_MONTH - 1,
+                                                m - 12), m)]
+            t0 = time.perf_counter()
+            preds.append(fc.forecast_rho(window))
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+        out[dev] = (rep, preds, list(fc.refits_))
+        t[dev] = (t_fit, steps)
+    (ra, pa, fa), (rb, pb, fb) = out[CARD], out["cpu"]
+    check(dataclasses.asdict(ra) == dataclasses.asdict(rb) and fa == fb
+          and all(np.array_equal(x, y) for x, y in zip(pa, pb)),
+          "AccessForecaster: cuda and cpu fits or forecasts differ")
+    say("stream", f"AccessForecaster (bench_forecast's enterprise trace: "
+        f"{n_ds} datasets, {n_mo} months, seed {seed}; 24 trees, refit "
+        f"every 4) fit at month {FORECAST_FIT_MONTH}: {ra.n_rows} rows, "
+        f"calibrated {ra.calibrated}, accuracy {ra.accuracy!r}, ECE raw "
+        f"{ra.ece_raw!r}, calibrated {ra.ece_cal!r}, hot rho {ra.hot_rho!r}; "
+        f"forecasts for months {FORECAST_FIT_MONTH}-{n_mo - 1} (refits at "
+        f"{fa}) identical on cuda and cpu (float64, exact) {card}")
+    say("stream", f"AccessForecaster seconds: fit {t[CARD][0]:.3f} cuda, "
+        f"{t['cpu'][0]:.3f} cpu; forecast_rho per month (cuda) "
+        f"{[round(x, 4) for x in t[CARD][1]]}")
+
+    # 4. the fleet solver
+    for T in FLEET_T:
+        fleet = _bench_fleet(T, FLEET_MEAN_N, T)
+        cols = [[x[i] for x in fleet] for i in range(4)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk, tk, sk, args = _fleet_solve(torch, optassign, cols, CARD)
+        peak = torch.cuda.max_memory_allocated()
+        fc_, tc_, _, _ = _fleet_solve(torch, optassign, cols, "cpu")
+        _same_fleet(fk, fc_, f"fleet T {T}")
+        t0 = time.perf_counter()
+        singles = [optassign.capacitated_assign(c, f, s, cap, device=CARD)
+                   for c, f, s, cap in fleet]
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        check(all(np.array_equal(a.tier, b.tier)
+                  and np.array_equal(a.scheme, b.scheme) and a.cost == b.cost
+                  for a, b in zip(singles, fk.assignments)),
+              f"fleet T {T}: the batch differs from the per-tenant solves")
+        dev_ms, n_ops = _scan_numbers(torch, optassign, args)
+        n_max = max(c.shape[0] for c in cols[0])
+        say("stream", f"fleet T {T} (bench_fleet's recipe, seed {T}, mean N "
+            f"{FLEET_MEAN_N}, N_max {n_max}): feasible {fk.feasible}, "
+            f"{fk.cost!r} cents; batch {tk:.3f} s on cuda (scan {sk:.3f} s, "
+            f"host finish {tk - sk:.3f} s), {tc_:.3f} s on cpu; per-tenant "
+            f"loop on cuda {t_loop:.3f} s; scan device time {dev_ms}, "
+            f"{n_ops:.0f} operations on the card per scan; peak device "
+            f"memory {peak / 1e6:.2f} MB; identical to cpu and to the "
+            f"per-tenant solves {card}")
+
+    # the shared-capacity fleets at the largest T: the benchmark's (each
+    # tenant's partition 0 pinned to tier 0, the pool at 1.15x the pinned
+    # demand) and one whose shared cap binds the greedy plan (the most
+    # used tier at 70% of its greedy use, tenants' own caps lifted)
+    T = FLEET_T[-1]
+    L = table.num_tiers
+    pinned_fleet, pinned = [], 0.0
+    for c, f, s, _ in _bench_fleet(T, FLEET_MEAN_N, 2):
+        f = f.copy()
+        f[0, :, :] = False
+        f[0, 0, 0] = True
+        pinned += s[0, 0, 0]
+        pinned_fleet.append((c, f, s, np.full(L, np.inf)))
+    scap0 = np.full(L, np.inf)
+    scap0[0] = 1.15 * pinned
+    fleet = _bench_fleet(T, FLEET_MEAN_N, T)
+    use = np.zeros(L)
+    for c, f, s, _ in fleet:
+        cell = np.where(f, c, optassign.BIG).reshape(c.shape[0], -1).argmin(1)
+        use += optassign._chosen_usage(s, cell // 3, cell % 3)
+    scap1 = np.full(L, np.inf)
+    scap1[use.argmax()] = 0.7 * use.max()
+    lifted = [(c, f, s, np.full(L, np.inf)) for c, f, s, _ in fleet]
+    for tag, fl, scap in (("pinned pool (bench_fleet)", pinned_fleet, scap0),
+                          ("binding 70% cap", lifted, scap1)):
+        cols = [[x[i] for x in fl] for i in range(4)]
+        kw = dict(shared_tier_groups=np.arange(L), shared_capacity_gb=scap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk, tk, sk, args = _fleet_solve(torch, optassign, cols, CARD, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        fc_, tc_, _, _ = _fleet_solve(torch, optassign, cols, "cpu", **kw)
+        _same_fleet(fk, fc_, f"shared fleet T {T}, {tag}")
+        check(np.allclose(fk.shared_use_gb, fc_.shared_use_gb, rtol=1e-9)
+              and fk.feasible, f"shared fleet T {T}, {tag}: infeasible or "
+              f"its shared use differs")
+        scan_txt = "the greedy plan fits: no scan"
+        if args is not None:
+            dev_ms, n_ops = _scan_numbers(torch, optassign, args)
+            scan_txt = (f"scan {sk:.3f} s, device time {dev_ms}, {n_ops:.0f} "
+                        f"operations on the card")
+        say("stream", f"shared-capacity fleet T {T}, {tag}: cap "
+            f"{scap[np.isfinite(scap)].tolist()} GB, fleet use "
+            f"{fk.shared_use_gb[np.isfinite(scap)].tolist()} GB, feasible "
+            f"{fk.feasible}, {fk.cost!r} cents; {tk:.3f} s on cuda "
+            f"({scan_txt}), {tc_:.3f} s on cpu; peak device memory "
+            f"{peak / 1e6:.2f} MB; identical on cuda and cpu {card}")
+
+    # FleetEngine against a per-tenant PlacementEngine loop
+    caps = np.array([150.0, 300.0, 2500.0, np.inf])
+    plans, migs, t = {}, {}, {}
+    for dev in (CARD, "cpu"):
+        cfg = E.ScopeConfig(schemes=("none", "lz4"), capacity_gb=caps,
+                            device=dev)
+        probs = _engine_problems(E, ENGINE_T, FLEET_MEAN_N, table, cfg)
+        fe = FleetEngine(table, cfg)
+        t0 = time.perf_counter()
+        plans[dev] = fe.solve(probs)
+        torch.cuda.synchronize()
+        t[dev, "solve"] = time.perf_counter() - t0
+        rhos = [_drift(p.rho, i) for i, p in enumerate(probs)]
+        t0 = time.perf_counter()
+        migs[dev] = fe.reoptimize(plans[dev].plans, rhos,
+                                  months_held=MONTHS_HELD)[0]
+        torch.cuda.synchronize()
+        t[dev, "reoptimize"] = time.perf_counter() - t0
+        if dev == CARD:
+            pe = E.PlacementEngine(table, cfg)
+            t0 = time.perf_counter()
+            loop = [pe.solve(p) for p in probs]
+            torch.cuda.synchronize()
+            t["loop", "solve"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loop_m = [pe.reoptimize(pl, r, months_held=MONTHS_HELD)
+                      for pl, r in zip(loop, rhos)]
+            torch.cuda.synchronize()
+            t["loop", "reoptimize"] = time.perf_counter() - t0
+            for a, b in zip(loop, plans[dev].plans):
+                _same_plan(a, b, "FleetEngine.solve against the loop")
+            for a, b in zip(loop_m, migs[dev]):
+                _same_migration(a, b, "FleetEngine.reoptimize against the "
+                                "loop")
+    for a, b in zip(plans[CARD].plans, plans["cpu"].plans):
+        _same_plan(a, b, "FleetEngine.solve")
+    for a, b in zip(migs[CARD], migs["cpu"]):
+        _same_migration(a, b, "FleetEngine.reoptimize")
+    say("stream", f"FleetEngine, T {ENGINE_T} (bench_fleet's engine "
+        f"problems, caps {caps.tolist()} GB): solve {t[CARD, 'solve']:.3f} s "
+        f"on cuda, {t['cpu', 'solve']:.3f} s on cpu, PlacementEngine loop "
+        f"{t['loop', 'solve']:.3f} s; {plans[CARD].total_cents!r} cents; "
+        f"reoptimize (bench_reoptimize's drift) {t[CARD, 'reoptimize']:.3f} s "
+        f"on cuda, {t['cpu', 'reoptimize']:.3f} s on cpu, loop "
+        f"{t['loop', 'reoptimize']:.3f} s, "
+        f"{sum(m.n_moved for m in migs[CARD])} moves; identical to cpu and "
+        f"to the loop {card}")
+
+    # the scale point
+    say("stream", f"reduced: the scale point's mean N 200 -> {SCALE_MEAN_N} "
+        f"(its host finish grows as N squared)")
+    fleet = _bench_fleet(SCALE_T, SCALE_MEAN_N, SCALE_T)
+    cols = [[x[i] for x in fleet] for i in range(4)]
+    n_max = max(c.shape[0] for c in cols[0])
+    mb = 2 * SCALE_T * n_max * L * 3 * 4 / 1e6
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk, tk, sk, args = _fleet_solve(torch, optassign, cols, CARD)
+    peak = torch.cuda.max_memory_allocated()
+    check(fk.feasible, f"fleet T {SCALE_T}: infeasible")
+    t0 = time.perf_counter()
+    cells_cpu = optassign._fleet_scan(*args[:-1], torch.device("cpu"))
+    t_cpu_scan = time.perf_counter() - t0
+    check(np.array_equal(optassign._fleet_scan(*args), cells_cpu),
+          f"fleet T {SCALE_T}: the scan's cells differ between cuda and cpu")
+    dev_ms, n_ops = _scan_numbers(torch, optassign, args, top=4)
+    say("stream", f"fleet T {SCALE_T:,}, mean N {SCALE_MEAN_N} (N_max "
+        f"{n_max}, {mb:.1f} MB of float32 cost and stored on the card): "
+        f"feasible, {fk.cost!r} cents; {tk:.3f} s on cuda (scan {sk:.3f} s, "
+        f"host finish {tk - sk:.3f} s); scan device time {dev_ms}, "
+        f"{n_ops:.0f} operations on the card per scan; peak device memory "
+        f"{peak / 1e6:.2f} MB; the scan's cells identical on the cpu "
+        f"({t_cpu_scan:.3f} s there), so the host finish gives the same "
+        f"plans {card}")
+    say("stream", f"phase stream took {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------------- serve phase
@@ -2207,12 +2791,13 @@ def main() -> int:
 
     say("main", f"reduced: scale_rows 6,000,000 -> {SCALE_ROWS:,} "
         f"(host-side string encoding time)")
-    parts, rows, pred, total_gb, samples = make_inputs()
+    parts, rows, pred, total_gb, samples, forest = make_inputs()
     recorded = {}
     table, cfgs, cuda_runs, launches = phase_main(
         torch, parts, rows, pred, total_gb, recorded)
     phase_cpu(torch, parts, rows, table, cfgs, cuda_runs)
     phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs, smi_line)
+    phase_stream(torch, parts, rows, forest, smi_line)
     served = {}
     serve_launches = phase_serve(torch, served)
     trained = phase_train(torch)

@@ -1,6 +1,7 @@
 """PlacementEngine — the SCOPe pipeline (paper §VII) as composable stages.
 
-Port of ``repro.core.engine``'s batch path and online re-optimization.
+Port of ``repro.core.engine``: the batch path, online re-optimization and
+the streaming engine.
 Four stages exchange typed payloads::
 
     PartitionStage   (parts, file_rows)      -> PartitionedData
@@ -12,7 +13,8 @@ Four stages exchange typed payloads::
 plus drifted access rates and returns a :class:`MigrationPlan` whose
 objective internalizes tier-change transfer, cross-provider egress and
 early-deletion penalties; :meth:`PlacementEngine.plan_replicas` places
-read-locality copies of hot partitions.
+read-locality copies of hot partitions. :class:`StreamingEngine` folds
+access-log batches into an incremental G-PART and migrates the deltas.
 
 ``ScopeConfig.device`` (default ``"cuda"``) is where the device parts run:
 G-PART's overlap matrix (``partition_backend="device"``), COMPREDICT's
@@ -38,6 +40,7 @@ from repro_torch.core.costs import (CostTable, Weights, cost_tensor,
                                     sla_penalty_tensor)
 from repro_torch.core.optassign import (Assignment, capacitated_assign,
                                         greedy_assign, lock_schemes)
+from repro_torch.core.stream import QueryFamilies, StreamingPartitioner
 from repro_torch.data.tables import Table
 from repro_torch.device import resolve
 from repro_torch.storage.codecs import available_schemes, codec_by_name, measure
@@ -591,9 +594,9 @@ class AssignStage:
         """``(cost, feas, stored, cap, tier_groups, group_capacity_gb)``
         exactly as :meth:`__call__` hands them to the solver. ``cap`` is
         None when the config sets no per-tier capacities; the group fields
-        are None unless the table carries finite provider capacities. The
-        fleet path of ``repro.core.fleet`` batches these per-tenant tuples
-        into one batched dispatch."""
+        are None unless the table carries finite provider capacities.
+        :class:`repro_torch.core.fleet.FleetEngine` batches these
+        per-tenant tuples into one batched dispatch."""
         cost, feas = self.cost_and_feasibility(problem, extra_cost,
                                                locked_scheme)
         # Multi-cloud tables carry per-provider capacity totals; finite ones
@@ -1012,8 +1015,8 @@ class PlacementEngine:
                          lock_unchanged: bool, rho_rel_tol: float,
                          rho_ref: np.ndarray,
                          rho_abs_tol: float = 0.0) -> MigrationPlan:
-        """Shared migration core for :meth:`reoptimize` (and, in the
-        reference, its streaming engine). ``cur_l``/``cur_k`` may contain
+        """Shared migration core for :meth:`reoptimize` and
+        :class:`StreamingEngine`. ``cur_l``/``cur_k`` may contain
         -1 for partitions that are new to the placement (no penalty, no transfer — pure ingestion via
         the cost tensor's Delta_{-1,l} row); ``rho_ref`` is the access rate
         each partition's current scheme was chosen under (drift-lock base).
@@ -1066,3 +1069,271 @@ def compredict_rd_fn(predictor, file_rows: Dict[str, Tuple[Table, np.ndarray]],
                                          device=device)
         return R, Dm * spans_gb[:, None]
     return rd_fn
+
+
+@dataclasses.dataclass
+class StreamStepReport:
+    """Per-batch summary of an ``ingest_and_reoptimize`` step."""
+
+    batch: int
+    n_partitions: int
+    n_new: int                        # partitions entering as new data
+    n_moved: int                      # surviving partitions that migrated
+    compacted: bool
+    migration_cents: float
+    penalty_cents: float
+    steady_cents: float               # steady-state bill of the new plan
+    egress_cents: float = 0.0         # cross-provider egress paid this step
+    n_deferred: int = 0               # candidate moves a budget postponed
+    n_failed: int = 0                 # selected moves whose execution did
+    # not land (reverted; re-enter the candidate set next batch)
+
+
+@dataclasses.dataclass
+class _HeldState:
+    """Placement state carried across batches for one partition file set."""
+
+    tier: int
+    scheme: int
+    stored_gb: float
+    rho_ref: float                    # rho the current scheme was chosen under
+    months_held: float                # since last move (minimum-stay clock)
+
+
+class StreamingEngine:
+    """Rolling-window placement: ingest access-log batches, migrate deltas.
+
+    Couples a :class:`~repro_torch.core.stream.StreamingPartitioner` (incremental
+    G-PART) with :class:`PlacementEngine`'s migration solver.  Placement
+    state is carried across batches by partition **file-set identity**:
+    partitions that survive a fold unchanged keep their current tier and
+    minimum-stay clock, so the optimizer internalizes the full cost of
+    moving them (tier-change transfer, re-compression, early-deletion
+    penalties); merged or newly seen partitions enter as new data
+    (``current_tier = -1`` — pure ingestion write cost).
+
+    ``rd_fn(partitions, schemes) -> (R, D)`` optionally supplies
+    compression ratio / decompression-time matrices (e.g.
+    :func:`compredict_rd_fn` wrapping a fitted COMPREDICT model with
+    batched device feature extraction); without it the stream is placed
+    uncompressed, which is the right default when only access-log metadata
+    is available.
+
+    The solves run on ``cfg.device`` (default ``"cuda"``; asking for the
+    card where there is none raises here); the partitioner is host code.
+    """
+
+    def __init__(self, table: CostTable, cfg: ScopeConfig,
+                 sizes: "datapart.FileSizes | Dict[str, float]", *,
+                 s_thresh: Optional[float] = None,
+                 decay: float = 1.0, window: Optional[int] = None,
+                 drift_threshold: float = 0.5, rho_rel_tol: float = 0.25,
+                 rho_abs_tol: float = 0.0,
+                 rd_fn: Optional[Callable[[List[datapart.Partition],
+                                           Sequence[str]],
+                                          Tuple[np.ndarray, np.ndarray]]]
+                 = None):
+        self.table = table
+        self.cfg = cfg
+        self.engine = PlacementEngine(table, cfg)
+        self.sizes = (sizes if isinstance(sizes, datapart.FileSizes)
+                      else datapart.FileSizes(sizes))
+        self._s_thresh = s_thresh
+        self._decay = decay
+        self._window = window
+        self._drift_threshold = drift_threshold
+        self.rho_rel_tol = rho_rel_tol
+        self.rho_abs_tol = rho_abs_tol
+        self.rd_fn = rd_fn
+        self.partitioner: Optional[StreamingPartitioner] = None
+        self.plan: Optional[PlacementPlan] = None
+        self.history: List[StreamStepReport] = []
+        # file set -> held states, a LIST because two live partitions can
+        # share a file set (a family can coexist with a merge producing the
+        # same union); matched positionally in plan order
+        self._held: Dict[FrozenSet[str], List[_HeldState]] = {}
+
+    # ----------------------------------------------------------- internals
+    def _ensure_partitioner(self, batch: QueryFamilies,
+                            ) -> Optional[StreamingPartitioner]:
+        if self.partitioner is None:
+            s = self._s_thresh
+            if s is None:
+                spans = [self.sizes.span(frozenset(f)) for f, _ in batch if f]
+                if not spans:
+                    # no evidence to size the span cap yet — defer creation
+                    # so an empty first batch can't freeze s_thresh at a
+                    # value that never seals a merge product
+                    return None
+                s = self.cfg.s_thresh_mult * float(np.median(spans))
+            self.partitioner = StreamingPartitioner(
+                self.sizes, s_thresh=s, rho_c=self.cfg.rho_c,
+                rho_c_abs=self.cfg.rho_c_abs, decay=self._decay,
+                window=self._window,
+                drift_threshold=self._drift_threshold)
+        return self.partitioner
+
+    def _build_problem(self, parts: List[datapart.Partition],
+                       cur_l: np.ndarray) -> PlacementProblem:
+        N = len(parts)
+        spans_gb = np.array([p.span for p in parts], np.float64)
+        rho = np.array([p.rho for p in parts], np.float64)
+        if self.rd_fn is not None and self.cfg.use_compression:
+            schemes = list(self.cfg.schemes)
+            R, D = self.rd_fn(parts, schemes)
+        else:
+            schemes = ["none"]
+            R = np.ones((N, 1))
+            D = np.zeros((N, 1))
+        return PlacementProblem(
+            spans_gb=spans_gb, rho=rho, current_tier=cur_l, R=R, D=D,
+            schemes=schemes, table=self.table, cfg=self.cfg,
+            partitions=list(parts), raw_bytes=None)
+
+    def _empty_migration(self) -> MigrationPlan:
+        # constructs the SAME field set as the live _solve_migration path —
+        # empty steps must not fall back to defaulted/missing fields
+        z = np.zeros(0, int)
+        zf = np.zeros(0, np.float64)
+        problem = self._build_problem([], z)
+        assignment = Assignment(tier=z.copy(), scheme=z.copy(),
+                                cost=0.0, feasible=True)
+        report = self.engine.billing(problem, assignment)
+        plan = PlacementPlan(problem, assignment, report)
+        return MigrationPlan(
+            plan=plan, moved=np.zeros(0, bool), old_tier=z.copy(),
+            new_tier=z.copy(), old_scheme=z.copy(), new_scheme=z.copy(),
+            migration_cents=0.0, penalty_cents=0.0, egress_cents=0.0,
+            candidate=np.zeros(0, bool), move_transfer_cents=zf.copy(),
+            move_egress_cents=zf.copy(), move_penalty_cents=zf.copy(),
+            old_stored_gb=zf.copy())
+
+    # ---------------------------------------------------------------- steps
+    def ingest_and_reoptimize(self, query_files: QueryFamilies,
+                              months: float = 1.0, *,
+                              select_moves: Optional[
+                                  Callable[[MigrationPlan], np.ndarray]]
+                              = None,
+                              project_rho: Optional[
+                                  Callable[[List[datapart.Partition],
+                                            np.ndarray], np.ndarray]]
+                              = None,
+                              execute_moves: Optional[
+                                  Callable[[MigrationPlan], np.ndarray]]
+                              = None) -> MigrationPlan:
+        """Fold one access-log batch in, compact if drifted, re-optimize.
+
+        ``months`` is the logical time elapsed since the previous batch; it
+        ages every held partition's minimum-stay clock before early-deletion
+        penalties are priced. Returns the :class:`MigrationPlan` (``moved``
+        covers surviving partitions only; new ones appear in the plan with
+        ingestion write cost already internalized by the cost tensor).
+
+        ``project_rho(parts, rho_observed) -> rho_projected`` optionally
+        replaces the partitioner's observed rates with a forecast before
+        the solve (the daemon's forecast hook); the drift gate and lock
+        bookkeeping then operate on the projected rates. ``select_moves``
+        turns the step into a **partial** one: it receives the full
+        candidate :class:`MigrationPlan` and returns a boolean keep mask —
+        deferred candidates stay at their old tier/scheme, keep their
+        lock base (so they re-surface as drifted next batch) and their
+        minimum-stay clock keeps running.
+
+        ``execute_moves(mig) -> unapplied_mask`` hands the selected plan
+        to an execution plane (e.g. ``AsyncMigrator.execute_sync``) and
+        returns an (N,) bool mask of rows that did **not** land (failed or
+        budget-stopped). Those rows are folded back via
+        :meth:`MigrationPlan.land` — reverted to deferred-candidate status
+        with their lock base kept, so they re-enter the candidate set next
+        batch; a new partition whose ingestion put failed re-enters as new
+        data (no held state). With the hook absent or an all-False mask
+        the step is bit-identical to the synchronous path.
+        """
+        sp = self._ensure_partitioner(query_files)
+        compacted = False
+        if sp is not None:
+            sp.ingest(query_files)
+            compacted = sp.compact()
+        parts = sp.partitions if sp is not None else []
+        N = len(parts)
+        if N == 0:
+            # empty stream state (empty batches, or the whole window
+            # expired): a no-op step — the solvers don't accept N=0.
+            # Construct the report with the live path's full field set.
+            mig = self._empty_migration()
+            self.plan = mig.plan
+            self.history.append(StreamStepReport(
+                batch=len(self.history), n_partitions=0, n_new=0, n_moved=0,
+                compacted=compacted, migration_cents=0.0, penalty_cents=0.0,
+                steady_cents=0.0, egress_cents=0.0, n_deferred=0,
+                n_failed=0))
+            return mig
+        cur_l = np.full(N, -1, int)
+        cur_k = np.full(N, -1, int)
+        old_stored = np.zeros(N)
+        held_months = np.zeros(N)
+        rho_ref = np.array([p.rho for p in parts], np.float64)
+        for i, p in enumerate(parts):
+            states = self._held.get(p.files)
+            if states:
+                st = states.pop(0)
+                cur_l[i], cur_k[i] = st.tier, st.scheme
+                old_stored[i] = st.stored_gb
+                rho_ref[i] = st.rho_ref
+                held_months[i] = st.months_held + months
+
+        problem = self._build_problem(parts, cur_l)
+        if project_rho is not None:
+            proj = np.asarray(project_rho(parts, problem.rho), np.float64)
+            if proj.shape != problem.rho.shape:
+                raise ValueError(f"project_rho must return shape "
+                                 f"{problem.rho.shape}, got {proj.shape}")
+            problem = dataclasses.replace(problem, rho=proj)
+        mig = self.engine._solve_migration(
+            problem, cur_l, cur_k, old_stored, held_months,
+            lock_unchanged=True, rho_rel_tol=self.rho_rel_tol,
+            rho_ref=rho_ref, rho_abs_tol=self.rho_abs_tol)
+        if select_moves is not None:
+            mig = mig.select(np.asarray(select_moves(mig), bool))
+        exec_failed = np.zeros(N, bool)
+        n_failed = 0
+        if execute_moves is not None:
+            exec_failed = np.asarray(execute_moves(mig), bool)
+            if exec_failed.shape != (N,):
+                raise ValueError(f"execute_moves must return shape "
+                                 f"({N},), got {exec_failed.shape}")
+            n_failed = int((exec_failed & mig.moved).sum())
+            mig = mig.land(exec_failed)
+
+        drifted = drift_gate(problem.rho, rho_ref, self.rho_rel_tol,
+                             self.rho_abs_tol)
+        deferred = mig.deferred
+        new_stored = mig.plan.stored_gb
+        self._held = {}
+        for i, p in enumerate(parts):
+            if exec_failed[i] and cur_l[i] < 0:
+                # ingestion put failed: the object does not exist, so the
+                # partition must re-enter as new data next batch
+                continue
+            surviving = cur_l[i] >= 0 and not mig.moved[i]
+            self._held.setdefault(p.files, []).append(_HeldState(
+                tier=int(mig.new_tier[i]), scheme=int(mig.new_scheme[i]),
+                stored_gb=float(new_stored[i]),
+                # the scheme was (re-)decided now unless the partition was
+                # locked: keep the lock base so slow drift still accumulates.
+                # Deferred moves also keep it — they must stay "drifted"
+                # and re-enter the candidate set next batch.
+                rho_ref=(float(rho_ref[i])
+                         if surviving and (not drifted[i] or deferred[i])
+                         else float(problem.rho[i])),
+                months_held=float(held_months[i]) if surviving else 0.0))
+        self.plan = mig.plan
+        self.history.append(StreamStepReport(
+            batch=len(self.history), n_partitions=N,
+            n_new=int((cur_l < 0).sum()), n_moved=mig.n_moved,
+            compacted=compacted, migration_cents=mig.migration_cents,
+            penalty_cents=mig.penalty_cents,
+            steady_cents=mig.plan.report.total_cents,
+            egress_cents=mig.egress_cents,
+            n_deferred=int(deferred.sum()), n_failed=n_failed))
+        return mig

@@ -12,6 +12,13 @@ else is the reference's numpy, copied.
 ``capacitated_assign``  general capacitated case: Lagrangian dual ascent
                         on ``device`` + argsort-based greedy repair +
                         delta-matrix 1-swap local search in numpy.
+``capacitated_assign_batch``  the fleet path: T ragged tenant problems padded
+                        into one (T, N_max, L, K) batch and solved by one
+                        batched dual ascent on ``device``, then a lockstep
+                        host finish. Bit-identical per tenant to
+                        ``capacitated_assign`` when no *shared* (fleet-wide)
+                        capacity rows couple the tenants.
+``greedy_assign_batch`` batched unbounded path, one argmin for T tenants.
 ``budgeted_moves``      the migration-budget knapsack: candidates ranked on
                         ``device``, the greedy walk on the host.
 ``capacitated_assign_ref``  the original pure-Python solver (test oracle).
@@ -23,7 +30,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,17 +67,10 @@ def lock_schemes(feasible: np.ndarray, locked_scheme: np.ndarray) -> np.ndarray:
 def _greedy_device(cost: np.ndarray, feasible: np.ndarray,
                    dev: torch.device) -> Tuple[np.ndarray, np.ndarray,
                                                np.ndarray]:
-    """Per-row argmin over the flattened (L, K) cells, in float32."""
-    c = torch.as_tensor(cost, dtype=torch.float32, device=dev)
-    f = torch.as_tensor(feasible, dtype=torch.bool, device=dev)
-    masked = torch.where(f, c, torch.full((), BIG, dtype=torch.float32,
-                                          device=dev))
-    flat = masked.reshape(masked.shape[0], -1)
-    idx = flat.argmin(dim=1)
-    best = flat.gather(1, idx[:, None])[:, 0]
-    K = masked.shape[2]
-    return ((idx // K).cpu().numpy(), (idx % K).cpu().numpy(),
-            best.cpu().numpy())
+    """Per-row argmin over the flattened (L, K) cells, in float32: the
+    batched argmin for a fleet of one."""
+    tier, scheme, best = _greedy_device_batch(cost[None], feasible[None], dev)
+    return tier[0], scheme[0], best[0]
 
 
 def greedy_assign(cost: np.ndarray, feasible: np.ndarray, *,
@@ -214,6 +214,95 @@ def _constraint_rows(capacity_gb: np.ndarray,
     return A, cap_all
 
 
+def _fleet_scan(masked_b: np.ndarray, stored_b: np.ndarray,
+                cap_b: np.ndarray, group_of_tier: np.ndarray,
+                gcap_b: np.ndarray, sgroup_of_tier: np.ndarray,
+                scap: np.ndarray, step0_b: np.ndarray, sstep0: float,
+                iters: int, dev: torch.device) -> np.ndarray:
+    """Batched dual ascent over a padded tenant batch (T, N, L, K) on
+    ``dev``; one candidate per tenant per step. Returns the
+    (iters, T, N) int32 flat cell indices, copied to the host once.
+
+    Each tenant's body is :func:`_lagrangian_scan`'s: float32 costs,
+    stored bytes and multipliers, ``step0 / (1 + it)`` with ``it`` a
+    float32 step count, per-tier and per-group multipliers. On top ride
+    the *shared* fleet-wide rows: ``sgroup_of_tier`` maps each tier to a
+    shared group whose usage is summed over the whole tenant axis and
+    dualized by one fleet-global multiplier vector.
+
+    Usage is summed through one-hot masks and ``sum`` (never float
+    atomics), with the float32 terms accumulated in float64 and the sum
+    rounded once to float32. A float64 sum of n float32 terms is exact
+    when n times the largest over the smallest nonzero term is at most
+    2**28 (every partial sum is then a multiple of the smallest term's
+    ulp, below 2**53 of them), and an exact sum has no order: the cells
+    are the same on the card and on the CPU, whatever order each device
+    reduces in, and a tenant gets the same cells alone or in any fleet.
+    Past that bound the float64 sums of two orders differ by at most
+    about n * 2**-53 of the terms' total, and round to different float32
+    values only where they straddle a float32 rounding boundary. The
+    reference sums in float32 (its scatter-add, in row order on the CPU),
+    so the two packages' cells part where a near-tie falls to that
+    rounding (ROADMAP queue 3). Padding rows carry BIG cost and zero
+    stored bytes and add exactly 0.0. With no finite group or shared cap
+    those multipliers stay exactly 0.0, and the lean body that skips them
+    gives the same bits.
+    """
+    f32, f64 = torch.float32, torch.float64
+    T, N, L, K = masked_b.shape
+    G = gcap_b.shape[1]
+    S = scap.shape[0]
+    lean = not (np.isfinite(gcap_b).any() or np.isfinite(scap).any())
+    t32 = lambda x: torch.as_tensor(np.asarray(x, np.float64), dtype=f32,
+                                    device=dev)
+    m = t32(masked_b.reshape(T, N, L * K))
+    s = t32(stored_b)
+    flat_s = s.reshape(T, N, L * K)
+    cap_t = t32(cap_b)
+    fin_cap = torch.isfinite(cap_t)
+    step = t32(step0_b)[:, None]
+    zero = torch.zeros((), dtype=f32, device=dev)
+    zero64 = torch.zeros((), dtype=f64, device=dev)
+    its = 1.0 + torch.arange(iters, dtype=f32, device=dev)
+    tier_of = torch.arange(L, device=dev)
+    cells = torch.empty((iters, T, N), dtype=torch.int32, device=dev)
+    lam = torch.zeros((T, L), dtype=f32, device=dev)
+    if not lean:
+        gcap_t = t32(gcap_b)
+        fin_g = torch.isfinite(gcap_t)
+        g_of_t = torch.as_tensor(group_of_tier, dtype=torch.long, device=dev)
+        in_g = g_of_t[:, None] == torch.arange(G, device=dev)[None, :]
+        sg = torch.as_tensor(sgroup_of_tier, dtype=torch.long, device=dev)
+        in_s = sg[:, None] == torch.arange(S, device=dev)[None, :]
+        scap_t = t32(scap)
+        fin_s = torch.isfinite(scap_t)
+        sstep = t32(sstep0)
+        lam_g = torch.zeros((T, G), dtype=f32, device=dev)
+        lam_s = torch.zeros(S, dtype=f32, device=dev)
+    for it in range(iters):
+        eff = lam
+        if not lean:
+            eff = lam + lam_g[:, g_of_t] + lam_s[sg][None, :]
+        adj = m + (eff[:, None, :, None] * s).reshape(T, N, L * K)
+        idx = adj.argmin(dim=2)                                   # (T, N)
+        chosen = flat_s.gather(2, idx[:, :, None])[:, :, 0].double()
+        on_tier = (idx // K)[:, :, None] == tier_of
+        use = torch.where(on_tier, chosen[:, :, None], zero64).sum(1).float()
+        rate = step / its[it]
+        lam = torch.clamp_min(
+            lam + rate * torch.where(fin_cap, use - cap_t, zero), 0.0)
+        if not lean:
+            use64 = use.double()
+            use_g = torch.where(in_g, use64[:, :, None], zero64).sum(1)
+            use_s = torch.where(in_s, use64.sum(0)[:, None], zero64).sum(0)
+            lam_g = torch.clamp_min(lam_g + rate * torch.where(
+                fin_g, use_g.float() - gcap_t, zero), 0.0)
+            lam_s = torch.clamp_min(lam_s + sstep / its[it] * torch.where(
+                fin_s, use_s.float() - scap_t, zero), 0.0)
+        cells[it] = idx
+    return cells.cpu().numpy()
+
+
 def _lagrangian_scan(masked: np.ndarray, stored: np.ndarray, cap: np.ndarray,
                      group_of_tier: np.ndarray, gcap: np.ndarray,
                      step0: float, iters: int,
@@ -222,44 +311,16 @@ def _lagrangian_scan(masked: np.ndarray, stored: np.ndarray, cap: np.ndarray,
 
     Dualizes both the per-tier capacities and the group (per-provider)
     capacities: a tier's effective multiplier is its own lambda plus its
-    group's. Runs in float32 like the reference's jitted scan. Per-tier and
-    per-group usage are summed through one-hot masks and ``sum(0)``, a
-    reduction whose order is fixed (float atomics, as in ``index_add_``,
-    would change the low bits from run to run). Returns the (iters, N)
-    flat cell indices.
+    group's. It is :func:`_fleet_scan` for a fleet of one tenant, so a
+    tenant solved alone and the same tenant in an uncoupled fleet emit the
+    same cells. Returns the (iters, N) flat cell indices.
     """
-    f32 = torch.float32
-    N, L, K = masked.shape
-    G = gcap.shape[0]
-    m = torch.as_tensor(masked, dtype=f32, device=dev)
-    s = torch.as_tensor(stored, dtype=f32, device=dev)
-    cap_t = torch.as_tensor(cap, dtype=f32, device=dev)
-    gcap_t = torch.as_tensor(gcap, dtype=f32, device=dev)
-    finite_cap = torch.isfinite(cap_t)
-    finite_gcap = torch.isfinite(gcap_t)
-    g_of_t = torch.as_tensor(group_of_tier, dtype=torch.long, device=dev)
-    tier_of = torch.arange(L, device=dev)
-    in_group = g_of_t[:, None] == torch.arange(G, device=dev)[None, :]
-    flat_cost = m.reshape(N, -1)
-    flat_stored = s.reshape(N, -1)
-    step = torch.tensor(step0, dtype=f32, device=dev)
-    zero = torch.zeros((), dtype=f32, device=dev)
-    lam = torch.zeros(L + G, dtype=f32, device=dev)
-    cells = torch.empty((iters, N), dtype=torch.long, device=dev)
-    for it in range(iters):
-        eff = lam[:L] + lam[L:][g_of_t]
-        adj = flat_cost + (eff[None, :, None] * s).reshape(N, -1)
-        idx = adj.argmin(dim=1)
-        chosen = flat_stored.gather(1, idx[:, None])[:, 0]
-        on_tier = (idx // K)[:, None] == tier_of[None, :]             # (N, L)
-        use = torch.where(on_tier, chosen[:, None], zero).sum(0)
-        use_g = torch.where(in_group, use[:, None], zero).sum(0)
-        grad = torch.cat([torch.where(finite_cap, use - cap_t, zero),
-                          torch.where(finite_gcap, use_g - gcap_t, zero)])
-        rate = step / (1.0 + torch.tensor(float(it), dtype=f32, device=dev))
-        lam = torch.clamp_min(lam + rate * grad, 0.0)
-        cells[it] = idx
-    return cells.cpu().numpy()
+    L = masked.shape[1]
+    return _fleet_scan(masked[None], stored[None], cap[None], group_of_tier,
+                       np.asarray(gcap, np.float64)[None],
+                       np.zeros(L, np.int64), np.array([np.inf]),
+                       np.array([step0]), 0.0, iters, dev)[:, 0]
+
 
 def _repair_vec(tier: np.ndarray, scheme: np.ndarray, masked: np.ndarray,
                 stored: np.ndarray, A: np.ndarray, cap_all: np.ndarray,
@@ -320,15 +381,20 @@ def _repair_vec(tier: np.ndarray, scheme: np.ndarray, masked: np.ndarray,
 
 def _local_search_vec(tier: np.ndarray, scheme: np.ndarray, use: np.ndarray,
                       masked: np.ndarray, stored: np.ndarray, A: np.ndarray,
-                      cap_all: np.ndarray, finite_all: np.ndarray) -> None:
-    """Best-improvement 1-swap descent with a full (N,L,K) delta matrix,
-    at most ``8 * N + 64`` moves."""
+                      cap_all: np.ndarray, finite_all: np.ndarray,
+                      max_moves: Optional[int] = None) -> None:
+    """Best-improvement 1-swap descent with a full (N,L,K) delta matrix.
+
+    ``max_moves`` overrides the default ``8 * N + 64`` budget so the
+    lockstep fleet descent can hand its tail rows over mid-trajectory
+    with their remaining budget intact.
+    """
     N, L, K = masked.shape
     n_idx = np.arange(N)
     Af = A & finite_all[:, None]                    # (C, L)
     A_f = A.astype(np.float64)
     any_finite = bool(finite_all.any())
-    for _ in range(8 * N + 64):
+    for _ in range(8 * N + 64 if max_moves is None else max_moves):
         cur = masked[n_idx, tier, scheme]
         stored_cur = stored[n_idx, tier, scheme]
         if any_finite:
@@ -366,46 +432,21 @@ def _step0(masked: np.ndarray, cap_all: np.ndarray,
     return float(finite_cells.mean() / max(cap_all[finite_all].mean(), 1e-9))
 
 
-def _dedupe_candidates(rows, max_candidates: int) -> List[np.ndarray]:
-    """Distinct relaxed assignments emitted by the dual ascent, in emission
-    order, truncated head/tail to ``max_candidates``."""
-    uniq, seen = [], set()
-    for row_ in rows:
-        key = row_.tobytes()
-        if key not in seen:
-            seen.add(key)
-            uniq.append(np.asarray(row_, np.int64))
+def _dedupe_candidates_arr(arr: np.ndarray,
+                           max_candidates: int) -> List[np.ndarray]:
+    """Distinct relaxed assignments emitted by the dual ascent, rows of an
+    (iters, N) matrix, in first-emission order (one ``np.unique`` over row
+    bytes), truncated head/tail to ``max_candidates``."""
+    arr = np.ascontiguousarray(arr)
+    if arr.shape[1] == 0:
+        return [np.zeros(0, np.int64)]
+    keys = arr.view(np.dtype((np.void, arr.dtype.itemsize * arr.shape[1])))
+    _, first = np.unique(keys.ravel(), return_index=True)
+    uniq = [arr[i].astype(np.int64) for i in np.sort(first)]
     if len(uniq) > max_candidates:
         head = max_candidates // 4
         uniq = uniq[:head] + uniq[-(max_candidates - head):]
     return uniq
-
-def _best_from_candidates(uniq: List[np.ndarray], masked: np.ndarray,
-                          stored: np.ndarray, A: np.ndarray,
-                          cap_all: np.ndarray,
-                          finite_all: np.ndarray) -> Assignment:
-    """Repair + polish every candidate cell vector, keep the best f64 score."""
-    N, _, K = masked.shape
-    best: Optional[Assignment] = None
-    fallback: Optional[Tuple[np.ndarray, np.ndarray]] = None
-    for cand in uniq:
-        tier, scheme = cand // K, cand % K
-        if fallback is None:
-            fallback = (tier.copy(), scheme.copy())
-        use = _repair_vec(tier, scheme, masked, stored, A, cap_all,
-                          finite_all)
-        if use is None:
-            continue
-        _local_search_vec(tier, scheme, use, masked, stored, A, cap_all,
-                          finite_all)
-        total = float(masked[np.arange(N), tier, scheme].sum())
-        if total < BIG and (best is None or total < best.cost):
-            best = Assignment(tier.copy(), scheme.copy(), total, True)
-    if best is None:
-        tier, scheme = fallback if fallback is not None else (
-            np.zeros(N, np.int64), np.zeros(N, np.int64))
-        return Assignment(tier, scheme, float("inf"), False)
-    return best
 
 
 def capacitated_assign(
@@ -479,9 +520,633 @@ def capacitated_assign(
     cells = _lagrangian_scan(masked, stored, cap, g_of_t, gcap, step0,
                              iters, dev)
 
-    uniq = _dedupe_candidates(cells, max_candidates)
-    return _best_from_candidates(uniq, masked, stored, A, cap_all,
-                                 finite_all)
+    return _batch_candidate_finish(
+        [0], cells[:, None, :], masked[None], stored[None], [masked],
+        [stored], [A], [cap_all], [finite_all], [N], K, max_candidates)[0]
+
+
+# ---------------------------------------------------------------- fleet batch
+# below this many alive rows the lockstep descent hands the stragglers to
+# the sequential per-row search (same trajectory, no per-round overhead)
+_LOCKSTEP_TAIL = 8
+
+
+def _lockstep_local_search(tier_r: np.ndarray, scheme_r: np.ndarray,
+                           use_r: np.ndarray, alive: np.ndarray,
+                           jrow: np.ndarray, masked_b: np.ndarray,
+                           stored_b: np.ndarray, A_fb: np.ndarray,
+                           Af_b: np.ndarray, cap_b: np.ndarray,
+                           budget: np.ndarray) -> None:
+    """Vectorized best-improvement 1-swap descent over independent rows.
+
+    Replicates :func:`_local_search_vec` move-for-move for every (tenant,
+    candidate) row at once: the same einsum ``use_c`` accumulation, the
+    same slack/room/ok/delta expressions, the same first-occurrence argmin
+    over the flattened cell grid (padding cells are ``+inf`` and can never
+    win), and the same per-row iteration budget ``8 * N + 64``. Rows
+    deactivate independently, so the Python-level loop runs once per step
+    of the longest trajectory instead of once per row.
+    """
+    M, n_max = tier_r.shape
+    L, K = masked_b.shape[2], masked_b.shape[3]
+    n_idx = np.arange(n_max)
+    while alive.size:
+        if alive.size <= _LOCKSTEP_TAIL:
+            # the few long-trajectory survivors finish sequentially: rows
+            # are independent and the sequential descent applies the same
+            # update rule, so continuing with the remaining per-row move
+            # budget lands on the same fixed point bit-for-bit — without
+            # paying a full vectorized round per move for a handful of rows
+            for r in alive:
+                j = jrow[r]
+                _local_search_vec(tier_r[r], scheme_r[r], use_r[r],
+                                  masked_b[j], stored_b[j],
+                                  A_fb[j] != 0.0, cap_b[j],
+                                  np.isfinite(cap_b[j]),
+                                  max_moves=int(budget[r]))
+            return
+        jr = jrow[alive]
+        mrows = masked_b[jr]                                  # (A, N, L, K)
+        srows = stored_b[jr]
+        tr, sc = tier_r[alive], scheme_r[alive]
+        a_idx = np.arange(alive.size)[:, None]
+        cur = mrows[a_idx, n_idx[None, :], tr, sc]            # (A, N)
+        stored_cur = srows[a_idx, n_idx[None, :], tr, sc]
+        use_c = np.einsum("acl,al->ac", A_fb[jr], use_r[alive])
+        At = np.take_along_axis(A_fb[jr], tr[:, None, :], axis=2)
+        slack = ((cap_b[jr] - use_c)[:, None, :]
+                 + At.transpose(0, 2, 1) * stored_cur[:, :, None])
+        room = np.where(Af_b[jr][:, None, :, :], slack[..., None],
+                        np.inf).min(2)                        # (A, N, L)
+        ok = (mrows < BIG) & (srows <= room[..., None] + 1e-9)
+        delta = np.where(ok, mrows - cur[..., None, None], np.inf)
+        flat = delta.reshape(alive.size, -1)
+        jarg = flat.argmin(1)
+        dmin = flat[np.arange(alive.size), jarg]
+        g = np.where(dmin < -1e-12)[0]
+        if g.size == 0:
+            break
+        rows = alive[g]
+        n, rem = np.divmod(jarg[g], L * K)
+        l2, k2 = np.divmod(rem, K)
+        l1 = tier_r[rows, n]
+        k1 = scheme_r[rows, n]
+        jg = jrow[rows]
+        use_r[rows, l1] -= stored_b[jg, n, l1, k1]
+        use_r[rows, l2] += stored_b[jg, n, l2, k2]
+        tier_r[rows, n] = l2
+        scheme_r[rows, n] = k2
+        budget[rows] -= 1
+        alive = rows[budget[rows] > 0]
+
+
+def _batch_candidate_finish(solve_idx, cells: np.ndarray,
+                            masked_b: np.ndarray, stored_b: np.ndarray,
+                            maskeds, storeds, As, cap_alls, finite_alls,
+                            Ns, K: int, max_candidates: int) -> dict:
+    """Repair + 1-swap finish of the dual ascent's candidates for an
+    uncoupled tenant batch (a single tenant is a batch of one); returns
+    ``{tenant: Assignment}``, each tenant's best f64 score.
+
+    Each tenant's distinct candidates (:func:`_dedupe_candidates_arr`) are
+    rows of one host batch: one scatter computes every candidate's usage,
+    one einsum makes every round-0 feasibility decision, only rows that
+    actually violate a capacity pay the sequential :func:`_repair_vec`,
+    and all surviving rows descend in one lockstep
+    :func:`_lockstep_local_search`, move for move the per-row
+    :func:`_local_search_vec`. A tenant none of whose candidates repairs
+    keeps its first candidate, infeasible.
+    """
+    iters_n, Tp, n_max = cells.shape
+    L = masked_b.shape[2]
+    rows_of: List[List[int]] = [[] for _ in range(Tp)]
+    uniq_all: List[np.ndarray] = []
+    row_j: List[int] = []
+    for j in range(Tp):
+        t = solve_idx[j]
+        uniq = _dedupe_candidates_arr(cells[:, j, :Ns[t]], max_candidates)
+        for cand in uniq:
+            rows_of[j].append(len(uniq_all))
+            uniq_all.append(cand)
+            row_j.append(j)
+    M = len(uniq_all)
+    jrow = np.asarray(row_j)
+
+    # constraint rows, padded to a common C with inert (cap=inf) rows
+    C_max = max(As[t].shape[0] for t in solve_idx)
+    A_b = np.zeros((Tp, C_max, L), bool)
+    cap_b2 = np.full((Tp, C_max), np.inf)
+    fin_b = np.zeros((Tp, C_max), bool)
+    for j, t in enumerate(solve_idx):
+        C = As[t].shape[0]
+        A_b[j, :C] = As[t]
+        cap_b2[j, :C] = cap_alls[t]
+        fin_b[j, :C] = finite_alls[t]
+    A_fb = A_b.astype(np.float64)
+    Af_b = A_b & fin_b[:, :, None]
+
+    # decode candidates; keep each tenant's first decode as the fallback
+    tier_r = np.zeros((M, n_max), np.int64)
+    scheme_r = np.zeros((M, n_max), np.int64)
+    fallbacks = {}
+    for m, cand in enumerate(uniq_all):
+        tier_r[m, :cand.shape[0]] = cand // K
+        scheme_r[m, :cand.shape[0]] = cand % K
+        j = row_j[m]
+        if j not in fallbacks:
+            fallbacks[j] = (tier_r[m, :cand.shape[0]].copy(),
+                            scheme_r[m, :cand.shape[0]].copy())
+
+    # per-row usage: one scatter, ascending-n within each row, so it is
+    # bit-identical to _chosen_usage (padding rows add exact 0.0)
+    sval = stored_b[jrow[:, None], np.arange(n_max)[None, :], tier_r,
+                    scheme_r]
+    use_r = np.zeros((M, L))
+    np.add.at(use_r, (np.repeat(np.arange(M), n_max), tier_r.ravel()),
+              sval.ravel())
+
+    # round-0 repair decision for every row at once; only violating rows
+    # pay the sequential eviction loop
+    use_c0 = np.einsum("acl,al->ac", A_fb[jrow], use_r)
+    viol = (fin_b[jrow] & (use_c0 > cap_b2[jrow] + 1e-9)).any(1)
+    dead = np.zeros(M, bool)
+    for m in np.where(viol)[0]:
+        j = row_j[m]
+        t = solve_idx[j]
+        use = _repair_vec(tier_r[m, :Ns[t]], scheme_r[m, :Ns[t]],
+                          maskeds[t], storeds[t], As[t], cap_alls[t],
+                          finite_alls[t])
+        if use is None:
+            dead[m] = True
+        else:
+            use_r[m] = use
+
+    budget = 8 * np.asarray([Ns[solve_idx[j]] for j in row_j]) + 64
+    _lockstep_local_search(tier_r, scheme_r, use_r, np.where(~dead)[0],
+                           jrow, masked_b, stored_b, A_fb, Af_b, cap_b2,
+                           budget)
+
+    out = {}
+    for j in range(Tp):
+        t = solve_idx[j]
+        n_t = Ns[t]
+        best: Optional[Assignment] = None
+        for m in rows_of[j]:
+            if dead[m]:
+                continue
+            tr, sc = tier_r[m, :n_t], scheme_r[m, :n_t]
+            total = float(maskeds[t][np.arange(n_t), tr, sc].sum())
+            if total < BIG and (best is None or total < best.cost):
+                best = Assignment(tr.copy(), sc.copy(), total, True)
+        if best is None:
+            ftr, fsc = fallbacks.get(
+                j, (np.zeros(n_t, np.int64), np.zeros(n_t, np.int64)))
+            best = Assignment(ftr, fsc, float("inf"), False)
+        out[t] = best
+    return out
+
+
+def _greedy_device_batch(cost: np.ndarray, feasible: np.ndarray,
+                         dev: torch.device) -> Tuple[np.ndarray, np.ndarray,
+                                                     np.ndarray]:
+    """Per-(tenant, row) argmin over the flattened (L, K) cells of a
+    (T, N, L, K) batch, in float32."""
+    c = torch.as_tensor(cost, dtype=torch.float32, device=dev)
+    f = torch.as_tensor(feasible, dtype=torch.bool, device=dev)
+    masked = torch.where(f, c, torch.full((), BIG, dtype=torch.float32,
+                                          device=dev))
+    flat = masked.reshape(masked.shape[0], masked.shape[1], -1)
+    idx = flat.argmin(dim=2)
+    best = flat.gather(2, idx[:, :, None])[:, :, 0]
+    K = masked.shape[3]
+    return ((idx // K).cpu().numpy(), (idx % K).cpu().numpy(),
+            best.cpu().numpy())
+
+
+def greedy_assign_batch(costs: Sequence[np.ndarray],
+                        feasibles: Sequence[np.ndarray], *,
+                        device: DeviceLike = "cuda") -> List[Assignment]:
+    """Unbounded-capacity assignment for T ragged tenants in one argmin on
+    ``device``. Bit-identical per tenant to :func:`greedy_assign` (same f32
+    argmin, same f64 host re-total); padding rows are BIG-masked and
+    sliced off before scoring."""
+    dev = resolve(device)
+    T = len(costs)
+    if T == 0:
+        return []
+    Ns = [int(c.shape[0]) for c in costs]
+    L, K = costs[0].shape[1], costs[0].shape[2]
+    n_max = max(Ns)
+    if n_max == 0:
+        z = np.zeros(0, np.int64)
+        return [Assignment(z.copy(), z.copy(), 0.0, True) for _ in range(T)]
+    cost_b = np.full((T, n_max, L, K), BIG)
+    feas_b = np.zeros((T, n_max, L, K), bool)
+    for t in range(T):
+        cost_b[t, :Ns[t]] = costs[t]
+        feas_b[t, :Ns[t]] = feasibles[t]
+    tier_b, scheme_b, best_b = _greedy_device_batch(cost_b, feas_b, dev)
+    out = []
+    for t in range(T):
+        n = Ns[t]
+        tier = tier_b[t, :n].astype(int)
+        scheme = scheme_b[t, :n].astype(int)
+        ok = bool((best_b[t, :n] < BIG).all())
+        n_idx = np.arange(n)
+        total = float(np.asarray(costs[t], np.float64)
+                      [n_idx, tier, scheme].sum()) if ok else float("inf")
+        out.append(Assignment(tier, scheme, total, ok))
+    return out
+
+
+def _fleet_repair_shared(tiers, schemes, uses, maskeds, storeds, As,
+                         cap_alls, finite_alls, A_sh, cap_sh,
+                         finite_sh) -> Optional[np.ndarray]:
+    """Cross-tenant greedy eviction until every finite *shared* (fleet-wide)
+    capacity row is respected; per-tenant rows stay respected throughout.
+    Mirrors :func:`_repair_vec` at fleet scope: each round, the cheapest-
+    delta members of the most over-capacity shared row move — across any
+    tenant — to cells outside that row with room in both scopes. Returns
+    the (S,) shared usage vector, or None if repair is impossible."""
+    T = len(tiers)
+    A_shf = A_sh & finite_sh[:, None]
+    su = np.zeros(cap_sh.shape[0])
+    for t in range(T):
+        su += A_sh @ uses[t]
+    total_n = sum(int(x.shape[0]) for x in tiers)
+    for _ in range(4 * total_n + 8):
+        over = np.where(finite_sh & (su > cap_sh + 1e-9))[0]
+        if over.size == 0:
+            return su
+        s = over[np.argmax((su - cap_sh)[over])]
+        in_s = A_sh[s]                              # (L,)
+        slack_sh = np.where(finite_sh, cap_sh - su, np.inf)
+        room_sh = np.where(A_shf, slack_sh[:, None], np.inf).min(0)   # (L,)
+        moves = []                                  # (delta, t, n, l2, k2)
+        for t in range(T):
+            if tiers[t].shape[0] == 0:
+                continue
+            members = np.where(in_s[tiers[t]])[0]
+            if members.size == 0:
+                continue
+            masked, stored = maskeds[t], storeds[t]
+            K = masked.shape[2]
+            Af = As[t] & finite_alls[t][:, None]
+            use_c = As[t] @ uses[t]
+            slack_own = np.where(finite_alls[t], cap_alls[t] - use_c, np.inf)
+            room_own = np.where(Af, slack_own[:, None], np.inf).min(0)  # (L,)
+            cur = masked[members, tiers[t][members], schemes[t][members]]
+            cur_st = stored[members, tiers[t][members], schemes[t][members]]
+            ok = (masked[members] < BIG) & (stored[members]
+                                            <= room_own[None, :, None] + 1e-9)
+            # leaving the row needs room in the destination's shared row;
+            # staying inside it is allowed iff the move strictly shrinks the
+            # row's usage (better compression) — shared rows are disjoint,
+            # so an in-row move touches no other shared row
+            ok &= np.where(in_s[None, :, None],
+                           stored[members] < cur_st[:, None, None] - 1e-9,
+                           stored[members] <= room_sh[None, :, None] + 1e-9)
+            delta = np.where(ok, masked[members] - cur[:, None, None],
+                             np.inf).reshape(members.size, -1)
+            cell = delta.argmin(1)
+            d = delta[np.arange(members.size), cell]
+            for m in range(members.size):
+                if np.isfinite(d[m]):
+                    moves.append((float(d[m]), t, int(members[m]),
+                                  int(cell[m]) // K, int(cell[m]) % K))
+        if not moves:
+            return None
+        moves.sort()
+        moved = False
+        for d, t, n, l2, k2 in moves:
+            if su[s] <= cap_sh[s] + 1e-9:
+                break
+            stored = storeds[t]
+            if not in_s[tiers[t][n]]:
+                continue
+            l1, k1 = int(tiers[t][n]), int(schemes[t][n])
+            s1, s2 = stored[n, l1, k1], stored[n, l2, k2]
+            # room may have shrunk this round; re-check before applying
+            Af = As[t] & finite_alls[t][:, None]
+            use_c = As[t] @ uses[t]
+            room_own = np.where(Af[:, l2], cap_alls[t] - use_c,
+                                np.inf).min() if Af[:, l2].any() else np.inf
+            if in_s[l2]:
+                if s2 >= s1 - 1e-9:
+                    continue                        # shrink no longer strict
+                room_s2 = np.inf
+            else:
+                slack2 = np.where(finite_sh, cap_sh - su, np.inf)
+                room_s2 = np.where(A_shf[:, l2], slack2, np.inf).min() \
+                    if A_shf[:, l2].any() else np.inf
+            if s2 > min(room_own, room_s2) + 1e-9:
+                continue
+            uses[t][l1] -= s1
+            uses[t][l2] += s2
+            su += A_sh[:, l2] * s2 - A_sh[:, l1] * s1
+            tiers[t][n], schemes[t][n] = l2, k2
+            moved = True
+        if not moved:
+            return None
+    return None
+
+
+def _fleet_polish(tiers, schemes, uses, maskeds, storeds, As, cap_alls,
+                  finite_alls, A_sh, cap_sh, finite_sh,
+                  su: np.ndarray) -> None:
+    """Round-robin 1-swap descent under the shared rows: each tenant runs
+    :func:`_local_search_vec` against its own constraints augmented with the
+    shared rows at their *residual* caps (fleet cap minus the other tenants'
+    usage), sweeping until a full pass changes nothing."""
+    T = len(tiers)
+    for _ in range(8):
+        changed = False
+        for t in range(T):
+            if tiers[t].shape[0] == 0:
+                continue
+            own_sh = A_sh @ uses[t]
+            A_aug = np.concatenate([As[t], A_sh], 0)
+            cap_aug = np.concatenate([cap_alls[t], cap_sh - (su - own_sh)])
+            fin_aug = np.concatenate([finite_alls[t], finite_sh])
+            t0, k0 = tiers[t].copy(), schemes[t].copy()
+            _local_search_vec(tiers[t], schemes[t], uses[t], maskeds[t],
+                              storeds[t], A_aug, cap_aug, fin_aug)
+            if not ((tiers[t] == t0).all() and (schemes[t] == k0).all()):
+                changed = True
+                su += A_sh @ uses[t] - own_sh
+        if not changed:
+            return
+
+
+@dataclasses.dataclass
+class FleetAssignment:
+    """Result of one batched fleet solve.
+
+    ``assignments[t]`` is tenant t's :class:`Assignment`; ``cost`` is the
+    fleet-total objective (inf if any tenant is infeasible); ``feasible``
+    requires every tenant feasible *and* the shared caps respected;
+    ``shared_use_gb`` is the fleet usage per shared group (None when no
+    shared rows were given).
+    """
+
+    assignments: List[Assignment]
+    cost: float
+    feasible: bool
+    shared_use_gb: Optional[np.ndarray] = None
+
+
+def _per_tenant_seq(x, T: int, name: str) -> list:
+    """Broadcast one vector to all T tenants, or validate a per-tenant
+    sequence (list/tuple of vectors, or a (T, ...) array)."""
+    if x is None:
+        return [None] * T
+    if isinstance(x, np.ndarray) and x.ndim == 1:
+        return [x] * T
+    xs = list(x)
+    if len(xs) != T:
+        raise ValueError(f"{name}: expected one vector or a length-{T} "
+                         f"sequence, got length {len(xs)}")
+    return xs
+
+
+def capacitated_assign_batch(
+    costs: Sequence[np.ndarray],         # T x (N_t, L, K), ragged N_t
+    feasibles: Sequence[np.ndarray],     # T x (N_t, L, K)
+    stored_gbs: Sequence[np.ndarray],    # T x (N_t, L, K)
+    capacity_gb,                         # (L,) for all tenants, or T x (L,)
+    *,
+    iters: int = 200,
+    seed: int = 0,
+    max_candidates: int = 16,
+    tier_groups: Optional[np.ndarray] = None,        # (L,) — one tier space
+    group_capacity_gb=None,                          # (G,) or T x (G,)
+    shared_tier_groups: Optional[np.ndarray] = None,  # (L,) fleet-wide rows
+    shared_capacity_gb: Optional[np.ndarray] = None,  # (S,)
+    mesh=None,
+    sla_penalties: Optional[Sequence] = None,        # T x (N_t,L,K) or None
+    sla_lambda: float = 0.0,
+    device: DeviceLike = "cuda",
+) -> FleetAssignment:
+    """Solve T tenants' capacitated OPTASSIGN problems in one batched dual
+    ascent on ``device``.
+
+    Heterogeneous tenant problems are ragged-padded into a
+    ``(T, N_max, L, K)`` batch (padding rows: BIG cost, zero stored bytes —
+    they contribute zero cost and zero usage, so they never perturb duals or
+    capacities) and run through one batched Lagrangian scan
+    (:func:`_fleet_scan`, the whole fleet in one batch); repair and 1-swap
+    polish then run on the host exactly as in :func:`capacitated_assign`.
+    **With no shared constraints the per-tenant results are bit-identical
+    to T independent** :func:`capacitated_assign` **calls** (pinned by
+    ``tests/test_torch_fleet.py``) — same greedy shortcut, same dual
+    trajectories, same candidate set, same repair/polish.
+
+    ``shared_tier_groups``/``shared_capacity_gb`` add *fleet-wide* capacity
+    rows: ``sum over all tenants of use[shared_tier_groups == s] <=
+    shared_capacity_gb[s]``. This is how one provider's global capacity caps
+    the whole fleet rather than each tenant separately. Shared rows are
+    dualized by fleet-global multipliers in the scan; on host a
+    cross-tenant eviction repair (:func:`_fleet_repair_shared`) and a
+    residual-cap round-robin polish (:func:`_fleet_polish`) enforce them
+    exactly.
+
+    ``mesh`` must be None: the port runs the fleet on one device, and a
+    tenant mesh waits for ``distributed/`` (ROADMAP queue 1 item 8).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: the port solves a fleet on one device; a sharded tenant "
+            "axis waits for distributed/ (ROADMAP queue 1 item 8)")
+    dev = resolve(device)
+    if (shared_tier_groups is None) != (shared_capacity_gb is None):
+        raise ValueError("shared_tier_groups and shared_capacity_gb must be "
+                         "passed together")
+    # Soft-SLA term, exactly as in capacitated_assign: folded into the
+    # per-tenant cost tensors before padding, so the weighted penalty rows
+    # ride the batched fleet scan too. sla_lambda=0 touches nothing.
+    if sla_lambda and sla_penalties is not None:
+        costs = [c if p is None
+                 else (np.asarray(c, np.float64)
+                       + float(sla_lambda) * np.asarray(p, np.float64))
+                 for c, p in zip(costs, sla_penalties)]
+    T = len(costs)
+    if T == 0:
+        su = (np.zeros(np.asarray(shared_capacity_gb).shape[0])
+              if shared_capacity_gb is not None else None)
+        return FleetAssignment([], 0.0, True, su)
+    L, K = int(costs[0].shape[1]), int(costs[0].shape[2])
+    caps = [np.asarray(c, np.float64) for c in
+            _per_tenant_seq(np.asarray(capacity_gb, np.float64)
+                            if not isinstance(capacity_gb, (list, tuple))
+                            else capacity_gb, T, "capacity_gb")]
+    gcaps = _per_tenant_seq(group_capacity_gb, T, "group_capacity_gb")
+
+    maskeds, storeds, As, cap_alls, finite_alls, Ns = [], [], [], [], [], []
+    for t in range(T):
+        maskeds.append(_masked(np.asarray(costs[t], np.float64),
+                               feasibles[t]))
+        storeds.append(np.asarray(stored_gbs[t], np.float64))
+        A, cap_all = _constraint_rows(caps[t], tier_groups, gcaps[t])
+        As.append(A)
+        cap_alls.append(cap_all)
+        finite_alls.append(np.isfinite(cap_all))
+        Ns.append(int(costs[t].shape[0]))
+
+    if shared_tier_groups is not None:
+        sg = np.asarray(shared_tier_groups, int)
+        scap = np.asarray(shared_capacity_gb, np.float64)
+        S = scap.shape[0]
+        if sg.shape != (L,) or (sg.size and (sg.min() < 0 or sg.max() >= S)):
+            raise ValueError(f"shared_tier_groups ids must lie in [0, {S}) "
+                             f"and have shape ({L},)")
+        A_sh = np.arange(S)[:, None] == sg[None, :]
+        finite_sh = np.isfinite(scap)
+    else:
+        sg = np.zeros(L, int)
+        scap = np.array([np.inf])
+        A_sh = np.ones((1, L), bool)
+        finite_sh = np.zeros(1, bool)
+    has_shared = bool(finite_sh.any())
+
+    # lam=0 greedy shortcut, per tenant — identical to capacitated_assign's
+    tier0s, scheme0s, use0s, own_ok = [], [], [], []
+    for t in range(T):
+        cell0 = maskeds[t].reshape(Ns[t], -1).argmin(1) if Ns[t] \
+            else np.zeros(0, np.int64)
+        tier0s.append(cell0 // K)
+        scheme0s.append(cell0 % K)
+        use0s.append(_chosen_usage(storeds[t], tier0s[t], scheme0s[t]))
+        own_ok.append(bool((~finite_alls[t]
+                            | (As[t] @ use0s[t]
+                               <= cap_alls[t] + 1e-9)).all()))
+
+    def greedy_result(t: int) -> Assignment:
+        total = float(maskeds[t][np.arange(Ns[t]), tier0s[t],
+                                 scheme0s[t]].sum())
+        ok = bool(total < BIG)
+        return Assignment(tier0s[t], scheme0s[t],
+                          total if ok else float("inf"), ok)
+
+    done: dict = {}
+    if has_shared:
+        su0 = A_sh @ np.sum(use0s, axis=0)
+        if all(own_ok) and bool((~finite_sh | (su0 <= scap + 1e-9)).all()):
+            solve_idx: List[int] = []
+            done = {t: greedy_result(t) for t in range(T)}
+        else:
+            solve_idx = list(range(T))
+    else:
+        done = {t: greedy_result(t) for t in range(T) if own_ok[t]}
+        solve_idx = [t for t in range(T) if not own_ok[t]]
+
+    if solve_idx:
+        n_max = max(Ns[t] for t in solve_idx)
+        Tp = len(solve_idx)
+        masked_b = np.full((Tp, n_max, L, K), BIG)
+        stored_b = np.zeros((Tp, n_max, L, K))
+        cap_b = np.zeros((Tp, L))
+        step0_b = np.zeros(Tp)
+        if tier_groups is None:
+            g_of_t = np.zeros(L, np.int32)
+            gcap_b = np.full((Tp, 1), np.inf)
+        else:
+            g_of_t = np.asarray(tier_groups, np.int32)
+            gcap_b = np.stack([np.asarray(gcaps[t], np.float64)
+                               for t in solve_idx])
+        for j, t in enumerate(solve_idx):
+            masked_b[j, :Ns[t]] = maskeds[t]
+            stored_b[j, :Ns[t]] = storeds[t]
+            cap_b[j] = caps[t]
+            step0_b[j] = _step0(maskeds[t], cap_alls[t], finite_alls[t])
+        if has_shared:
+            fleet_cells = np.concatenate(
+                [maskeds[t][maskeds[t] < BIG].ravel() for t in solve_idx])
+            sstep0 = (fleet_cells.mean()
+                      / max(scap[finite_sh].mean(), 1e-9)
+                      if fleet_cells.size else 0.0)
+        else:
+            sstep0 = 0.0
+        cells = _fleet_scan(masked_b, stored_b, cap_b, g_of_t, gcap_b, sg,
+                            scap, step0_b, sstep0, iters, dev)
+
+        if not has_shared:
+            done.update(_batch_candidate_finish(
+                solve_idx, cells, masked_b, stored_b, maskeds, storeds, As,
+                cap_alls, finite_alls, Ns, K, max_candidates))
+        else:
+            joint = _dedupe_candidates_arr(
+                cells.reshape(cells.shape[0], -1), max_candidates)
+            best_score = float("inf")
+            best_state = None
+            fallback = None
+            for cand in joint:
+                grid = cand.reshape(Tp, n_max)
+                tiers = [grid[j, :Ns[t]] // K
+                         for j, t in enumerate(solve_idx)]
+                schemes = [grid[j, :Ns[t]] % K
+                           for j, t in enumerate(solve_idx)]
+                if fallback is None:
+                    fallback = ([x.copy() for x in tiers],
+                                [x.copy() for x in schemes])
+                m_l = [maskeds[t] for t in solve_idx]
+                s_l = [storeds[t] for t in solve_idx]
+                A_l = [As[t] for t in solve_idx]
+                c_l = [cap_alls[t] for t in solve_idx]
+                f_l = [finite_alls[t] for t in solve_idx]
+                uses = []
+                dead = False
+                for j in range(Tp):
+                    use = _repair_vec(tiers[j], schemes[j], m_l[j], s_l[j],
+                                      A_l[j], c_l[j], f_l[j])
+                    if use is None:
+                        dead = True
+                        break
+                    uses.append(use)
+                if dead:
+                    continue
+                su = _fleet_repair_shared(tiers, schemes, uses, m_l, s_l,
+                                          A_l, c_l, f_l, A_sh, scap,
+                                          finite_sh)
+                if su is None:
+                    continue
+                _fleet_polish(tiers, schemes, uses, m_l, s_l, A_l, c_l, f_l,
+                              A_sh, scap, finite_sh, su)
+                score = sum(
+                    float(m_l[j][np.arange(Ns[t]), tiers[j],
+                                 schemes[j]].sum())
+                    for j, t in enumerate(solve_idx))
+                if score < BIG and score < best_score:
+                    best_score = score
+                    best_state = ([x.copy() for x in tiers],
+                                  [x.copy() for x in schemes])
+            if best_state is not None:
+                tiers, schemes = best_state
+                for j, t in enumerate(solve_idx):
+                    total = float(maskeds[t][np.arange(Ns[t]), tiers[j],
+                                             schemes[j]].sum())
+                    done[t] = Assignment(tiers[j], schemes[j], total, True)
+            else:
+                tiers, schemes = fallback if fallback is not None else (
+                    [np.zeros(Ns[t], np.int64) for t in solve_idx],
+                    [np.zeros(Ns[t], np.int64) for t in solve_idx])
+                for j, t in enumerate(solve_idx):
+                    done[t] = Assignment(tiers[j], schemes[j],
+                                         float("inf"), False)
+
+    assignments = [done[t] for t in range(T)]
+    feasible = all(a.feasible for a in assignments)
+    shared_use = None
+    if shared_tier_groups is not None:
+        shared_use = np.zeros(scap.shape[0])
+        for t, a in enumerate(assignments):
+            if a.feasible and Ns[t]:
+                shared_use += A_sh @ _chosen_usage(
+                    storeds[t], a.tier.astype(int), a.scheme.astype(int))
+        feasible = feasible and bool(
+            (~finite_sh | (shared_use <= scap + 1e-9)).all())
+    cost = (float(sum(a.cost for a in assignments))
+            if feasible else float("inf"))
+    return FleetAssignment(assignments, cost, feasible, shared_use)
 
 
 def capacitated_assign_ref(

@@ -1,8 +1,6 @@
 """Tiered cloud object store simulation with exact paper billing semantics.
 
-A copy of ``repro.storage.store`` (the port imports nothing of ``repro``);
-:meth:`TieredStore.plan_keys` carries its own copy of
-``repro.core.stream.occurrence_keys``.
+A copy of ``repro.storage.store`` (the port imports nothing of ``repro``).
 
 Objects live in one of L tiers; every put/get/tier-change is metered with the
 :class:`~repro_torch.core.costs.CostTable` parameters (storage-month accrual, read
@@ -333,13 +331,9 @@ class TieredStore:
         ``stream.occurrence_keys``: duplicated file sets (a family can
         coexist with a merge producing the same union) get an
         occurrence-index suffix in plan order."""
-        seen: Dict[frozenset, int] = {}
-        keys = []
-        for p in plan.problem.partitions:
-            c = seen.get(p.files, 0)
-            seen[p.files] = c + 1
-            keys.append(cls.partition_key(p.files) + ("" if c == 0 else f"#{c}"))
-        return keys
+        from repro_torch.core.stream import occurrence_keys
+        return [cls.partition_key(files) + ("" if c == 0 else f"#{c}")
+                for files, c in occurrence_keys(plan.problem.partitions)]
 
     def sync_plan(self, plan, payloads: Optional[list] = None) -> Dict[str, int]:
         """Reconcile store contents with a (streaming) ``PlacementPlan``.

@@ -18,11 +18,15 @@ import torch
 from repro_torch.core import compredict as tcp
 from repro_torch.core import datapart as tdp
 from repro_torch.core import engine as teng
+from repro_torch.core import fleet as tfleet
+from repro_torch.core import forecast as tfc
 from repro_torch.core import ml as tml
 from repro_torch.core import optassign as topt
 from repro_torch.core import scope as tscope
-from repro_torch.core.costs import azure_table, big3_table
+from repro_torch.core.costs import (Weights, azure_table, big3_table,
+                                    cost_tensor, latency_feasible)
 from repro_torch.data import tpch
+from repro_torch.data import workloads as twl
 from repro_torch.data.tables import Table
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import _build
@@ -751,3 +755,139 @@ def test_attention_and_ssd_gradients_on_card(card):
     g_p = torch.autograd.grad(y.sum() + st.sum(), ins)
     for a, b in zip(g_k, g_p):
         _assert_close(a, b, 1e-4)
+
+
+# ------------------------------------------------------------------ fleet
+def _bench_fleet(T, mean_n, seed):
+    """The fleet benchmark's recipe: T ragged Azure tenants, K 3, the
+    greedy-hottest tier capped at 90% of its greedy use."""
+    rng = np.random.default_rng(seed)
+    table = azure_table()
+    out = []
+    for _ in range(T):
+        N = int(rng.integers(max(1, mean_n // 2), 2 * mean_n))
+        spans = rng.uniform(0.5, 50.0, N)
+        rho = rng.gamma(1.0, 20.0, N)
+        cur = rng.integers(-1, table.num_tiers, N)
+        R = np.concatenate([np.ones((N, 1)), rng.uniform(1.2, 6.0, (N, 2))],
+                           1)
+        D = np.concatenate([np.zeros((N, 1)),
+                            rng.uniform(0.01, 3.0, (N, 2))], 1)
+        lat = rng.choice([0.1, 1.0, 5.0, np.inf], N)
+        cost = cost_tensor(spans, rho, cur, R, D, table, Weights(), months=6)
+        feas = latency_feasible(D, lat, table)
+        stored = np.repeat((spans[:, None] / R)[:, None, :], 4, 1)
+        cell = np.where(feas, cost, np.inf).reshape(N, -1).argmin(1)
+        use = topt._chosen_usage(stored, cell // 3, cell % 3)
+        cap = np.full(4, np.inf)
+        cap[use.argmax()] = 0.9 * use.max()
+        out.append((cost, feas, stored, cap))
+    return out
+
+
+def _scan_args(fleet, shared_frac=None):
+    """``_fleet_scan``'s arguments for ``fleet``; with ``shared_frac`` the
+    per-tenant caps are lifted and the fleet's most used tier is capped
+    fleet-wide at that fraction of its greedy use."""
+    T, L, K = len(fleet), 4, 3
+    n_max = max(c.shape[0] for c, _, _, _ in fleet)
+    m = np.full((T, n_max, L, K), topt.BIG)
+    s = np.zeros((T, n_max, L, K))
+    cap = np.full((T, L), np.inf)
+    use = np.zeros(L)
+    for t, (c, f, st, cp) in enumerate(fleet):
+        n = c.shape[0]
+        m[t, :n], s[t, :n] = topt._masked(c, f), st
+        cell = m[t, :n].reshape(n, -1).argmin(1)
+        use += topt._chosen_usage(st, cell // K, cell % K)
+        if shared_frac is None:
+            cap[t] = cp
+    scap = np.array([np.inf])
+    sg = np.zeros(L, np.int64)
+    if shared_frac is not None:
+        sg, scap = np.arange(L), np.full(L, np.inf)
+        scap[use.argmax()] = shared_frac * use.max()
+    step = np.zeros(T)
+    for t in range(T):
+        A, ca = topt._constraint_rows(cap[t], None, None)
+        step[t] = topt._step0(m[t], ca, np.isfinite(ca))
+    sstep = float(m[m < topt.BIG].mean() / scap[np.isfinite(scap)].mean()) \
+        if shared_frac is not None else 0.0
+    return (m, s, cap, np.zeros(L, np.int64), np.full((T, 1), np.inf), sg,
+            scap, step, sstep, 200)
+
+
+@pytest.mark.parametrize("shared_frac", [None, 0.6])
+def test_fleet_scan_cells_on_card_match_cpu(card, shared_frac):
+    """The batched dual ascent's cells, uncoupled and coupled by a shared
+    cap, are the same on the card and on the CPU (the fleet-wide sum has
+    one pinned order on both), and the same on a second card run."""
+    args = _scan_args(_bench_fleet(48, 24, 5), shared_frac)
+    got = topt._fleet_scan(*args, card)
+    np.testing.assert_array_equal(got, topt._fleet_scan(*args, "cpu"))
+    np.testing.assert_array_equal(got, topt._fleet_scan(*args, card))
+    assert len(np.unique(got[:, 0], axis=0)) > 1    # the duals moved
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_fleet_batch_on_card_matches_cpu(card, shared):
+    fleet = _bench_fleet(64, 24, 64)
+    cols = [[x[i] for x in fleet] for i in range(4)]
+    kw = {}
+    if shared:
+        # lift the tenants' caps; cap the fleet's most used tier at 70%
+        scap = _scan_args(fleet, 0.7)[6]
+        cols[3] = [np.full(4, np.inf)] * len(fleet)
+        kw = dict(shared_tier_groups=np.arange(4), shared_capacity_gb=scap)
+    a = topt.capacitated_assign_batch(*cols, device=card, **kw)
+    b = topt.capacitated_assign_batch(*cols, device="cpu", **kw)
+    assert a.feasible and b.feasible
+    for x, y in zip(a.assignments, b.assignments):
+        np.testing.assert_array_equal(x.tier, y.tier)
+        np.testing.assert_array_equal(x.scheme, y.scheme)
+        assert x.cost == pytest.approx(y.cost, rel=1e-6)
+    g_k = topt.greedy_assign_batch(cols[0], cols[1], device=card)
+    g_c = topt.greedy_assign_batch(cols[0], cols[1], device="cpu")
+    for x, y in zip(g_k, g_c):
+        np.testing.assert_array_equal(x.tier, y.tier)
+        np.testing.assert_array_equal(x.scheme, y.scheme)
+
+
+def test_streaming_engine_on_card_matches_cpu(card):
+    w = twl.generate_workload(n_datasets=80, n_months=8, seed=7)
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        eng = teng.StreamingEngine(
+            azure_table(), teng.ScopeConfig(use_compression=False, months=1.0,
+                                            device=dev),
+            twl.dataset_file_sizes(w), drift_threshold=0.5)
+        for batch in twl.stream_query_log(w, np.random.default_rng(7)):
+            eng.ingest_and_reoptimize(batch, months=1.0)
+        reports[dev] = (eng.history, eng.plan)
+    (ha, pa), (hb, pb) = reports["cuda"], reports["cpu"]
+    for a, b in zip(ha, hb):
+        assert (a.n_partitions, a.n_new, a.n_moved, a.compacted,
+                a.n_deferred) == (b.n_partitions, b.n_new, b.n_moved,
+                                  b.compacted, b.n_deferred)
+        assert a.steady_cents == pytest.approx(b.steady_cents, rel=1e-6)
+    np.testing.assert_array_equal(pa.assignment.tier, pb.assignment.tier)
+
+
+def test_placement_entry_points_raise_without_a_card():
+    """Asking for the card where there is none raises, before any work;
+    runs only where there is no card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points run on it")
+    cfg = teng.ScopeConfig(device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        teng.StreamingEngine(azure_table(), cfg, {"a": 1.0})
+    with pytest.raises(RuntimeError, match="cuda"):
+        tfleet.FleetEngine(azure_table(), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tfc.AccessForecaster(azure_table())
+    fleet = _bench_fleet(2, 4, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        topt.capacitated_assign_batch(*[[x[i] for x in fleet]
+                                        for i in range(4)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        topt.greedy_assign_batch([fleet[0][0]], [fleet[0][1]])

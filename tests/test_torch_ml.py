@@ -219,11 +219,25 @@ def test_train_eval_neural_network_runs_on_the_cpu():
     assert tml.r2(ds.ratio[tr], m.predict(ds.X[tr])) > 0.99
 
 
-def test_neural_network_predictor_carried_across(tables):
+def test_neural_network_predictor_carried_across(tables, monkeypatch):
+    """An MLP predictor converted from the reference's arrays predicts what
+    the reference's does. Decompression speeds are fixed per codec (the
+    ratios stay measured): a timed speed puts the host's load into the
+    targets, and an outlier there can scale the fitted outputs past what
+    a float32 comparison at these tolerances holds."""
+    from repro.storage import codecs as jcodecs
     jdb, tdb = tables
     qs = jtpch.generate_queries(jdb, n_per_template=2, seed=3)
     samples = jcp.query_samples(qs, jdb.tables, max_rows=300)
     codecs = [c for c in jcp.default_codecs() if c.name in ("zlib-6", "lzma-1")]
+    real = jcp.measure
+
+    def det_measure(codec, raw, repeats=1):
+        m = real(codec, raw, repeats=repeats)
+        return jcodecs.CodecMeasurement(
+            ratio=m.ratio, compress_sec=0.0,
+            decompress_sec_per_gb={"zlib-6": 4.0, "lzma-1": 9.0}[codec.name])
+    monkeypatch.setattr(jcp, "measure", det_measure)
     jpred = jcp.CompressionPredictor(model_name="NeuralNetwork")
     jpred.fit(samples[:24], layouts=("col",), codecs=codecs)
     tpred = convert.predictor_from_arrays(predictor_arrays(jpred),

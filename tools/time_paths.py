@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's zamba2-2.7b prefill and training step, and the K1, K2,
-K4 and K6 kernels, on one NVIDIA GPU, for comparing two source trees in one
-run on one card.
+"""Time the port's zamba2-2.7b prefill and training step, the K1, K2, K4
+and K6 kernels, and the capacitated solver's dual ascent, on one NVIDIA
+GPU, for comparing two source trees in one run on one card.
 
     python tools/time_paths.py [--src SRC] [--k2-inputs FILE]
-        [--k1-inputs FILE] [--k4-inputs FILE]
+        [--k1-inputs FILE] [--k4-inputs FILE] [--scan-inputs FILE]
+        [--scan-only]
 
 ``--src`` is the ``src`` directory of the tree to time (default: this
 checkout's); its kernels are built from that tree's sources into
@@ -34,9 +35,22 @@ same inputs. Each kernel gets its mean time per call between CUDA events
 over 50 back-to-back calls (wrapper included) and its device time per
 call from torch.profiler over 20 calls.
 
+The dual ascent (``optassign._lagrangian_scan``, 200 float32 steps on the
+card) runs on chip_smoke.py's capacitated scale instance: N 16,000 of
+``bench_reoptimize``'s recipe on AWS + GCP + Azure, Azure capped at half
+its uncapped footprint. Its arguments are caught from that tree's
+``PlacementEngine.solve`` by the tree that runs first, before the host
+finish, and kept in ``--scan-inputs`` (``build/time_paths_scan.npz``).
+It gets its wall time per call (host clock to ``torch.cuda.synchronize()``,
+5 calls after one warm-up) and its device time from torch.profiler (one
+call), with ``n * max / min`` of the instance's nonzero stored GB: the
+float64 usage sums are exact while that stays at or under 2**28.
+``--scan-only`` times the dual ascent alone (no build, prefill, steps or
+kernels).
+
 Prints, as its last line, one JSON object: the tree, the card's name and
-``nvidia-smi`` power limit, the prefill seconds, the step seconds and the
-kernel times.
+``nvidia-smi`` power limit, the prefill seconds, the step seconds, the
+kernel times and the dual ascent's times.
 
 To compare a parent tree with a change, run parent, change, change, parent
 in one command (each run is a process of its own), so that both see the
@@ -103,6 +117,74 @@ def placement_inputs(k2_path: Path, k1_path: Path):
     return k2, k1
 
 
+def scan_inputs(path: Path) -> dict:
+    """The dual ascent's arguments at chip_smoke.py's capacitated scale
+    instance, caught from ``PlacementEngine.solve`` once and kept in
+    ``path``."""
+    names = ("masked", "stored", "cap", "g_of_t", "gcap", "step0", "iters")
+    if not path.exists():
+        sys.path.insert(0, str(ROOT))
+        from chip_smoke import MC_SCHEMES, SCALE_N_CAP, _synthetic
+        from repro_torch.core import engine as E
+        from repro_torch.core import optassign
+        from repro_torch.core.costs import big3_table
+
+        class Caught(Exception):
+            pass
+
+        def catch(*a):
+            raise Caught(a)
+        big3 = big3_table()
+        cfg = E.ScopeConfig(schemes=MC_SCHEMES, months=6.0, device="cuda")
+        g = E.PlacementEngine(big3, cfg).solve(
+            _synthetic(E, big3, cfg, SCALE_N_CAP, SCALE_N_CAP))
+        az = big3.provider_names.index("azure")
+        use = float(g.stored_gb[big3.provider_of_tier[g.assignment.tier]
+                                == az].sum())
+        tab = big3_table(azure_capacity_gb=0.5 * use)
+        scan = optassign._lagrangian_scan
+        optassign._lagrangian_scan = catch
+        try:
+            E.PlacementEngine(tab, cfg).solve(
+                _synthetic(E, tab, cfg, SCALE_N_CAP, SCALE_N_CAP))
+            raise SystemExit("FAIL: the scale instance never reached the "
+                             "dual ascent")
+        except Caught as e:
+            args = e.args[0]
+        finally:
+            optassign._lagrangian_scan = scan
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(path, **dict(zip(names, args[:7])))
+    with np.load(path) as z:
+        return {k: z[k] for k in names}
+
+
+def scan_times(torch, a: dict) -> dict:
+    """The dual ascent's wall ms per call and device ms (torch.profiler),
+    with the exactness measure of its usage sums."""
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import device_ms
+    from repro_torch.core import optassign
+    dev = torch.device("cuda")
+    fn = lambda: optassign._lagrangian_scan(
+        a["masked"], a["stored"], a["cap"], a["g_of_t"], a["gcap"],
+        float(a["step0"]), int(a["iters"]), dev)
+    wall = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:                                   # the first warms up
+            wall.append(1e3 * (time.perf_counter() - t0))
+    s = a["stored"].astype(np.float32)
+    s = s[s > 0]
+    return {"N": int(a["masked"].shape[0]), "iters": int(a["iters"]),
+            "wall_ms": wall, "device_ms": device_ms(fn, torch, iters=1)[0],
+            "n_max_over_min": float(a["masked"].shape[0] * s.max()
+                                    / s.min())}
+
+
 def kernel_times(torch, fn) -> dict:
     """{"ms": mean per call between CUDA events over 50 calls, "device_ms":
     device time per call from torch.profiler over 20 calls} (chip_smoke.py's
@@ -122,6 +204,9 @@ def main() -> int:
                                                / "time_paths_k1.npz"))
     ap.add_argument("--k4-inputs", default=str(ROOT / "build"
                                                / "time_paths_k4.npy"))
+    ap.add_argument("--scan-inputs", default=str(ROOT / "build"
+                                                 / "time_paths_scan.npz"))
+    ap.add_argument("--scan-only", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -130,6 +215,15 @@ def main() -> int:
     os.environ["REPRO_TORCH_BUILD_DIR"] = str(src.parent / "build"
                                               / "time_paths")
     sys.path.insert(0, str(src))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    scan = scan_times(torch, scan_inputs(Path(args.scan_inputs)))
+    if args.scan_only:
+        print(json.dumps({"src": str(src),
+                          "device": torch.cuda.get_device_name(0),
+                          "nvidia_smi": smi, "scan": scan}))
+        return 0
     from repro_torch.configs.registry import get_config
     from repro_torch.data.loader import TieredDataLoader, write_token_shards
     from repro_torch.core import datapart as dp
@@ -212,12 +306,10 @@ def main() -> int:
     shard = torch.as_tensor(np.load(k4_path), device=dev)
     kernels["K4 4 MiB of trained bf16 params"] = kernel_times(
         torch, lambda: ef.byte_entropy_kernel(shard))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
     print(json.dumps({"src": str(src), "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi, "prefill_s": prefill_s,
-                      "step_s": res.step_s[1:], "kernels": kernels}))
+                      "step_s": res.step_s[1:], "kernels": kernels,
+                      "scan": scan}))
     return 0
 
 
