@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: SCOPe's placement
 path, its re-optimization under drift, streaming placement, access
-forecasting and the multi-tenant fleet solver, zamba2-2.7b serving and
-zamba2-2.7b training.
+forecasting and the multi-tenant fleet solver, the re-optimization daemon
+with its async migrator under injected faults, zamba2-2.7b serving and
+zamba2-2.7b training with SCOPe-managed checkpoints.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -99,6 +100,27 @@ non-zero (with no result line):
             cells) and, uncoupled, to the per-tenant solves; the scan's
             device time (torch.profiler, outside the timed run), its
             operations on the card, the host finish, peak device memory.
+10. daemon  runs after phase 9; each part on cuda and on cpu, its lines
+            ending with the card's name and power limit, then its seconds.
+            (1) ``benchmarks/bench_daemon.py``'s batch section (N 500,
+            Azure, tiers 0-3, schemes none/lz4, 6 drift cycles and 4
+            quiet), unbudgeted and at the bench's cap: identical reports
+            and plans on cuda and cpu (cents within rel 1e-6), the capped
+            spend at or under its cap every cycle. (2) The bench's large
+            stream (760 datasets, 18 months, seed 7, uncompressed, drift
+            threshold 0.5, ``rho_abs_tol`` 1.0) unbudgeted, at its
+            ``tight`` and ``below_max_move`` caps: ms a cycle, cumulative
+            cents against unbudgeted, moves, deferrals; cuda and cpu
+            identical. (3) A fleet daemon over bench_fleet's engine tenants
+            at T 64 (mean N 24), one shared knapsack at 40% of the
+            unbudgeted peak, which binds. (4) ``bench_migrator.py``'s 96
+            partitions (R from the payloads, D fixed per codec), its plan
+            solved on cuda and on cpu (identical moves): zero faults give
+            the store ``store.migrate`` gives; ``ChaosStore(seed=3)`` at
+            ``p_transient`` 0.05, 0.2 and 0.4 with ``max_attempts`` 5 and no
+            sleeping commits every move, its bill the fault-free bill plus
+            the retry cents; the replan loop under ``p_permanent=1.0,
+            seed=5`` converges (cycles, failed cents).
 6. serve    zamba2-2.7b at full width and depth (54 Mamba2 layers, one
             shared attention block used 9 times), bfloat16, random weights
             from ``torch.Generator(device="cuda").manual_seed(0)``, 4 random
@@ -134,7 +156,20 @@ non-zero (with no result line):
             ``deq + err_new`` against ``g + err_old`` (1e-6); in float32
             with the stages cut to one repeat unit, the loss and gradients
             through the kernels against those through the plain versions
-            (rel 1e-4 and normwise 1e-3). Runs after phase 6, before 5.
+            (rel 1e-4 and normwise 1e-3). After the five steps, a
+            checkpoint step: a cut of the trained state (the first repeat
+            unit's leaves of the parameters and of AdamW's state up to
+            750 MB; the full state's bytes printed beside it) saved
+            through ``CheckpointManager(device="cuda")`` and restored onto
+            the card bit for bit, every shard's sha256 checked (shards by
+            (tier, codec), metered cents, save and restore seconds); the
+            greedy (tier, codec) choice on cuda and on cpu from one
+            measurement, identical; the lifecycle over three saves under
+            Azure's prices (nothing moves: Archive is past the 120 s SLA)
+            and ten under GCS's (older checkpoints move cooler, identically
+            on cuda and cpu). Last, ``repro_torch.launch.train --smoke
+            --ckpt-every 2 --steps 4`` on the card exits 0 with a
+            ``ckpt bill:`` line. Runs after phase 6, before 5.
 5. kernels  each kernel against its plain version on the card, at the
             shapes the main and serve paths gave it (recorded during phases
             3 and 6) plus edge cases, K5 and K7 through both routes
@@ -1810,6 +1845,409 @@ def phase_stream(torch, parts, rows, forest, smi_line):
     say("stream", f"phase stream took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ------------------------------------------------------------- daemon phase
+DAEMON_BATCH_N = 500                 # bench_daemon's batch section
+DAEMON_TRACE = (760, 18, 7)          # bench_daemon's "large" trace
+DAEMON_FLEET_T, DAEMON_FLEET_MEAN_N = 64, 24    # bench_fleet's T 64 fleet
+MIGRATOR_N = 96                      # bench_migrator's partitions
+MIGRATOR_P = (0.05, 0.2, 0.4)        # bench_migrator's transient rates
+# faults per (op, key): the bench's 3 lets a re-encode (a get, then a
+# replace) fail 6 times, past max_attempts 5; at 2 every move must commit
+MIGRATOR_MAX_FAULTS = 2
+MIGRATOR_SCHEMES = ("none", "zlib-1", "lzma-1")
+# decompression seconds per GB, fixed per codec: a truth-mode solve times
+# decompression on the wall clock, so two devices would see other D
+MIGRATOR_DSPEED = {"zlib-1": 2.0, "lzma-1": 12.0}
+REPLAN_CYCLES = 8
+REPORT_COUNTS = ("n_partitions", "n_candidates", "n_selected", "n_deferred",
+                 "max_deferral_age", "n_tenants", "n_failed")
+REPORT_CENTS = ("spent_cents", "steady_cents", "migration_cents",
+                "egress_cents", "penalty_cents", "moved_gb",
+                "installment_cents", "prepaid_used_cents", "retry_cents",
+                "failed_cents", "attempted_cents")
+
+
+def _same_reports(a, b, what):
+    """Two daemons' cycle reports: identical counts, cents within rel 1e-6.
+    Returns the largest relative cents difference."""
+    check(len(a) == len(b), f"{what}: {len(a)} and {len(b)} cycles")
+    worst = 0.0
+    for i, (x, y) in enumerate(zip(a, b)):
+        for f in REPORT_COUNTS:
+            check(getattr(x, f) == getattr(y, f),
+                  f"{what}, cycle {i}: {f} {getattr(x, f)} against "
+                  f"{getattr(y, f)} between cuda and cpu")
+        for f in REPORT_CENTS:
+            u, v = getattr(x, f), getattr(y, f)
+            r = abs(u - v) / abs(v) if v else abs(u)
+            check(r <= 1e-6, f"{what}, cycle {i}: {f} differs by rel {r}")
+            worst = max(worst, r)
+    return worst
+
+
+def _charges(mig):
+    return (mig.move_transfer_cents + mig.move_egress_cents
+            + mig.move_penalty_cents)
+
+
+def _cum(reps):
+    return sum(r.steady_cents + r.spent_cents for r in reps)
+
+
+def _daemon_batch(torch, E, dm, table, dev):
+    """``bench_daemon.py``'s batch section on ``dev``: the plan, its cycles,
+    the bench's cap, and the unbudgeted and capped daemons with their
+    seconds."""
+    N = DAEMON_BATCH_N
+    cfg = E.ScopeConfig(tier_whitelist=(0, 1, 2, 3), schemes=("none", "lz4"),
+                        device=dev)
+    rng = np.random.default_rng(N)
+    spans = rng.lognormal(0.0, 1.2, N) * 2.0
+    rho = rng.gamma(0.7, 25.0, N)
+    R = np.concatenate([np.ones((N, 1)), rng.uniform(1.2, 6.0, (N, 1))], 1)
+    D = np.concatenate([np.zeros((N, 1)),
+                        rng.uniform(0.01, 2.0, (N, 1)) * spans[:, None]], 1)
+    eng = E.PlacementEngine(table, cfg)
+    plan0 = eng.solve(E.PlacementProblem(
+        spans_gb=spans, rho=rho, current_tier=np.full(N, -1), R=R, D=D,
+        schemes=cfg.schemes, table=table, cfg=cfg))
+    rng = np.random.default_rng(N + 1)
+    cycles, r = [], plan0.problem.rho.copy()
+    for _ in range(6):
+        r = r.copy()
+        hot = rng.random(N) < 0.05
+        cold = ~hot & (rng.random(N) < 0.05)
+        r[hot] *= rng.uniform(20.0, 100.0, int(hot.sum()))
+        r[cold] /= rng.uniform(20.0, 100.0, int(cold.sum()))
+        cycles.append(r.copy())
+    cycles += [cycles[-1]] * 4          # quiet tail: deferred moves drain
+    cur, held = plan0, np.zeros(N)
+    per_move, per_cycle = [0.0], [0.0]
+    for rho in cycles:
+        mig = eng.reoptimize(cur, rho, months_held=held + 1.0)
+        held = np.where(mig.moved, 0.0, held + 1.0)
+        cur = mig.plan
+        per_move.append(float(_charges(mig).max()))
+        per_cycle.append(mig.total_move_cents)
+    cap = max(1.05 * max(per_move), 0.35 * max(per_cycle))
+    out = {}
+    for name, budget in (("unbudgeted", dm.MigrationBudget()),
+                         ("capped", dm.MigrationBudget(cents_per_cycle=cap))):
+        d = dm.ReoptimizationDaemon(eng, plan=plan0, budget=budget)
+        t0 = time.perf_counter()
+        d.run(cycles, months=1.0)
+        torch.cuda.synchronize()
+        out[name] = (d, time.perf_counter() - t0)
+    return out, cap, len(cycles)
+
+
+def _daemon_stream(torch, E, dm, table, sizes, batches, dev, budget,
+                   collect=False):
+    """``bench_daemon.py``'s ``_stream_run`` on ``dev``: the daemon, its
+    seconds and (``collect``: the unbudgeted run, read through the engine as
+    the bench reads it) the dearest single move's charge."""
+    cfg = E.ScopeConfig(use_compression=False, months=1.0, device=dev)
+    eng = E.StreamingEngine(table, cfg, sizes, drift_threshold=0.5,
+                            rho_abs_tol=1.0)
+    d = dm.ReoptimizationDaemon(eng, budget=budget)
+    per_move = 0.0
+    t0 = time.perf_counter()
+    for b in batches:
+        if collect:
+            mig = eng.ingest_and_reoptimize(b, months=1.0)
+            d._report(mig, mig.deferred, 0)
+            if mig.n_candidates:
+                per_move = max(per_move, float(_charges(mig).max()))
+        else:
+            d.step(b, months=1.0)
+    torch.cuda.synchronize()
+    return d, time.perf_counter() - t0, per_move
+
+
+def _migrator_plan(E, table, dev):
+    """``bench_migrator.py``'s ``_drifted`` on ``dev``, with R from the
+    payloads' true ratios and D fixed per codec."""
+    from repro_torch.storage.codecs import codec_by_name
+    N = MIGRATOR_N
+    rng = np.random.default_rng(11)
+    raws = [bytes([65 + i % 26]) * int(60_000 + 40_000 * rng.random())
+            for i in range(N)]
+    rho = 10.0 ** rng.uniform(-2, 3, N)
+    K = len(MIGRATOR_SCHEMES)
+    R, D = np.ones((N, K)), np.zeros((N, K))
+    for i, b in enumerate(raws):
+        for k, s in enumerate(MIGRATOR_SCHEMES[1:], 1):
+            R[i, k] = len(b) / len(codec_by_name(s).compress(b))
+            D[i, k] = MIGRATOR_DSPEED[s] * len(b) / 1e9
+    cfg = E.ScopeConfig(tier_whitelist=(0, 1, 2), months=2.0,
+                        schemes=MIGRATOR_SCHEMES, device=dev)
+    eng = E.PlacementEngine(table, cfg)
+    plan = eng.solve(E.PlacementProblem(
+        spans_gb=np.array([len(b) / 1e9 for b in raws]), rho=rho,
+        current_tier=np.full(N, -1), R=R, D=D,
+        schemes=list(MIGRATOR_SCHEMES), table=table, cfg=cfg,
+        partitions=[None] * N, raw_bytes=raws))
+    rho2 = plan.problem.rho * 10.0 ** rng.uniform(-3, 3, N)
+    return eng, plan, eng.reoptimize(plan, rho2, months_held=2.0)
+
+
+def _migrator_runs(torch, dm, eng, plan, mig):
+    """The three runs of ``bench_migrator.py`` on one plan: zero faults
+    against ``migrate`` (and four workers), transient faults at each rate,
+    the replan loop under permanent faults. Returns what they printed and
+    checked, for the cuda/cpu comparison."""
+    from repro_torch.core.migrator import AsyncMigrator, _meter_cents
+    from repro_torch.storage.chaos import ChaosStore
+    from repro_torch.storage.store import TieredStore
+
+    fields = ("storage_cents", "read_cents", "write_cents", "penalty_cents",
+              "egress_cents", "n_reads", "n_writes")
+    sig = lambda s: tuple(getattr(s.meter, f) for f in fields)
+    state = lambda s: {k: (o.payload, o.tier, o.codec, o.stored_gb,
+                           o.moved_month) for k, o in s._objs.items()}
+
+    def fresh():
+        s = TieredStore(eng.table)
+        keys = s.apply_plan(plan)
+        s.advance_months(2.0)
+        return s, keys
+
+    out = {"moves": mig.n_moved}
+    ref, keys = fresh()
+    t0 = time.perf_counter()
+    ref.migrate(mig, keys)
+    out["us_sync"] = (time.perf_counter() - t0) * 1e6 / max(mig.n_moved, 1)
+    for w in (1, 4):
+        s, keys = fresh()
+        t0 = time.perf_counter()
+        rep = AsyncMigrator(s, workers=w, sleep_fn=None).execute(mig, keys)
+        out[f"us_w{w}"] = (time.perf_counter() - t0) * 1e6 / max(
+            mig.n_moved, 1)
+        check(rep.n_committed == mig.n_moved and rep.n_failed == 0,
+              f"zero faults, {w} workers: {rep.n_committed} of "
+              f"{mig.n_moved} moves committed")
+        if w == 1:
+            check(sig(s) == sig(ref) and state(s) == state(ref),
+                  "zero faults, one worker: the store differs from "
+                  "store.migrate's")
+        else:
+            for f, a, b in zip(fields, sig(s), sig(ref)):
+                check(abs(a - b) <= 1e-9 * abs(b), f"four workers: {f} "
+                      f"{a!r} against migrate's {b!r}")
+    fault_free = _meter_cents(ref.meter)
+    out["chaos"] = []
+    for p in MIGRATOR_P:
+        s, keys = fresh()
+        ch = ChaosStore(s, seed=3, p_transient=p,
+                        max_faults_per_op=MIGRATOR_MAX_FAULTS)
+        t0 = time.perf_counter()
+        rep = AsyncMigrator(ch, max_attempts=5, sleep_fn=None).execute(
+            mig, keys)
+        us = (time.perf_counter() - t0) * 1e6 / max(mig.n_moved, 1)
+        bill = _meter_cents(s.meter)
+        check(rep.n_committed == mig.n_moved and rep.n_failed == 0,
+              f"p_transient {p}: {rep.n_committed} of {mig.n_moved} moves "
+              f"committed")
+        check(abs(bill - (fault_free + rep.retry_cents)) <= 1e-12,
+              f"p_transient {p}: bill {bill!r} against fault-free "
+              f"{fault_free!r} + retry {rep.retry_cents!r}")
+        out["chaos"].append((p, rep.n_attempts, ch.stats.n_faults,
+                             rep.retry_cents, float(bill), us))
+    s, keys = fresh()
+    ch = ChaosStore(s, seed=5, p_permanent=1.0, max_faults_per_op=1)
+    d = dm.ReoptimizationDaemon(
+        eng, plan=plan, store_keys=keys,
+        migrator=AsyncMigrator(ch, sleep_fn=None),
+        budget=dm.MigrationBudget(cents_per_cycle=np.inf))
+    rho2 = mig.plan.problem.rho
+    t0 = time.perf_counter()
+    for _ in range(REPLAN_CYCLES):
+        rep = d.step(rho2, months=1.0)
+        if rep.n_failed == 0 and rep.n_selected == 0:
+            break
+    out["replan_s"] = time.perf_counter() - t0
+    check(rep.n_failed == 0 and rep.n_selected == 0,
+          f"replan: not converged after {REPLAN_CYCLES} cycles")
+    out["replan"] = d.history
+    out["replan_state"] = state(s)
+    return out
+
+
+def phase_daemon(torch, smi_line):
+    """The re-optimization daemon in its three modes, the async migrator
+    and chaos injection (phase 10), each part on cuda and on cpu."""
+    from repro_torch.core import daemon as dm
+    from repro_torch.core import engine as E
+    from repro_torch.core.costs import azure_table
+    from repro_torch.core.fleet import FleetEngine
+    from repro_torch.data import workloads as wl
+    card = f"| {smi_line}"
+    t_phase = time.perf_counter()
+    table = azure_table()
+
+    # 1. bench_daemon's batch section
+    t_part = time.perf_counter()
+    runs = {dev: _daemon_batch(torch, E, dm, table, dev)
+            for dev in (CARD, "cpu")}
+    (res, cap, n_cyc), (res_cpu, cap_cpu, _) = runs[CARD], runs["cpu"]
+    check(cap == cap_cpu, f"batch cap {cap!r} on cuda, {cap_cpu!r} on cpu")
+    for name in res:
+        rel = _same_reports(res[name][0].history, res_cpu[name][0].history,
+                            f"batch daemon, {name}")
+        _same_plan(res[name][0].plan, res_cpu[name][0].plan,
+                   f"batch daemon, {name}")
+        h = res[name][0].history
+        if name == "capped":
+            worst = max(r.spent_cents for r in h)
+            check(all(r.spent_cents <= cap + 1e-9 for r in h),
+                  f"batch daemon: spend {worst!r} over the cap {cap!r}")
+        say("daemon", f"batch (bench_daemon's batch section: N "
+            f"{DAEMON_BATCH_N}, Azure, tiers 0-3, none/lz4, 6 drift cycles "
+            f"and 4 quiet) {name}"
+            + (f", cap {cap!r} cents a cycle, most spent {worst!r}"
+               if name == "capped" else "")
+            + f": {1e3 * res[name][1] / n_cyc:.2f} ms/cycle on cuda, "
+            f"{1e3 * res_cpu[name][1] / n_cyc:.2f} on cpu; cumulative "
+            f"{_cum(h)!r} cents ("
+            + (f"{100 * (_cum(h) / _cum(res['unbudgeted'][0].history) - 1):+.3f}"
+               f"% against unbudgeted, " if name == "capped" else "")
+            + f"{sum(r.n_selected for r in h)} moves, "
+            f"{sum(r.n_deferred for r in h)} deferrals); cuda and cpu "
+            f"identical reports and plans, cents rel {rel:.3e} {card}")
+    say("daemon", f"part 1 (batch) took {time.perf_counter() - t_part:.1f} s")
+
+    # 2. bench_daemon's large stream at three budgets
+    t_part = time.perf_counter()
+    n_ds, n_mo, seed = DAEMON_TRACE
+    w = wl.generate_workload(n_datasets=n_ds, n_months=n_mo, seed=seed)
+    sizes = wl.dataset_file_sizes(w)
+    batches = [b for b in wl.stream_query_log(w, np.random.default_rng(seed))
+               if b]
+    unb = {dev: _daemon_stream(torch, E, dm, table, sizes, batches, dev,
+                               dm.MigrationBudget(), collect=True)
+           for dev in (CARD, "cpu")}
+    per_move = unb[CARD][2]
+    check(per_move == unb["cpu"][2], "stream: the dearest move differs")
+    max_spend = max(r.spent_cents for r in unb[CARD][0].history)
+    cum_unb = _cum(unb[CARD][0].history)
+    caps = {"unbudgeted": None,
+            "tight": min(1.05 * per_move, 0.999 * max_spend),
+            "below_max_move": 0.5 * per_move}
+    for name, c in caps.items():
+        got = unb if c is None else {
+            dev: _daemon_stream(torch, E, dm, table, sizes, batches, dev,
+                                dm.MigrationBudget(cents_per_cycle=c))
+            for dev in (CARD, "cpu")}
+        rel = _same_reports(got[CARD][0].history, got["cpu"][0].history,
+                            f"stream daemon, {name}")
+        h = got[CARD][0].history
+        worst = max(r.spent_cents for r in h)
+        if c is not None:
+            check(worst <= c + 1e-9,
+                  f"stream daemon, {name}: spend {worst!r} over {c!r}")
+        say("daemon", f"stream (bench_daemon's large trace: {n_ds} datasets, "
+            f"{n_mo} months, seed {seed}; uncompressed, drift threshold 0.5, "
+            f"rho_abs_tol 1.0) {name}"
+            + (f" (cap {c!r} cents)" if c is not None else "")
+            + f": {len(h)} cycles, {1e3 * got[CARD][1] / len(h):.2f} ms/cycle "
+            f"on cuda, {1e3 * got['cpu'][1] / len(h):.2f} on cpu; "
+            f"cumulative {_cum(h)!r} cents "
+            f"({100 * (_cum(h) / cum_unb - 1):+.3f}% against unbudgeted), "
+            f"{sum(r.n_selected for r in h)} moves, "
+            f"{sum(r.n_deferred for r in h)} deferrals, oldest "
+            f"{max(r.max_deferral_age for r in h)} cycles, most spent "
+            f"{worst!r}; cuda and cpu identical, cents rel {rel:.3e} {card}")
+    say("daemon", f"part 2 (stream) took {time.perf_counter() - t_part:.1f} s")
+
+    # 3. a fleet daemon with a shared budget that binds
+    t_part = time.perf_counter()
+    T, mean_n = DAEMON_FLEET_T, DAEMON_FLEET_MEAN_N
+    rng = np.random.default_rng(T + 1)
+    fleets = {}
+    for dev in (CARD, "cpu"):
+        cfg = E.ScopeConfig(schemes=("none", "lz4"), device=dev)
+        fe = FleetEngine(table, cfg)
+        fleets[dev] = (fe, fe.solve(_engine_problems(E, T, mean_n, table,
+                                                     cfg, seed=T)).plans)
+    rhos = [p.problem.rho for p in fleets[CARD][1]]
+    cycles = []
+    for _ in range(6):
+        rhos = [r * rng.choice([0.02, 1.0, 1.0, 40.0], r.shape[0])
+                for r in rhos]
+        cycles.append(rhos)
+    cycles += [cycles[-1]] * 2
+    fe, plans = fleets[CARD]
+    d = dm.ReoptimizationDaemon(fe, plans=plans)
+    d.run(cycles, months=1.0)
+    fcap = 0.4 * max(r.spent_cents for r in d.history)
+    got = {}
+    for dev, (fe, plans) in fleets.items():
+        d = dm.ReoptimizationDaemon(
+            fe, plans=plans, budget=dm.MigrationBudget(cents_per_cycle=fcap))
+        t0 = time.perf_counter()
+        d.run(cycles, months=1.0)
+        torch.cuda.synchronize()
+        got[dev] = (d, time.perf_counter() - t0)
+    rel = _same_reports(got[CARD][0].history, got["cpu"][0].history,
+                        "fleet daemon")
+    for a, b in zip(got[CARD][0].plans, got["cpu"][0].plans):
+        _same_plan(a, b, "fleet daemon")
+    h = got[CARD][0].history
+    worst = max(r.spent_cents for r in h)
+    check(worst <= fcap + 1e-9 and any(r.n_deferred for r in h),
+          f"fleet daemon: spend {worst!r} against the shared cap {fcap!r}, "
+          f"{sum(r.n_deferred for r in h)} deferrals (the cap must bind)")
+    say("daemon", f"fleet T {T} (bench_fleet's engine tenants, mean N "
+        f"{mean_n}, {h[0].n_partitions:,} partitions; 6 drift cycles, 2 "
+        f"quiet), one shared knapsack, cap {fcap!r} cents a cycle (40% of "
+        f"the unbudgeted peak): {1e3 * got[CARD][1] / len(h):.2f} ms/cycle "
+        f"on cuda, {1e3 * got['cpu'][1] / len(h):.2f} on cpu; "
+        f"{sum(r.n_selected for r in h)} moves, "
+        f"{sum(r.n_deferred for r in h)} deferrals, most spent {worst!r}; "
+        f"cuda and cpu identical, cents rel {rel:.3e} {card}")
+    say("daemon", f"part 3 (fleet) took {time.perf_counter() - t_part:.1f} s")
+
+    # 4. bench_migrator's 96 partitions: zero faults, chaos, replan
+    t_part = time.perf_counter()
+    outs = {}
+    for dev in (CARD, "cpu"):
+        eng, plan, mig = _migrator_plan(E, table, dev)
+        outs[dev] = (mig, _migrator_runs(torch, dm, eng, plan, mig))
+    (mc, oc), (mp, op_) = outs[CARD], outs["cpu"]
+    _same_migration(mc, mp, "migrator plan")
+    check([c[:5] for c in oc["chaos"]] == [c[:5] for c in op_["chaos"]],
+          "migrator chaos runs differ between cuda's and cpu's plans")
+    rel = _same_reports(oc["replan"], op_["replan"], "replan daemon")
+    check(oc["replan_state"] == op_["replan_state"],
+          "replan: the stores differ between cuda's and cpu's plans")
+    n = oc["moves"]
+    say("daemon", f"migrator (bench_migrator's {MIGRATOR_N} partitions, R "
+        f"from the payloads, D fixed per codec {MIGRATOR_DSPEED}): {n} "
+        f"moves; zero faults: store and meter identical to store.migrate; "
+        f"us/move migrate {oc['us_sync']:.1f}, async 1 worker "
+        f"{oc['us_w1']:.1f}, 4 workers {oc['us_w4']:.1f} (cuda's plan; "
+        f"cpu's {op_['us_sync']:.1f} / {op_['us_w1']:.1f} / "
+        f"{op_['us_w4']:.1f}) {card}")
+    for p, att, faults, retry, bill, us in oc["chaos"]:
+        say("daemon", f"migrator, ChaosStore(seed=3, p_transient={p}, "
+            f"max_faults_per_op={MIGRATOR_MAX_FAULTS}), max_attempts 5, no "
+            f"sleeping: all {n} moves committed in {att} "
+            f"attempts ({att / n:.3f} a move), {faults} faults; bill "
+            f"{bill!r} cents = fault-free + retry {retry!r}; {us:.1f} us/move "
+            f"{card}")
+    h = oc["replan"]
+    say("daemon", f"migrator, replan under ChaosStore(p_permanent=1.0, "
+        f"seed=5, one fault per op): converged in {len(h)} cycles "
+        f"({[r.n_failed for r in h]} failed moves a cycle), failed "
+        f"{sum(r.failed_cents for r in h)!r} cents, attempted "
+        f"{sum(r.attempted_cents for r in h)!r} cents, "
+        f"{1e3 * oc['replan_s'] / len(h):.2f} ms/cycle; cuda's and cpu's "
+        f"plans give identical reports and stores, cents rel {rel:.3e} "
+        f"{card}")
+    say("daemon", f"part 4 (migrator) took {time.perf_counter() - t_part:.1f} s")
+    say("daemon", f"phase daemon took {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------- serve phase
 # bf16 keeps 8 significant bits; over 63 blocks two bf16 evaluations that
 # round in other places give logits up to ~7% apart (7.2e-2 between prefill
@@ -2418,7 +2856,191 @@ def _one_unit(tr, params, cfg, torch):
     return cut, p
 
 
-def phase_train(torch):
+# the checkpoint step of phase train: a cut of the trained state (the
+# first repeat unit's leaves, whole, in order) until this many bytes. The
+# whole unit is about 1/9 of the state, and the host's zlib-1 writes
+# ~0.02 GB/s on the host of an NVIDIA H100 80GB HBM3 machine, so the
+# whole unit would take minutes to save where the save and restore
+# together should take under a minute
+CKPT_CUT_BYTES = 750_000_000
+CKPT_SMALL_BYTES = 4 << 20        # the later saves: 4 MiB of trained bf16
+CKPT_GCS_SAVES = 10               # saves under GCS prices (lifecycle moves)
+
+
+def _bits(torch, t):
+    """``t`` as integers of its width, for bit-exact comparison."""
+    return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}.get(
+        t.element_size(), torch.uint8)) if t.is_floating_point() else t
+
+
+def _ckpt_cut(state, limit):
+    """The first repeat unit's leaves of the parameters and of the AdamW
+    state (master, m, v, err), whole leaves in order until ``limit``
+    bytes: ``(tree, bytes, leaves)``."""
+    from repro_torch.training.optimizer import AdamWState
+    opt = state["opt"]
+    parts = {"params": state["params"], "master": opt.master, "m": opt.m,
+             "v": opt.v}
+    if opt.err is not None:
+        parts["err"] = opt.err
+    named = {k: dict(_named_leaves(v["stages"])) for k, v in parts.items()}
+    cut = {k: {} for k in parts}
+    total = 0
+    for name in named["params"]:
+        leaves = {k: named[k][name][0] for k in parts}
+        n = sum(t.numel() * t.element_size() for t in leaves.values())
+        if total and total + n > limit:
+            break
+        for k, t in leaves.items():
+            cut[k][name] = t
+        total += n
+    tree = {"params": cut["params"],
+            "opt": AdamWState(step=opt.step, master=cut["master"],
+                              m=cut["m"], v=cut["v"], err=cut.get("err"))}
+    return tree, total, len(cut["params"])
+
+
+def _lifecycle_tiers(mgr):
+    """Mean stored tier of each retained checkpoint, oldest first."""
+    return [float(np.mean([mgr.store.tier_of(m["key"])
+                           for m in mgr._manifests[s]["shards"]]))
+            for s in sorted(mgr._manifests)]
+
+
+def _train_checkpoint(torch, tr, state, smi_line):
+    """Phase train's checkpoint step: save a full-width cut of the trained
+    state through ``CheckpointManager`` on the card, restore it bit for
+    bit, the greedy choice on cuda against cpu, the lifecycle."""
+    from collections import Counter
+
+    from repro_torch.checkpoint import manager as cm
+    from repro_torch.core import costs
+    from repro_torch.storage.store import TieredStore
+    card = f"| {smi_line}"
+    opt = state["opt"]
+    full = sum(t.numel() * t.element_size() for t in tr.tree_leaves(
+        [state["params"], opt.master, opt.m, opt.v,
+         {} if opt.err is None else opt.err]))
+    cut, nbytes, n_leaves = _ckpt_cut(state, CKPT_CUT_BYTES)
+    say("train", f"checkpoint: reduced: the first repeat unit's first "
+        f"{n_leaves} leaves of the parameters and of AdamW's master, m, v "
+        f"and err ({nbytes:,} bytes) of the full state's {full:,} (the "
+        f"whole unit, 1/9 of it, would take minutes of host zlib); shards "
+        f"of {cm.SHARD_BYTES >> 20} MiB, {cm.SAMPLE_BYTES >> 10} KiB "
+        f"samples, codecs {cm.CANDIDATE_CODECS}")
+    store = TieredStore()
+    mgr = cm.CheckpointManager(store, device=CARD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, cut)
+    t_taken = time.perf_counter() - t0
+    mgr.wait()
+    t_save = time.perf_counter() - t0
+    shards = mgr._manifests[1]["shards"]
+    stored = sum(store.stored_gb(s["key"]) for s in shards)
+    cells = Counter((s["tier"], s["codec"]) for s in shards)
+    say("train", f"checkpoint save: {len(shards)} shards, by (tier, codec) "
+        f"{dict(sorted(cells.items()))}; {stored:.6f} GB stored of "
+        f"{nbytes / 1e9:.6f} raw; metered "
+        f"{ {k: float(v) for k, v in store.meter.as_dict().items() if v} }; "
+        f"{t_save:.2f} s ({nbytes / 1e9 / t_save:.4f} GB/s), of which "
+        f"{t_taken:.2f} s before save() returned (copy to the host, samples, "
+        f"greedy choice on the card) {card}")
+
+    reads = store.meter.n_reads
+    t0 = time.perf_counter()
+    out, step = mgr.restore(cut, device=CARD)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    check(step == 1 and store.meter.n_reads - reads == len(shards),
+          f"restore read {store.meter.n_reads - reads} of {len(shards)} "
+          f"shards")
+    pairs = list(zip(cm._leaf_paths(cut), cm._leaf_paths(out)))
+    bad = [p for (p, a), (q, b) in pairs
+           if p != q or a.dtype != b.dtype or a.shape != b.shape
+           or b.device.type != torch.device(CARD).type
+           or not torch.equal(_bits(torch, a), _bits(torch, b))]
+    check(not bad, f"restored leaves differ: {bad[:5]}")
+    say("train", f"checkpoint restore onto cuda: {len(pairs)} leaves "
+        f"bit-identical to the trained state, each of the {len(shards)} "
+        f"shards' sha256 verified; {t_restore:.2f} s "
+        f"({nbytes / 1e9 / t_restore:.4f} GB/s); save and restore "
+        f"{t_save + t_restore:.2f} s {card}")
+    del out, pairs
+
+    _, blobs = cm.shard_tree(cut)
+    t0 = time.perf_counter()
+    spans, R, D = cm.CheckpointManager.measure_shards([b for _, _, b in blobs])
+    t_meas = time.perf_counter() - t0
+    rho = cm._restore_rate(0)
+    got = {}
+    for dev in (CARD, "cpu"):
+        m = cm.CheckpointManager(TieredStore(), device=dev)
+        t0 = time.perf_counter()
+        got[dev] = m.assign_shards(spans, R, D, rho)
+        torch.cuda.synchronize()
+        got[dev] += (time.perf_counter() - t0,)
+    check(np.array_equal(got[CARD][0], got["cpu"][0])
+          and got[CARD][1] == got["cpu"][1],
+          "the greedy (tier, codec) choice differs between cuda and cpu")
+    say("train", f"checkpoint greedy choice: {len(blobs)} shards measured "
+        f"once ({t_meas:.2f} s), the (tier, codec) of each identical on "
+        f"cuda ({1e3 * got[CARD][2]:.2f} ms) and cpu "
+        f"({1e3 * got['cpu'][2]:.2f} ms) {card}")
+    del blobs
+
+    small = {"embed": state["params"]["embed"].reshape(-1)[
+        :CKPT_SMALL_BYTES // state["params"]["embed"].element_size()]}
+    for s in (2, 3):
+        mgr.save(s, small, blocking=True)
+    az = _lifecycle_tiers(mgr)
+    check(all(a >= b for a, b in zip(az, az[1:])),
+          f"the lifecycle left an older checkpoint hotter: {az}")
+    gcs = {}
+    for dev in (CARD, "cpu"):
+        table = costs.multi_cloud_table([costs.gcp_gcs_provider()])
+        m = cm.CheckpointManager(TieredStore(table), device=dev, keep=12,
+                                 tier_whitelist=tuple(range(table.num_tiers)))
+        for s in range(CKPT_GCS_SAVES):
+            m.save(s, small, blocking=True)
+        gcs[dev] = _lifecycle_tiers(m)
+    g = gcs[CARD]
+    check(g == gcs["cpu"], f"lifecycle tiers differ: cuda {g}, cpu "
+          f"{gcs['cpu']}")
+    check(all(a >= b for a, b in zip(g, g[1:])) and g[0] > g[-1],
+          f"GCS lifecycle: older checkpoints not cooler: {g}")
+    say("train", f"checkpoint lifecycle: three saves under Azure (the cut, "
+        f"then 2 x {CKPT_SMALL_BYTES >> 20} MiB), mean tier oldest first "
+        f"{az}: nothing moves (Archive's first byte takes hours against the "
+        f"120 s SLA, and Cool is cheapest at every restore rate up to 4); "
+        f"{CKPT_GCS_SAVES} saves under GCS's prices, mean tier oldest first "
+        f"{g}: older checkpoints moved cooler, identically on cuda and cpu "
+        f"{card}")
+
+
+def _train_launcher(smi_line):
+    """``repro_torch.launch.train --ckpt-every 2 --steps 4`` on the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+           "--smoke", "--ckpt-every", "2", "--steps", "4", "--batch", "4",
+           "--seq", "64"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         cwd=ROOT, timeout=600)
+    secs = time.perf_counter() - t0
+    check(out.returncode == 0, f"{' '.join(cmd[1:])} exited "
+          f"{out.returncode}: {out.stderr[-3000:]}")
+    bill = re.search(r"^ckpt bill: (\{.*\})$", out.stdout, re.M)
+    cents = dict(re.findall(r"'(\w+)': (?:np\.float64\()?([-\d.e]+)",
+                            bill.group(1))) if bill else {}
+    check(float(cents.get("write_cents", 0)) > 0,
+          f"no ckpt bill with write cents: {out.stdout[-2000:]}")
+    check("done at step 4 on" in out.stdout, out.stdout[-2000:])
+    say("train", f"launcher: {' '.join(cmd[2:])} on the card exited 0 in "
+        f"{secs:.1f} s; {bill.group(0)} | {smi_line}")
+
+
+def phase_train(torch, smi_line):
     from repro_torch.configs.registry import get_config
     from repro_torch.data.loader import TieredDataLoader, write_token_shards
     from repro_torch.kernels import flash_attention as fa
@@ -2464,7 +3086,7 @@ def phase_train(torch):
 
     per_step = []
 
-    def on_step(i, m):
+    def on_step(i, _, m):
         per_step.append((dict(ops.launch_counts), dict(ops.route_counts)))
         ops.reset_launch_counts()
 
@@ -2493,6 +3115,9 @@ def phase_train(torch):
         f"{sum(steady) / len(steady):.4f} s, "
         f"{res.tokens * len(steady) / sum(steady):.1f} tokens/s; peak device "
         f"memory {peak:.3f} GB")
+    t0 = time.perf_counter()
+    _train_checkpoint(torch, tr, state, smi_line)
+    say("train", f"checkpoint step took {time.perf_counter() - t0:.1f} s")
 
     batches = loader.batches(epoch=0)
     batch = next(batches)
@@ -2626,6 +3251,7 @@ def phase_train(torch):
     check(e_grad[0] <= TOL_GRAD_F32, f"f32 grads kernel vs plain {e_grad}")
     del p32, g_k, g_p
     torch.cuda.empty_cache()
+    _train_launcher(smi_line)
     return out
 
 
@@ -2798,9 +3424,10 @@ def main() -> int:
     phase_cpu(torch, parts, rows, table, cfgs, cuda_runs)
     phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs, smi_line)
     phase_stream(torch, parts, rows, forest, smi_line)
+    phase_daemon(torch, smi_line)
     served = {}
     serve_launches = phase_serve(torch, served)
-    trained = phase_train(torch)
+    trained = phase_train(torch, smi_line)
     kernels = phase_kernels(torch, recorded, launches)
     kernels += phase_model_kernels(torch, served, serve_launches)
     kernels += phase_train_kernels(torch, trained)

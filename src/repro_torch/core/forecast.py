@@ -30,7 +30,7 @@ the ``budgeted_moves`` knapsack and min-stay deferral math:
 The module owns the *shared sanity layer* of every forecasting path:
 :func:`clamp_rho` and :func:`linear_trend_forecast` live here; the
 reference's ``core/daemon.py`` re-exports them (its default building
-block), and so will the port's daemon (ROADMAP queue 1 item 7).
+block), and so does the port's (:mod:`repro_torch.core.daemon`).
 
 Port of ``repro.core.forecast``: the labels' greedy argmin runs on the
 forecaster's ``device`` (default ``"cuda"``), the forest, the calibrator

@@ -11,10 +11,17 @@ shards of 32 rows), the same :class:`~repro_torch.data.loader.TieredDataLoader`
 order, random weights from seed 0 and ``TrainConfig(remat=not smoke)``, on
 ``--device`` (default ``cuda``). ``--data-mesh`` and ``--model-mesh`` take
 only 1 (one card). ``--compressed-grads`` turns on the int8 error-feedback
-gradient mean (the K3 kernel on the card). Checkpointing (``--ckpt-every``,
-``--resume``) is not ported yet and raises. Prints the loss and seconds per
-step every 5 steps and at the last, as the JAX launcher does, with the
-training tokens per second beside them.
+gradient mean (the K3 kernel on the card). ``--ckpt-every k`` saves the
+state every k steps through a
+:class:`~repro_torch.checkpoint.manager.CheckpointManager` on the data's
+store (greedy tier and codec choice on ``--device``), waits for the last
+write and prints the store's bill (``ckpt bill:``). ``--resume`` restores
+the latest checkpoint of that manager and continues from its step. As in
+the JAX launcher, the store is a fresh one in memory and the manager exists
+only with ``--ckpt-every``, so ``--resume`` in a new process finds nothing
+and starts at step 0. Prints the loss and seconds per step every 5 steps
+and at the last, as the JAX launcher does, with the training tokens per
+second beside them.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import get_config
 from repro_torch.data.loader import TieredDataLoader, write_token_shards
 from repro_torch.device import describe, resolve
@@ -55,16 +63,18 @@ def _sync(dev: torch.device) -> None:
 
 
 def train(cfg: ModelConfig, tcfg: ts.TrainConfig, state, loader, steps: int,
-          *, on_step: Optional[Callable[[int, dict], None]] = None,
+          *, start: int = 0,
+          on_step: Optional[Callable[[int, dict, dict], None]] = None,
           ) -> TrainResult:
-    """Run ``steps`` train steps from ``loader``'s batches (epoch ``i`` at
-    step ``i``, as the JAX launcher walks them). ``on_step(i, metrics)``
-    is called after step ``i`` (1-based), once the device is idle."""
+    """Run train steps ``start + 1`` to ``steps`` from ``loader``'s batches
+    (epoch ``i`` at step ``i``, as the JAX launcher walks them, a resumed
+    run included). ``on_step(i, state, metrics)`` is called after step
+    ``i`` (1-based), once the device is idle."""
     step_fn = ts.make_train_step(cfg, tcfg)
     dev = state["opt"].step.device
     losses, secs = [], []
     tokens = loader.batch * loader.seq
-    i = 0
+    i = start
     while i < steps:
         for batch in loader.batches(epoch=i):
             if i >= steps:
@@ -78,11 +88,12 @@ def train(cfg: ModelConfig, tcfg: ts.TrainConfig, state, loader, steps: int,
             losses.append(loss)
             i += 1
             if on_step is not None:
-                on_step(i, m)
+                on_step(i, state, m)
             if i % LOG_EVERY == 0 or i == steps:
                 print(f"step {i} loss {loss:.4f} "
-                      f"({sum(secs) / i:.2f}s/step, "
-                      f"{tokens * i / sum(secs):.1f} tokens/s)", flush=True)
+                      f"({sum(secs) / len(secs):.2f}s/step, "
+                      f"{tokens * len(secs) / sum(secs):.1f} tokens/s)",
+                      flush=True)
     return TrainResult(state, losses, secs, tokens)
 
 
@@ -109,9 +120,6 @@ def main():
                                   "--data-mesh and --model-mesh take only 1 "
                                   "(distributed/ is not ported, ROADMAP.md "
                                   "queue 1 item 8)")
-    if args.ckpt_every or args.resume:
-        raise NotImplementedError("checkpointing (checkpoint/manager.py) is "
-                                  "not ported yet (ROADMAP.md queue 1 item 8)")
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve(args.device)
     tcfg = ts.TrainConfig(remat=not args.smoke,
@@ -121,13 +129,29 @@ def main():
     shards = write_token_shards(store, n_shards=16, rows=32, seq=args.seq,
                                 vocab=cfg.vocab_size)
     loader = TieredDataLoader(store, shards, batch=args.batch, seq=args.seq)
+    mgr = (CheckpointManager(store, device=dev) if args.ckpt_every
+           else None)
     state = ts.init_train_state(torch.Generator(device=dev).manual_seed(0),
                                 cfg, tcfg, device=dev)
-    res = train(cfg, tcfg, state, loader, args.steps)
+    start = 0
+    if args.resume and mgr and mgr.latest_step() is not None:
+        state, start = mgr.restore(state, device=dev)
+
+    def save(i, state, _):
+        if i % args.ckpt_every == 0:
+            mgr.save(i, state)
+
+    res = train(cfg, tcfg, state, loader, args.steps, start=start,
+                on_step=save if mgr else None)
     if not all(math.isfinite(x) for x in res.losses):
         raise RuntimeError(f"non-finite loss: {res.losses}")
-    print(f"done at step {len(res.losses)} on {describe(dev)['kind']}: "
-          f"{res.tokens_per_s:.1f} training tokens/s")
+    if mgr:
+        mgr.wait()
+        print("ckpt bill:", {k: round(v, 6) for k, v in
+                             store.meter.as_dict().items() if v})
+    print(f"done at step {start + len(res.losses)} on "
+          f"{describe(dev)['kind']}: {res.tokens_per_s:.1f} training "
+          f"tokens/s")
 
 
 if __name__ == "__main__":

@@ -7,7 +7,10 @@ takes, the one that turns a ``repro`` MLP's pytree into per-layer numpy
 (:func:`mlp_param_arrays`), the one that turns ``repro`` model parameters
 into the float32 numpy tree :func:`repro_torch.convert.model_params_from_arrays` takes, and
 the one for a ``repro`` training state
-(:func:`repro_torch.convert.train_state_from_arrays`).
+(:func:`repro_torch.convert.train_state_from_arrays`), and the shared
+fixtures of the daemon and migrator tests: real-payload placement problems
+(:func:`payload_plans`), a small stream with payloads
+(:func:`stream_engines`) and the store signatures they compare.
 """
 
 from typing import Dict, List
@@ -132,3 +135,108 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+#: decompression seconds per GB, fixed per codec. A truth-mode solve times
+#: decompression on the wall clock, so two of its runs differ; the
+#: migrator and daemon tests give both packages these instead.
+DET_DSPEED = {"zlib-1": 2.0, "lzma-1": 12.0}
+PAYLOAD_SCHEMES = ("none", "zlib-1", "lzma-1")
+
+
+def measured_rd(raws, schemes=PAYLOAD_SCHEMES):
+    """(R, D) of real payloads: each codec's true ratio (deterministic) and
+    its fixed decompression speed."""
+    from repro_torch.storage.codecs import codec_by_name
+    R = np.ones((len(raws), len(schemes)))
+    D = np.zeros((len(raws), len(schemes)))
+    for i, b in enumerate(raws):
+        for k, s in enumerate(schemes):
+            if s != "none":
+                R[i, k] = len(b) / max(len(codec_by_name(s).compress(b)), 1)
+                D[i, k] = DET_DSPEED[s] * len(b) / 1e9
+    return R, D
+
+
+def payload_plans(raws, rho, schemes=PAYLOAD_SCHEMES, **cfg_kw):
+    """``{pkg: (PlacementEngine, PlacementPlan)}`` for ``"j"`` (``repro``)
+    and ``"t"`` (the port on the CPU), both solved from one shared problem
+    over real payloads (``raw_bytes``, so a store can hold the plan)."""
+    from repro.core import costs as jcosts
+    from repro.core import engine as jeng
+    from repro_torch.core import costs as tcosts
+    from repro_torch.core import engine as teng
+    R, D = measured_rd(raws, schemes)
+    N = len(raws)
+    out = {}
+    for k, (eng, costs) in {"j": (jeng, jcosts), "t": (teng, tcosts)}.items():
+        kw = dict(cfg_kw, schemes=tuple(schemes))
+        if k == "t":
+            kw["device"] = "cpu"
+        table, cfg = costs.azure_table(), eng.ScopeConfig(**kw)
+        e = eng.PlacementEngine(table, cfg)
+        prob = eng.PlacementProblem(
+            spans_gb=np.array([len(b) / 1e9 for b in raws]),
+            rho=np.asarray(rho, np.float64).copy(),
+            current_tier=np.full(N, -1), R=R.copy(), D=D.copy(),
+            schemes=list(schemes), table=table, cfg=cfg,
+            partitions=[None] * N, raw_bytes=list(raws))
+        out[k] = (e, e.solve(prob))
+    return out
+
+
+#: six real payloads, their access rates and the drift that moves them:
+#: rho spread forces both tier moves and re-encodes
+PAYLOADS = [bytes([65 + i % 8]) * (200_000 + 50_000 * i) for i in range(6)]
+PAYLOAD_RHO = np.array([0.05, 0.1, 40.0, 0.02, 800.0, 5.0])
+
+
+def payload_drift(rho):
+    r = np.asarray(rho, np.float64).copy()
+    r[0] *= 5000.0
+    r[4] /= 5000.0
+    return r
+
+
+#: deterministic meter fields: compute and decompression time are
+#: wall-clock measured (as ``tests/test_migrator.py`` compares them)
+STORE_FIELDS = ("storage_cents", "read_cents", "write_cents",
+                "penalty_cents", "egress_cents", "n_reads", "n_writes")
+
+
+def meter_sig(store):
+    return tuple(getattr(store.meter, f) for f in STORE_FIELDS)
+
+
+def state_sig(store):
+    return {k: (o.payload, o.tier, o.codec, o.stored_gb, o.moved_month)
+            for k, o in store._objs.items()}
+
+
+SMALL_SIZES = {f"d{i}/{j}": 0.5 + 0.1 * j for i in range(6) for j in range(4)}
+_QUIET = [(("d0/0", "d0/1"), 400.0), (("d1/0", "d1/1", "d1/2"), 0.01),
+          (("d2/0", "d2/1"), 0.01)]
+_HOT = [(f, 500.0 if f[0][0] in "d1d2" else h) for f, h in _QUIET]
+#: two quiet batches, then d1 and d2 turn hot
+SMALL_CYCLES = [_QUIET, _QUIET, _HOT, _HOT, _HOT, _HOT]
+
+
+def stream_engines(sizes=SMALL_SIZES, **kw):
+    """``{pkg: StreamingEngine}`` (uncompressed, one month a batch), each on
+    its own state; without ``kw`` the small stream's settings."""
+    from repro.core import costs as jcosts
+    from repro.core import engine as jeng
+    from repro_torch.core import costs as tcosts
+    from repro_torch.core import engine as teng
+    kw = kw or dict(s_thresh=5.0, window=1, drift_threshold=np.inf)
+    return {k: eng.StreamingEngine(
+        costs.azure_table(), eng.ScopeConfig(
+            use_compression=False, months=1.0,
+            **({"device": "cpu"} if k == "t" else {})), dict(sizes), **kw)
+        for k, (eng, costs) in {"j": (jeng, jcosts),
+                                "t": (teng, tcosts)}.items()}
+
+
+def stream_payload(p):
+    """A partition's payload, from its file set (deterministic)."""
+    return b"Z" * (1000 * sum(ord(f[-1]) for f in sorted(p.files)))

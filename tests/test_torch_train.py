@@ -35,8 +35,11 @@ On smoke-size configs in float32 with ``repro``'s weights carried over by
   against ``repro``'s ``apply_updates`` on gradients small enough for
   both float32 norms to be exact to 1e-6;
 * the data path: ``write_token_shards`` and ``TieredDataLoader`` give the
-  same batches and the same metered bill as ``repro``'s;
-* the launcher runs on the CPU and prints finite losses.
+  same batches and the same metered bill as ``repro``'s, with the
+  straggler hedge out of reach and with its backup read forced;
+* the launcher runs on the CPU and prints finite losses; with
+  ``--ckpt-every`` it checkpoints and bills the store, and ``--resume``
+  with no checkpoint starts at step 0, as the JAX launcher does.
 """
 
 import functools
@@ -45,6 +48,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import jax
@@ -222,11 +226,18 @@ def test_global_norm_clip_matches_jax():
     assert got == pytest.approx(exact, rel=1e-6)
 
 
+#: a straggler budget no honest fetch reaches: the speculative backup read
+#: (a second ``store.get``) would otherwise fire on host load alone and
+#: land in one package's meter and not the other's
+NO_HEDGE = dict(straggler_factor=1e9, fetch_timeout_s=600.0)
+
+
 def test_token_shards_and_loader_match_jax():
     """The same shards, the same batches in the same order, and the same
     metered bill (cents, reads, writes, latency) as ``repro``'s. The
     decompression compute is wall-clock time in both stores, so it is
-    left out of the comparison."""
+    left out of the comparison. Both loaders run with the straggler hedge
+    out of reach, so each shard is read exactly once."""
     js, ts_ = JStore(), TStore()
     jk = jloader.write_token_shards(js, n_shards=6, rows=8, seq=16,
                                     vocab=500, seed=3)
@@ -234,10 +245,11 @@ def test_token_shards_and_loader_match_jax():
                                     vocab=500, seed=3)
     assert jk == tk and js.keys() == ts_.keys()
     for epoch in (0, 1):
-        jb = list(jloader.TieredDataLoader(js, jk, batch=4, seq=16)
-                  .batches(epoch=epoch))
-        tb = list(tloader.TieredDataLoader(ts_, tk, batch=4, seq=16)
-                  .batches(epoch=epoch))
+        jl = jloader.TieredDataLoader(js, jk, batch=4, seq=16, **NO_HEDGE)
+        tl = tloader.TieredDataLoader(ts_, tk, batch=4, seq=16, **NO_HEDGE)
+        jb, tb = list(jl.batches(epoch=epoch)), list(tl.batches(epoch=epoch))
+        assert jl.stats.speculative_retries == 0
+        assert tl.stats.speculative_retries == 0
         assert len(jb) == len(tb) == 12
         for a, b in zip(jb, tb):
             for k in ("tokens", "labels"):
@@ -250,6 +262,60 @@ def test_token_shards_and_loader_match_jax():
     jm, tm = js.meter.as_dict(), ts_.meter.as_dict()
     assert {k: jm[k] for k in exact} == {k: tm[k] for k in exact}
     assert tm["n_reads"] == 2 * 6 and tm["storage_cents"] > 0
+
+
+def _backup_first_loader(loader_mod, store, keys):
+    """A loader whose primary replica (0) answers only after the backup
+    (1) has: every fetch goes through the speculative retry, whatever the
+    host's load. Returns the loader and a wait for the primaries' reads."""
+    answered = {k: threading.Event() for k in keys}
+    done = threading.Semaphore(0)
+
+    def fetch(key, replica):
+        if replica == 1:
+            blob = store.get(key)
+            answered[key].set()
+            return blob
+        try:
+            assert answered[key].wait(60.0), f"no backup read of {key}"
+            return store.get(key)
+        finally:
+            done.release()
+
+    def primaries_done():
+        for _ in keys:
+            assert done.acquire(timeout=60.0), "a primary read never ended"
+
+    loader = loader_mod.TieredDataLoader(
+        store, keys, batch=4, seq=16, fetch_fn=fetch,
+        straggler_factor=0.0, fetch_timeout_s=1.0)
+    return loader, primaries_done
+
+
+def test_loader_backup_read_matches_jax():
+    """The straggler hedge forced in both packages: the same batches, one
+    speculative retry per shard, and once every primary read has landed
+    the same metered bill."""
+    js, ts_ = JStore(), TStore()
+    jk = jloader.write_token_shards(js, n_shards=6, rows=8, seq=16,
+                                    vocab=500, seed=5)
+    tk = tloader.write_token_shards(ts_, n_shards=6, rows=8, seq=16,
+                                    vocab=500, seed=5)
+    jl, j_done = _backup_first_loader(jloader, js, jk)
+    tl, t_done = _backup_first_loader(tloader, ts_, tk)
+    jb, tb = list(jl.batches(epoch=0)), list(tl.batches(epoch=0))
+    assert len(jb) == len(tb) == 12
+    for a, b in zip(jb, tb):
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(a[k], b[k])
+    assert jl.stats.speculative_retries == tl.stats.speculative_retries == 6
+    j_done()
+    t_done()
+    exact = ("read_cents", "write_cents", "ttfb_seconds", "n_reads",
+             "n_writes")
+    jm, tm = js.meter.as_dict(), ts_.meter.as_dict()
+    assert {k: jm[k] for k in exact} == {k: tm[k] for k in exact}
+    assert tm["n_reads"] == 2 * 6
 
 
 def test_train_launcher_runs_on_cpu():
@@ -265,8 +331,40 @@ def test_train_launcher_runs_on_cpu():
     assert "done at step 4 on cpu" in out.stdout
 
 
-@pytest.mark.parametrize("flag", [["--ckpt-every", "5"], ["--resume"],
-                                  ["--data-mesh", "2"]])
+def _launch(*flags):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "zamba2-2.7b", "--smoke", "--batch", "4", "--seq", "64", "--device",
+         "cpu", *flags], capture_output=True, text=True, env=env,
+        timeout=300, cwd=ROOT)
+
+
+def test_train_launcher_checkpoints_and_bills_storage():
+    """``--ckpt-every 2 --steps 4``: two saves through the
+    ``CheckpointManager``, then the store's bill, as the JAX launcher
+    prints it."""
+    out = _launch("--steps", "4", "--ckpt-every", "2")
+    assert out.returncode == 0, out.stderr
+    bill = re.search(r"^ckpt bill: (\{.*\})$", out.stdout, re.M)
+    assert bill, out.stdout
+    cents = {k: float(v) for k, v in
+             re.findall(r"'(\w+)': (?:np\.float64\()?([-\d.e]+)",
+                        bill.group(1))}
+    assert cents["write_cents"] > 0 and cents["n_writes"] > 0, cents
+    assert "done at step 4 on cpu" in out.stdout
+
+
+def test_train_launcher_resume_without_checkpoint_starts_at_zero():
+    """``--resume`` in a fresh process finds no checkpoint (the store is a
+    new one in memory, as in the JAX launcher) and trains from step 0."""
+    out = _launch("--steps", "2", "--resume")
+    assert out.returncode == 0, out.stderr
+    assert "done at step 2 on cpu" in out.stdout
+    assert "ckpt bill" not in out.stdout
+
+
+@pytest.mark.parametrize("flag", [["--data-mesh", "2"]])
 def test_train_launcher_refuses_what_is_not_ported(flag, monkeypatch):
     monkeypatch.setattr(sys, "argv", ["train", "--smoke", "--device", "cpu",
                                       *flag])
