@@ -2,8 +2,10 @@
 """Drive the PyTorch/CUDA port once on one NVIDIA GPU: SCOPe's placement
 path, its re-optimization under drift, streaming placement, access
 forecasting and the multi-tenant fleet solver, the re-optimization daemon
-with its async migrator under injected faults, zamba2-2.7b serving and
-zamba2-2.7b training with SCOPe-managed checkpoints.
+with its async migrator under injected faults, zamba2-2.7b serving, the
+model zoo's MLA, MoE, cross-attention and encoder models serving
+(deepseek-v2-lite-16b at full size), and zamba2-2.7b training with
+SCOPe-managed checkpoints.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -141,6 +143,29 @@ non-zero (with no result line):
             of kernel and plain prefills identical except where the plain
             logits of the two picks lie within twice the logits' error.
             This phase runs before phase 5, which uses the shapes it saw.
+11. zoo    runs after phase 6, before 7: deepseek-v2-lite-16b (full width
+            and depth: 27 layers, MLA, 64 experts top-6 + 2 shared),
+            whisper-small (full: 12 encoder + 12 decoder layers),
+            llama4-scout-17b-a16e (full width, 8 of 48 layers) and
+            llama-3.2-vision-90b (full width, 2 of 20 repeats: 10 layers),
+            one after another in bfloat16, each from seed 0 on the card and
+            freed before the next; contexts (4,100 patch embeddings,
+            1,500 frames) from ``launch/shapes.py``'s shapes, seeded. Per
+            config: a prefill of B 4 x 512 (whisper 128), K5 launched once
+            per attention block (twice per decoder block, plus the
+            encoder's); the serve loop (B 4, prompt 128, 32 new tokens:
+            159 decode steps, whisper's with its encoded frames), K5 and K6
+            counted at every step (K6 once per self-attention block, K5
+            once per cross-attention); logits finite, the bf16 prefill
+            within 0.15 of the same prefill through the plain versions and
+            greedy tokens equal except at near-ties; for deepseek one more
+            decode step with K6's latent mode (v read inside k) against
+            the plain version (0.15 on the logits, 2e-2 on K6's call, the
+            same bits twice); prefill seconds, ms a step, peak memory and
+            the card's busy share. Phase kernels then times K5 and K6 at
+            every shape the zoo gave them, and K6's latent mode at kv_len
+            4,096 too, against their bounds and SDPA; the kernel JSON line
+            carries these rows under "zoo".
 7. train    zamba2-2.7b at full width and depth, bfloat16, random weights
             from seed 0, ``TrainConfig(remat=True, compressed_grads=True)``
             with default AdamW; 16 Zipf token shards of 32 x 513 in the
@@ -436,6 +461,16 @@ def phase_build(build):
         f"{i6['smem_bytes']:,} bytes of shared memory per block, "
         f"{i6['stages']} stage(s) a warp; splits of {i6['split']} keys, "
         f"{i6['splits']} splits, plus one merge launch")
+    # K6's latent mode: deepseek-v2-lite's absorbed decode (phase zoo)
+    il = da.decode_attention_info(ZOO_PROMPT + ZOO_NEW + 1, 16, 1, 576, 512,
+                                  torch.bfloat16, B=ZOO_BATCH, aliased=True)
+    say("build", f"decode_attention split kernel in its latent mode (B "
+        f"{ZOO_BATCH}, S {ZOO_PROMPT + ZOO_NEW + 1}, 16 query heads of 576 "
+        f"on one KV head, v = its first 512 columns, bf16): "
+        f"{il['registers']} registers, {il['smem_bytes']:,} bytes of shared "
+        f"memory per block, {il['stages']} stage(s) a warp, {il['group']} "
+        f"query heads a block; splits of {il['split']} keys, "
+        f"{il['splits']} splits")
     # the main path's class 2 and class 1 shapes (V values, M codes)
     for V, M in ((15_005, 1_200_000), (583_182, 1_800_000)):
         i2 = ef.weighted_entropy_features_info(V, M=M)
@@ -2505,6 +2540,468 @@ def phase_serve(torch, recorded):
             "prefill_s": prefill_s, "step_ms": step_ms, "n_attn": n_attn}
 
 
+# --------------------------------------------------------------- zoo phase
+#: the four configs served after zamba2, one after another, each at full
+#: width: (arch, repeats kept per stage or None for full depth, prefill
+#: prompt length)
+ZOO = (("deepseek-v2-lite-16b", None, 512),
+       ("whisper-small", None, 128),          # its decoder publishes 448
+       ("llama4-scout-17b-a16e", 8, 512),     # 8 of 48 layers
+       ("llama-3.2-vision-90b", 2, 512))      # 2 of 20 repeats: 10 layers
+ZOO_BATCH, ZOO_PROMPT, ZOO_NEW = 4, 128, 32   # the serve loop: 159 steps
+ZOO_LATENT_KV = 4096        # K6's latent mode also timed at this kv_len
+#: K5 launches per block in a prefill, and K5 and K6 per block in a decode
+#: step, by block kind
+PREFILL_K5 = {"attn": 1, "attn_local": 1, "shared_attn": 1, "moe": 1,
+              "mla_dense": 1, "mla_moe": 1, "cross": 1, "decoder": 2}
+STEP_K5 = {"cross": 1, "decoder": 1}
+STEP_K6 = {"attn": 1, "attn_local": 1, "shared_attn": 1, "moe": 1,
+           "mla_dense": 1, "mla_moe": 1, "decoder": 1}
+
+
+def _route_recorder(moe_mod, seen):
+    """A ``moe.route`` that records each call's (router logits, experts)."""
+    route = moe_mod.route
+
+    def recording(logits, k):
+        v, i = route(logits, k)
+        seen.append((logits, i))
+        return v, i
+    return recording
+
+
+def _route_replay(seen):
+    """A ``moe.route`` that takes each call's experts from ``seen``, in
+    order: another run's routing, gated by this run's logits."""
+    it = iter(seen)
+
+    def replaying(logits, k):
+        _, i = next(it)
+        return logits.gather(-1, i), i
+    return replaying
+
+
+def _flips(a, b):
+    """(routing choices taken in run ``a`` and not in run ``b``, all
+    choices, the largest router-logit difference at a token whose choices
+    differ) over two runs' records. A choice can flip only where the
+    difference reaches the gap between the k-th and (k+1)-th logits."""
+    import torch
+    n = total = 0
+    worst = 0.0
+    for (la, ia), (lb, ib) in zip(a, b):
+        sa = torch.zeros_like(la, dtype=torch.bool).scatter_(-1, ia, True)
+        sb = torch.zeros_like(lb, dtype=torch.bool).scatter_(-1, ib, True)
+        n += int((sa & ~sb).sum())
+        total += ia.numel()
+        tok = (sa != sb).any(-1)
+        if bool(tok.any()):
+            worst = max(worst, float((la - lb).abs()[tok].max()))
+    return n, total, worst
+
+
+def _zoo_cfg(arch, keep):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.config import Stage
+    cfg = get_config(arch)
+    if keep is not None:
+        cfg = cfg.scaled(stages=tuple(Stage(s.unit, min(s.repeats, keep))
+                                      for s in cfg.stages))
+    return cfg
+
+
+def _per_block(stages, table):
+    return sum(s.repeats * sum(table.get(k, 0) for k in s.unit)
+               for s in stages or ())
+
+
+def _zoo_one(torch, arch, keep, P, smi_line, recorded):
+    """One config of phase zoo: weights from the seed, prefill (kernels
+    against plain versions), the serve loop with per-step launch counts,
+    busy shares; returns its numbers. The weights are freed by the
+    caller."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import shapes
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving.decode import make_decode_step, make_prefill_step
+
+    dev = torch.device(CARD)
+    cfg = _zoo_cfg(arch, keep)
+    full = _zoo_cfg(arch, None)
+    B, T = ZOO_BATCH, ZOO_NEW
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tr.init_params(g, cfg, device=CARD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_par = tr.param_count(params)
+    gb = sum(t.numel() * t.element_size() for t in tr.tree_leaves(params)) / 1e9
+    spec = shapes.input_specs(cfg, "prefill_32k").get("context")
+    ctx = None
+    if spec is not None:            # patch embeddings, or whisper's frames
+        ctx = torch.randn((B,) + tuple(spec.shape[1:]), generator=g,
+                          device=dev).to(spec.dtype)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(SEED + 1))
+    n_k5 = _per_block(cfg.stages, PREFILL_K5) + _per_block(
+        cfg.encoder_stages, PREFILL_K5)
+    step_k5, step_k6 = (_per_block(cfg.stages, STEP_K5),
+                        _per_block(cfg.stages, STEP_K6))
+    cut = (f"{cfg.n_layers} of {full.n_layers} layers" if keep else
+           f"full depth, {cfg.n_layers} layers"
+           + (f" + {_per_block(cfg.encoder_stages, {'attn': 1})} encoder"
+              if cfg.encoder_stages else ""))
+    say("zoo", f"{cfg.name}: {n_par:,} parameters, {gb:.3f} GB in "
+        f"{cfg.dtype} ({cut}; d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads of {cfg.head_dim}"
+        + (f", MLA latent {cfg.kv_lora_rank} + {cfg.qk_rope_dim}"
+           if cfg.kv_lora_rank else "")
+        + (f", {cfg.n_experts} experts top-{cfg.top_k} + "
+           f"{cfg.n_shared_experts} shared" if cfg.n_experts else "")
+        + (f", context {tuple(ctx.shape)} {str(ctx.dtype)[6:]}"
+           if ctx is not None else "")
+        + f"); random weights from seed {SEED} in {init_s:.1f} s")
+
+    def record(name, keep_first):
+        """``name`` recording its calls by shape (the first or the last
+        call of each) and counting them"""
+        def wrapped(*a, **k):
+            q, kk = a[0], a[1]
+            key = (name, tuple(q.shape), tuple(kk.shape), k.get("causal"))
+            if not keep_first or key not in recorded:
+                recorded[key] = (cfg.name, a, k)
+            calls[key] = calls.get(key, 0) + 1
+            return orig[name](*a, **k)
+        return wrapped
+
+    calls = {}
+
+    prefill = make_prefill_step(cfg)
+    prefill(params, prompts[:, :64], ctx)       # warm-up: library handles
+    torch.cuda.synchronize()
+    orig = _swap(ops, {"flash_attention": record("flash_attention", True),
+                       "decode_attention": record("decode_attention", False)})
+    seen_k, seen_p = [], []         # MoE routing of the kernel prefill, plain
+    try:
+        ops.reset_launch_counts()
+        orig_r = _swap(moe_mod, {"route": _route_recorder(moe_mod, seen_k)})
+        try:
+            t0 = time.perf_counter()
+            logits = prefill(params, prompts, ctx)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        finally:
+            _swap(moe_mod, orig_r)
+        pre_counts = dict(ops.launch_counts)
+        check(pre_counts == {"flash_attention": n_k5},
+              f"{cfg.name} prefill launches {pre_counts}, want "
+              f"flash_attention {n_k5}")
+        # the serve loop: K5 and K6 counted step by step
+        enc = ctx
+        if cfg.encoder_stages is not None:
+            with torch.no_grad():
+                enc = tr.encode(params, ctx, cfg)
+        step = make_decode_step(cfg)
+        per_step = []
+
+        def counted(*a):
+            ops.reset_launch_counts()
+            out = step(*a)
+            per_step.append(dict(ops.launch_counts))
+            return out
+
+        cache = tr.init_cache(cfg, B, max_seq=ZOO_PROMPT + T + 1, device=CARD)
+        res = serve(counted, params, cache, prompts[:, :ZOO_PROMPT], T,
+                    context=enc)
+    finally:
+        _swap(ops, orig)
+    want_step = {k: v for k, v in (("flash_attention", step_k5),
+                                   ("decode_attention", step_k6)) if v}
+    bad = [i for i, c in enumerate(per_step) if c != want_step]
+    steps = ZOO_PROMPT + T - 1
+    check(len(per_step) == steps and not bad,
+          f"{cfg.name}: {len(per_step)} decode steps, steps {bad[:5]} "
+          f"launched {[per_step[i] for i in bad[:5]]}, want {want_step}")
+    V = tr.padded_vocab(cfg)
+    check(tuple(logits.shape) == (B, P, V) and bool(logits.isfinite().all()),
+          f"{cfg.name} prefill logits not finite of ({B}, {P}, {V})")
+    check(bool(res.prompt_logits.isfinite().all())
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          f"{cfg.name} serve loop: logits not finite or tokens out of range")
+    loop_s = res.prompt_s + res.decode_s
+    step_ms = loop_s / steps * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # kernels against their plain versions: the same prefill. MoE routing
+    # is a discrete choice: a bf16 difference in the attention can flip a
+    # top-k pick, and the capacity then moves other tokens' slots, a jump
+    # that no tolerance on the kernels bounds. So an MoE model is compared
+    # free running (reported, with its flipped choices) and checked with
+    # the kernel run's routing replayed in the plain run.
+    def plain_prefill(route):
+        orig_p = _swap(ops, {"flash_attention": fa.flash_attention_plain})
+        orig_r = _swap(moe_mod, {"route": route})
+        try:
+            ops.reset_launch_counts()
+            out = prefill(params, prompts, ctx)
+            torch.cuda.synchronize()
+            check(not ops.launch_counts, f"{cfg.name}: a plain prefill "
+                  f"launched {dict(ops.launch_counts)}")
+        finally:
+            _swap(ops, orig_p)
+            _swap(moe_mod, orig_r)
+        return out
+
+    plain = plain_prefill(_route_recorder(moe_mod, seen_p))
+    err_free = _normwise(logits, plain)
+    free = None
+    if seen_k:
+        free = (err_free, len(_near_ties(logits, plain))) + _flips(seen_k,
+                                                                    seen_p)
+        del plain
+        plain = plain_prefill(_route_replay(seen_k))
+    err = _normwise(logits, plain)
+    ties = _near_ties(logits, plain)
+    del plain, seen_p
+    check(err <= TOL_BF16, f"{cfg.name} bf16 kernel vs plain prefill err "
+          f"{err:.3e}" + (" (routing replayed)" if free else ""))
+    _check_ties(ties, f"{cfg.name} bf16 kernel vs plain prefill")
+    del logits
+
+    # deepseek: one decode step through K6's latent mode against its
+    # plain version (the step's logits, and K6's own call)
+    latent = None
+    if cfg.kv_lora_rank:
+        pos = torch.full((B,), steps, dtype=torch.int32, device=dev)
+        tok = res.tokens[:, -1:]
+        seen = []
+        with torch.no_grad():
+            orig_r = _swap(moe_mod, {"route": _route_recorder(moe_mod, seen)})
+            try:
+                l_k, _ = step(params, cache, tok, pos, enc)
+            finally:
+                _swap(moe_mod, orig_r)
+            orig_d = _swap(ops, {"decode_attention":
+                                 da.decode_attention_plain})
+            orig_r = _swap(moe_mod, {"route": _route_replay(seen)})
+            try:
+                l_p, _ = step(params, cache, tok, pos, enc)
+            finally:
+                _swap(ops, orig_d)
+                _swap(moe_mod, orig_r)
+        e_step = _normwise(l_k, l_p)
+        check(e_step <= TOL_BF16, f"deepseek decode step K6 vs plain "
+              f"{e_step:.3e}")
+        (_, (q, k, v, lens), _), = [
+            rec for key, rec in recorded.items()
+            if key[0] == "decode_attention" and rec[0] == cfg.name]
+        check(da.v_in_k(k, v), "deepseek's K6 call does not read v inside k")
+        lens = lens.to(torch.int32)
+        o1 = da.decode_attention_kernel(q, k, v, lens)
+        o2 = da.decode_attention_kernel(q, k, v, lens)
+        e_k6 = _allclose(torch, o1, da.decode_attention_plain(q, k, v, lens),
+                         2e-2)
+        check(torch.equal(o1, o2), "K6 latent: two calls differ")
+        latent = (e_step, e_k6, lens.tolist())
+        del l_k, l_p, o1, o2
+
+    # busy share: a few decode steps on a fresh small cache, and a prefill
+    small = tr.init_cache(cfg, B, max_seq=N_PROFILED + 1, device=CARD)
+
+    def few_steps():
+        for i in range(N_PROFILED):
+            step(params, small, prompts[:, i:i + 1],
+                 torch.full((B,), i, dtype=torch.int32, device=dev), enc)
+
+    few_steps()
+    busy, n_ops, _ = _busy_share(torch, few_steps)
+    pbusy, _, _ = _busy_share(torch, lambda: prefill(params, prompts, ctx))
+    del small, cache, params
+    share = lambda b: "not measured" if b is None else f"{100 * b:.2f}%"
+    say("zoo", f"{cfg.name}: prefill B {B} x {P} in {prefill_s:.4f} s "
+        f"({B * P / prefill_s:.1f} tokens/s), K5 {n_k5} launches; serve loop "
+        f"B {B}, prompt {ZOO_PROMPT} + {T} new tokens, {steps} decode steps "
+        f"in {loop_s:.3f} s, {step_ms:.3f} ms a step, every step K5 "
+        f"{step_k5} and K6 {step_k6} launches; peak device memory "
+        f"{peak:.3f} GB; the card busy {share(busy)} of a decode step"
+        + (f" ({n_ops / N_PROFILED:.0f} device operations a step)"
+           if busy is not None else "")
+        + f", {share(pbusy)} of the prefill {smi_line}")
+    if free:
+        say("zoo", f"{cfg.name}: bf16 prefill, kernels vs plain versions "
+            f"free running: {free[0]:.3e}, greedy tokens differ at "
+            f"{free[1]} of {B * P} positions; {free[2]} of {free[3]} MoE "
+            f"routing choices differ between the two runs (a token's router "
+            f"logits differ by up to {free[4]:.3e} where its choices differ)")
+    say("zoo", f"{cfg.name}: bf16 prefill with the kernels vs their plain "
+        f"versions" + (" at the kernel run's routing" if free else "")
+        + f": {err:.3e} (tolerance {TOL_BF16}), greedy tokens differ "
+        f"at {len(ties)} of {B * P} positions, each a near-tie"
+        + (f"; one decode step at kv_len {steps + 1} with K6's latent mode "
+           f"vs plain (same routing) {latent[0]:.3e}, K6's call at kv_len {latent[2]} "
+           f"max abs err {latent[1]:.3e} (tolerance 2e-2), v read inside "
+           f"k, identical bits on a second call" if latent else ""))
+    return {"name": cfg.name, "prefill": n_k5, "step_k5": step_k5,
+            "step_k6": step_k6, "steps": steps, "prefill_s": prefill_s,
+            "step_ms": step_ms, "peak_gb": peak, "busy": busy,
+            "prefill_busy": pbusy, "params": n_par, "gb": gb, "calls": calls,
+            "err": err, "free": free}
+
+
+def phase_zoo(torch, smi_line):
+    """The four configs that MLA, MoE, cross-attention and the encoder
+    bring to the port, served one after another on the card; returns
+    their numbers and the K5/K6 calls they made (by shape)."""
+    t_phase = time.perf_counter()
+    say("zoo", "reduced: llama4-scout-17b-a16e to 8 of 48 layers (all 48: "
+        "216 GB in bf16), llama-3.2-vision-90b to 2 of 20 repeats (10 of "
+        "100 layers; all: 175 GB); deepseek-v2-lite-16b and whisper-small "
+        "at full width and depth")
+    recorded, runs = {}, []
+    for arch, keep, P in ZOO:
+        t0 = time.perf_counter()
+        runs.append(_zoo_one(torch, arch, keep, P, smi_line, recorded))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        say("zoo", f"{arch} took {time.perf_counter() - t0:.1f} s")
+    say("zoo", f"phase zoo took {time.perf_counter() - t_phase:.1f} s")
+    return {"runs": runs, "recorded": recorded}
+
+
+def _k6_row(torch, da, F, q, k, v, lens, what):
+    """K6 at one call: max error against the plain version (identical on
+    a second call), kernel, plain and SDPA ms, bound."""
+    dev = q.device
+    out = da.decode_attention_kernel(q, k, v, lens)
+    err = _allclose(torch, out, da.decode_attention_plain(q, k, v, lens), 2e-2)
+    check(torch.equal(out, da.decode_attention_kernel(q, k, v, lens)),
+          f"K6 {what}: two calls differ")
+    B, Hq, D = q.shape
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    ms = cuda_ms(lambda: da.decode_attention_kernel(q, k, v, lens), torch)
+    plain = cuda_ms(lambda: da.decode_attention_plain(q, k, v, lens), torch,
+                    iters=5)
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lens[:, None].long())[:, None, None, :]
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=Hq != Hkv)
+    _allclose(torch, sdpa()[:, :, 0], out, 2e-2)
+    lib = cuda_ms(sdpa, torch)
+    aliased = da.v_in_k(k, v)
+    visible = int(lens.clamp(0, S).sum())
+    el = q.element_size()
+    need = {"q": q.numel() * el,
+            "cache rows": visible * Hkv * (D if aliased else D + Dv) * el,
+            "kv_len": 4 * B, "o": out.numel() * el}
+    n_ops = float(visible * Hq * (2 * D + 2 * Dv))
+    b, by = bound_ms(float(sum(need.values())), n_ops, _rate(torch, q.dtype))
+    return {"shape": what, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "need": need, "ops": n_ops}
+
+
+def phase_zoo_kernels(torch, zoo):
+    """K5 and K6 at the zoo's shapes, from the calls phase zoo recorded
+    (the first call of each K5 shape, the last K6 call of each config),
+    plus K6's latent mode at kv_len 4,096: error against the plain
+    version, kernel, plain and library ms, bound. Returns
+    {kernel name: [rows]} for the kernel JSON line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    runs = {r["name"]: r for r in zoo["runs"]}
+    rows = {"flash_attention": [], "decode_attention": []}
+    for key, (arch, a, kw) in zoo["recorded"].items():
+        name = key[0]
+        launches = runs[arch]["calls"][key]
+        if name == "decode_attention":
+            q, k, v, lens = a
+            lens = lens.to(torch.int32).contiguous()
+            q, k = q.contiguous(), k.contiguous()
+            v = v if da.v_in_k(k, v) else v.contiguous()
+            what = (f"{arch} last serve step: q {tuple(q.shape)} cache "
+                    f"{tuple(k.shape)}" + (" v inside k" if da.v_in_k(k, v)
+                                            else "")
+                    + f" kv_len {lens.tolist()}")
+            row = _k6_row(torch, da, F, q, k, v, lens, what)
+        else:
+            q, k, v = (t.contiguous() for t in a)
+            causal = kw.get("causal", True)
+            out = fa.flash_attention_kernel(q, k, v, **kw)
+            err = _allclose(torch, out, fa.flash_attention_plain(q, k, v, **kw),
+                            2e-2)
+            ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, **kw), torch)
+            plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                            torch, iters=5)
+            B, Sq, Hq, D = q.shape
+            Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal and Sq == Sk,
+                enable_gqa=Hq != Hkv)
+            lib = None
+            if not causal or Sq == Sk:
+                _allclose(torch, sdpa().transpose(1, 2), out, 2e-2)
+                lib = cuda_ms(sdpa, torch)
+            el = q.element_size()
+            need = {"q": q.numel() * el, "k": k.numel() * el,
+                    "v": v.numel() * el, "o": out.numel() * el}
+            n_ops = float(B * Hq * _flash_pairs(Sq, Sk, causal,
+                                                kw.get("window"))
+                          * (2 * D + 2 * Dv))
+            b, by = bound_ms(float(sum(need.values())), n_ops,
+                             _rate(torch, q.dtype))
+            what = (f"{arch} {'prefill' if Sq > 1 else 'decode step'}: q "
+                    f"{tuple(q.shape)} k {tuple(k.shape)} v "
+                    f"{tuple(v.shape)} causal {causal}")
+            row = {"shape": what, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                   "library_ms": lib, "need": need, "ops": n_ops}
+        row["launches"] = launches
+        rows[name].append(row)
+    # K6's latent mode on a long cache: B 4, one KV head, kv_len 4,096
+    g = torch.Generator(device=CARD).manual_seed(SEED + 3)
+    B = ZOO_BATCH
+    q = torch.randn((B, 16, 576), generator=g, device=CARD).bfloat16()
+    cache = torch.randn((B, ZOO_LATENT_KV, 576), generator=g,
+                        device=CARD).bfloat16()
+    k = cache[:, :, None, :]
+    lens = torch.full((B,), ZOO_LATENT_KV, dtype=torch.int32, device=CARD)
+    row = _k6_row(torch, da, F, q, k, k[..., :512], lens,
+                  f"MLA latent, B {B}, q {tuple(q.shape)} cache "
+                  f"{tuple(k.shape)} v inside k, kv_len {ZOO_LATENT_KV}")
+    row["launches"] = 0
+    rows["decode_attention"].append(row)
+    info = da.decode_attention_info(ZOO_LATENT_KV, 16, 1, 576, 512,
+                                    torch.bfloat16, B=B, aliased=True)
+    for name, rs in rows.items():
+        for r in rs:
+            say("kernels", f"{'K5' if name == 'flash_attention' else 'K6'} "
+                f"at {r['shape']}: {r['launches']} launches in phase zoo; max "
+                f"abs err {r['max_abs_err']:.3e}; "
+                f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"scaled_dot_product_attention "
+                + ("not comparable (causal with Sq < Sk)" if r["library_ms"]
+                   is None else f"{r['library_ms']:.4f} ms")
+                + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
+                f"{_counts(r.pop('need'))} bytes, {r.pop('ops'):.0f} ops), "
+                f"{100 * r['bound_ms'] / r['ms']:.2f}% of the bound reached")
+    say("kernels", f"K6 latent mode at kv_len {ZOO_LATENT_KV}: "
+        f"{info['registers']} registers, {info['smem_bytes']:,} bytes of "
+        f"shared memory per block, {info['stages']} stage(s) a warp, "
+        f"{info['group']} query heads a block, splits of {info['split']} "
+        f"keys ({info['splits']} splits) plus one merge launch")
+    return rows
+
+
 # ------------------------------------------------------ model kernels (5)
 def _allclose(torch, got, want, tol) -> float:
     """max |got - want|, after checking |got - want| <= tol (1 + |want|)."""
@@ -3427,10 +3924,15 @@ def main() -> int:
     phase_daemon(torch, smi_line)
     served = {}
     serve_launches = phase_serve(torch, served)
+    zoo = phase_zoo(torch, smi_line)
     trained = phase_train(torch, smi_line)
     kernels = phase_kernels(torch, recorded, launches)
     kernels += phase_model_kernels(torch, served, serve_launches)
     kernels += phase_train_kernels(torch, trained)
+    zoo_rows = phase_zoo_kernels(torch, zoo)
+    for row in kernels:                 # K5 and K6 at the zoo's shapes
+        if row["name"] in zoo_rows:
+            row["zoo"] = zoo_rows[row["name"]]
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -36,10 +36,15 @@ from repro_torch.core.compredict import CompressionPredictor
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.mamba2 import FLOAT32_PARAMS
+from repro_torch.models import mamba2, moe
 from repro_torch.training.optimizer import AdamWState
 
 Key = Tuple[str, str, str]          # (scheme, layout, 'ratio' | 'dspeed')
+
+#: leaves that stay float32 in every config: Mamba2's A_log, D, dt_bias
+#: and the MoE router
+FLOAT32_PARAMS = frozenset(mamba2.FLOAT32_PARAMS) | frozenset(
+    moe.FLOAT32_PARAMS)
 
 
 def model_from_arrays(a: Mapping[str, object], device: DeviceLike = "cuda"):
@@ -105,13 +110,18 @@ def model_params_from_arrays(tree: Any, cfg: ModelConfig,
     """Model parameters for :mod:`repro_torch.models.transformer` from a
     tree of nested dicts and tuples of float32 numpy arrays, laid out as
     ``repro``'s ``init_params`` pytree (stages as tuples of per-unit dicts
-    stacked on the repeats axis, ``{}`` for a shared block's slot). Leaves
-    are cast to ``cfg.dtype``, except the Mamba2 leaves that are float32 in
-    every config (:data:`repro_torch.models.mamba2.FLOAT32_PARAMS`)."""
+    stacked on the repeats axis, ``{}`` for a shared block's slot, the
+    encoder's stages and final norm under ``"encoder"``). Leaves are cast
+    to ``cfg.dtype``, except those that are float32 in every config
+    (:data:`FLOAT32_PARAMS`: Mamba2's and the MoE router). ``None`` stays
+    ``None``, so a cache tree (a cross block's entry is None) converts
+    too."""
     dev = resolve(device)
     dt = dtype_of(cfg.dtype)
 
     def conv(node, name=""):
+        if node is None:
+            return None
         if isinstance(node, Mapping):
             return {k: conv(v, k) for k, v in node.items()}
         if isinstance(node, (tuple, list)):

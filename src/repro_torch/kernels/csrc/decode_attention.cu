@@ -9,19 +9,36 @@
 //   in float32, o in q's type. Key j is visible when lo <= j < hi, with
 //   hi = min(kv_len[b], S) and lo = max(0, kv_len[b] - window) (0 without
 //   a window). The rep = Hq / Hkv query heads of a KV group share one pass
-//   over the cache. A sequence with no visible key gets o = 0.
+//   over the cache. A sequence with no visible key gets o = 0. D goes up to
+//   576 and Dv up to 512: MLA's absorbed decode (repro/models/attention.py
+//   mla_decode) attends 16 query heads of 576 (kv_lora_rank 512 + rope 64)
+//   to one latent KV head whose value is the first 512 columns of the same
+//   cache row.
+//
+// V inside K (v_in_k): v is k's first Dv columns, in k's storage and with
+//   k's row stride. The kernel then stages each 32-key K tile once and reads
+//   V from that tile in shared memory, so the latent cache is read once per
+//   head group. Staged apart, a bf16 V tile of 32 x 512 would add 32 KB a
+//   stage and warp and leave room for one stage only.
 //
 // What bounds it here: memory and latency. Each visible cache row is read
 //   once (at zamba2's last step, 4 x 544 x 32 heads x 80 x 2 (k, v) x 2
-//   bytes = 22 MB, 0.0067 ms at 3.35 TB/s) for 4 multiply-adds per element
-//   per query head, far below any compute roof. With B = 4 there are only
-//   128 (sequence, KV head) pairs for 132 SMs, so the cache axis itself has
-//   to be cut for the loads to be in flight at once.
+//   bytes = 22 MB, 0.0067 ms at 3.35 TB/s; MLA's latent cache at B 4 and
+//   kv_len 4,096: 4 x 4,096 x 576 x 2 bytes = 18.9 MB, 0.0056 ms) for 4
+//   multiply-adds per element per query head, far below any compute roof.
+//   With B = 4 there are only 128 (sequence, KV head) pairs for 132 SMs, so
+//   the cache axis itself has to be cut for the loads to be in flight at
+//   once. The latent mode is the exception: 16 query heads share each
+//   element, 570 million operations at kv_len 4,096, 0.0085 ms at the CUDA
+//   cores' 67 TFLOP/s, above its bytes' 0.0056 ms; its lever is the tensor
+//   cores (mma over the head group), later work.
 //
 // Design (FlashDecoding): the cache axis is cut into splits of `split`
 //   keys (a multiple of 64, chosen by the wrapper from S and the grid, never
 //   from kv_len, which lives on the card). One block of two warps per
-//   (split, batch, KV head, group of HB <= 8 query heads); a split wholly
+//   (split, batch, KV head, group of HB <= 8 query heads, HB <= 4 when Dv
+//   is above 256, so that a lane's HB x DVT accumulators stay at 64 floats
+//   and nothing spills); a split wholly
 //   outside [lo, hi) exits at once. Each warp takes every other 32-key tile
 //   of its split's visible range and stages it into its own shared-memory
 //   ring (one or two stages) with 16-byte cp.async, K and V as separate
@@ -55,6 +72,9 @@ constexpr int kTile = 32;                  // keys per tile, one per lane
 constexpr int kMergeThreads = 128;
 constexpr int kMaxSplits = 4096;           // the merge's weights: 48 KB
 constexpr int kMaxSmem = 232448;           // 227 KB, a block's limit
+constexpr int kMaxD = 576, kMaxDv = 512;   // MLA's latent head: 512 + 64
+constexpr int kNarrowDvt = 8;              // Dv <= 256: DVT 1..8, HB <= 8
+constexpr int kWideGroup = 4;              // Dv > 256: DVT 12 or 16, HB <= 4
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -129,21 +149,22 @@ __device__ __forceinline__ void stage_tile(T* dst, int ld, const T* src,
 
 struct Geometry {
     int ku, kv;          // 16-byte units of a K row and of a V row
-    int ldk, ldv;        // shared row strides, in elements
+    int ldk, ldv;        // shared row strides, in elements (ldv: 0, and V
+                         // read from the K tile at stride ldk, with v_in_k)
     int dq;              // padded query width (floats)
     int stages;          // tiles in flight per warp: 1 or 2
     size_t q_off, red_off, stage_off, stage_elems, bytes;
 };
 
 template <typename T, int HB>
-Geometry geometry(int D, int Dv, int split)
+Geometry geometry(int D, int Dv, int split, bool v_in_k)
 {
     constexpr int kPer = 16 / sizeof(T);
     Geometry g;
     g.ku = (D + kPer - 1) / kPer;
     g.kv = (Dv + kPer - 1) / kPer;
     g.ldk = (g.ku | 1) * kPer;           // odd units: conflict-free rows
-    g.ldv = g.kv * kPer;
+    g.ldv = v_in_k ? 0 : g.kv * kPer;
     g.dq = g.ku * kPer;
     g.q_off = 0;
     g.red_off = sizeof(float) * (size_t)HB * g.dq;
@@ -163,7 +184,8 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ kv_len,
              T* __restrict__ o, float* __restrict__ part, int S, int Hq,
              int Hkv, int D, int Dv, int window, float softcap, float scale,
-             int split, int nsplit, Geometry g, bool vec_k, bool vec_v)
+             int split, int nsplit, Geometry g, bool vec_k, bool vec_v,
+             bool v_in_k)
 {
     constexpr int kPer = 16 / sizeof(T);
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -213,9 +235,10 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         stage_tile(ks, g.ldk, kb + (size_t)t0 * row_k, row_k, D, g.ku,
                    r_lo, r_hi, vec_k, lane);
         tc::cp_async_commit();
-        stage_tile(vs, g.ldv, vb + (size_t)t0 * row_v, row_v, Dv, g.kv,
-                   r_lo, r_hi, vec_v, lane);
-        tc::cp_async_commit();
+        if (!v_in_k)
+            stage_tile(vs, g.ldv, vb + (size_t)t0 * row_v, row_v, Dv, g.kv,
+                       r_lo, r_hi, vec_v, lane);
+        tc::cp_async_commit();               // empty with v_in_k: same waits
     };
     if (mine > 0) issue(0);
     if (mine > 1 && g.stages == 2) issue(1);
@@ -233,7 +256,8 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int n = 0; n < mine; ++n) {
         const int t0 = first + (warp + kWarps * n) * kTile;
         const T* ks = ring + (size_t)(n % g.stages) * g.stage_elems;
-        const T* vs = ks + kTile * g.ldk;
+        const T* vs = v_in_k ? ks : ks + kTile * g.ldk;
+        const int ldv = v_in_k ? g.ldk : g.ldv;
         const bool ahead = g.stages == 2 && n + 1 < mine;
         if (ahead) tc::cp_async_wait<3>(); else tc::cp_async_wait<1>();
         __syncwarp();                        // K of tile n has landed
@@ -279,7 +303,7 @@ split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncwarp();                        // V of tile n has landed
 #pragma unroll 4
         for (int j = 0; j < kTile; ++j) {
-            const T* vr = vs + j * g.ldv;
+            const T* vr = vs + j * ldv;
             float vv[DVT];
 #pragma unroll
             for (int t = 0; t < DVT; ++t) {
@@ -390,11 +414,13 @@ template <typename T, int HB, int DVT>
 int launch_t(const void* q, const void* k, const void* v, const int* kv_len,
              void* o, float* part, int B, int S, int Hq, int Hkv, int D,
              int Dv, int window, float softcap, float scale, int split,
-             cudaStream_t stream, int* attr)
+             bool v_in_k, cudaStream_t stream, int* attr)
 {
     constexpr int kPer = 16 / sizeof(T);
     static int allowed[64];                  // per device, set once
-    const Geometry g = geometry<T, HB>(D, Dv, split);
+    const Geometry g = geometry<T, HB>(D, Dv, split, v_in_k);
+    // float32 heads of 576 with a separate V tile: 280 KB a stage
+    if (g.bytes > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
     const void* fn = (const void*)split_kernel<T, HB, DVT>;
     cudaError_t e;
     if (attr) {
@@ -414,7 +440,8 @@ int launch_t(const void* q, const void* k, const void* v, const int* kv_len,
     const long long blocks = (long long)nsplit * B * Hkv * ((rep + HB - 1) / HB);
     split_kernel<T, HB, DVT><<<(unsigned)blocks, kThreads, g.bytes, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, kv_len, (T*)o, part, S, Hq,
-        Hkv, D, Dv, window, softcap, scale, split, nsplit, g, vec_k, vec_v);
+        Hkv, D, Dv, window, softcap, scale, split, nsplit, g, vec_k, vec_v,
+        v_in_k);
     e = cudaGetLastError();
     if (e != cudaSuccess || nsplit == 1) return (int)e;
     merge_kernel<T><<<B * Hq, kMergeThreads, 3 * sizeof(float) * nsplit,
@@ -424,11 +451,12 @@ int launch_t(const void* q, const void* k, const void* v, const int* kv_len,
 }
 
 #define ARGS q, k, v, kv_len, o, part, B, S, Hq, Hkv, D, Dv, window, \
-             softcap, scale, split, s, attr
+             softcap, scale, split, v_in_k, s, attr
 #define PARAMS const void* q, const void* k, const void* v,              \
                const int* kv_len, void* o, float* part, int B, int S,     \
                int Hq, int Hkv, int D, int Dv, int window, float softcap, \
-               float scale, int split, cudaStream_t s, int* attr
+               float scale, int split, bool v_in_k, cudaStream_t s,       \
+               int* attr
 
 template <typename T, int HB>
 int launch_dv(int dvt, PARAMS)
@@ -437,6 +465,11 @@ int launch_dv(int dvt, PARAMS)
 #define CASE(N) case N: return launch_t<T, HB, N>(ARGS);
         CASE(1) CASE(2) CASE(3) CASE(4) CASE(5) CASE(6) CASE(7) CASE(8)
 #undef CASE
+    }
+    // wide values (Dv 257..512) only at HB <= 4: HB x DVT <= 64 floats
+    if constexpr (HB <= kWideGroup) {
+        if (dvt <= 12) return launch_t<T, HB, 12>(ARGS);
+        if (dvt <= 16) return launch_t<T, HB, 16>(ARGS);
     }
     return (int)cudaErrorInvalidValue;
 }
@@ -447,13 +480,14 @@ int launch_hb(int dvt, PARAMS)
     const int rep = Hq / Hkv;
     if (rep == 1) return launch_dv<T, 1>(dvt, ARGS);
     if (rep == 2) return launch_dv<T, 2>(dvt, ARGS);
-    if (rep <= 4) return launch_dv<T, 4>(dvt, ARGS);
+    if (rep <= 4 || dvt > kNarrowDvt) return launch_dv<T, kWideGroup>(dvt, ARGS);
     return launch_dv<T, 8>(dvt, ARGS);
 }
 
 int dispatch(int dtype, PARAMS)
 {
-    if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || Hkv < 1 || Hq % Hkv != 0
+    if (D < 1 || D > kMaxD || Dv < 1 || Dv > kMaxDv || (v_in_k && Dv > D)
+        || Hkv < 1 || Hq % Hkv != 0
         || S < 1 || split < kTile * kWarps || split % (kTile * kWarps) != 0
         || (S + split - 1) / split > kMaxSplits)
         return (int)cudaErrorInvalidValue;
@@ -470,8 +504,10 @@ int dispatch(int dtype, PARAMS)
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16. window <= 0: none; softcap <= 0: none.
-// D and Dv at most 256. split: keys per split, a positive multiple of 64,
-// at most 4096 splits;
+// D at most 576, Dv at most 512. v_in_k: v is k's first Dv columns (same
+// storage and row stride; v is then not read, and Dv <= D); else v is
+// contiguous (B, S, Hkv, Dv). split: keys per split, a positive multiple
+// of 64, at most 4096 splits;
 // part: float32 scratch of B * Hq * ceil(S / split) * (Dv + 2) values
 // (unused, and may be null, when one split covers S).
 extern "C" int decode_attention_launch(const void* q, const void* k,
@@ -479,23 +515,25 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        void* o, float* part, int B, int S,
                                        int Hq, int Hkv, int D, int Dv,
                                        int window, float softcap, float scale,
-                                       int split, int dtype, void* stream)
+                                       int split, int v_in_k, int dtype,
+                                       void* stream)
 {
     if (B == 0) return 0;
     if (split < S && part == nullptr) return (int)cudaErrorInvalidValue;
     return dispatch(dtype, q, k, v, kv_len, o, part, B, S, Hq, Hkv, D, Dv,
-                    window, softcap, scale, split, (cudaStream_t)stream,
-                    nullptr);
+                    window, softcap, scale, split, v_in_k != 0,
+                    (cudaStream_t)stream, nullptr);
 }
 
 // The split kernel's registers, shared memory per block (static +
 // dynamic, bytes) and stages at one shape: attr[0..2]. Launches nothing.
 extern "C" int decode_attention_info(int S, int Hq, int Hkv, int D, int Dv,
-                                     int split, int dtype, int* attr)
+                                     int split, int v_in_k, int dtype,
+                                     int* attr)
 {
     return dispatch(dtype, nullptr, nullptr, nullptr, nullptr, nullptr,
                     nullptr, 1, S, Hq, Hkv, D, Dv, 0, 0.f, 1.f, split,
-                    nullptr, attr);
+                    v_in_k != 0, nullptr, attr);
 }
 
 extern "C" const char* decode_attention_error_string(int e)

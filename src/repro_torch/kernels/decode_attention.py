@@ -22,6 +22,13 @@ length chosen from the cache capacity S and the grid, never from kv_len
 132 SMs about eight times over, each a multiple of 64 keys (two warps of
 32-key tiles). A sequence with no visible key (kv_len 0, or a window that
 leaves none) gets o = 0 from all three.
+
+Heads go up to D 576 and Dv 512, MLA's absorbed decode
+(``repro_torch.models.attention.mla_decode``): one latent KV head of 576
+columns whose value is its first 512. There v is a view of k
+(:func:`v_in_k`); the kernel then reads V from the K tile it has staged
+and never copies v, and :func:`decode_attention_split` takes v from k's
+columns in the same way.
 """
 
 from __future__ import annotations
@@ -34,21 +41,40 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, NEG_INF,
-                                                 check_operands)
+from repro_torch.kernels.flash_attention import NEG_INF, check_operands
 
 SPLIT_UNIT = 64          # kTile x kWarps in csrc/decode_attention.cu
 TARGET_BLOCKS = 132 * 8  # blocks that fill an H100's SMs eight times over
 MAX_GROUP = 8            # query heads a block takes of one KV head
+WIDE_GROUP = 4           # ... when Dv is above NARROW_DV
+NARROW_DV = 256
+MAX_D, MAX_DV = 576, 512  # MLA's latent head: kv_lora_rank 512 + rope 64
+
+
+def v_in_k(k: torch.Tensor, v: torch.Tensor) -> bool:
+    """True when v is k's first ``v.shape[-1]`` columns: the same storage,
+    offset and strides (``k[..., :Dv]``)."""
+    return (v.shape[:-1] == k.shape[:-1] and v.shape[-1] <= k.shape[-1]
+            and v.device == k.device and v.dtype == k.dtype
+            and v.untyped_storage().data_ptr()
+            == k.untyped_storage().data_ptr()
+            and v.storage_offset() == k.storage_offset()
+            and v.stride() == k.stride())
+
+
+def group_size(rep: int, Dv: int) -> int:
+    """Query heads one block of the kernel takes of a KV head."""
+    hb = 1 if rep == 1 else 2 if rep == 2 else 4 if rep <= 4 else MAX_GROUP
+    return min(hb, WIDE_GROUP) if Dv > NARROW_DV else hb
 
 
 @functools.lru_cache(maxsize=None)
-def decode_split(B: int, S: int, Hq: int, Hkv: int) -> int:
-    """Keys per split of the kernel for a (B, S, Hkv) cache and Hq query
-    heads: the fewest keys, in multiples of 64, that still give at most
-    about ``TARGET_BLOCKS`` blocks."""
+def decode_split(B: int, S: int, Hq: int, Hkv: int, Dv: int = 0) -> int:
+    """Keys per split of the kernel for a (B, S, Hkv) cache, Hq query
+    heads and values of Dv (0: at most 256): the fewest keys, in multiples
+    of 64, that still give at most about ``TARGET_BLOCKS`` blocks."""
     rep = Hq // Hkv
-    hb = 1 if rep == 1 else 2 if rep == 2 else 4 if rep <= 4 else MAX_GROUP
+    hb = group_size(rep, Dv)
     base = max(B * Hkv * -(-rep // hb), 1)
     units = -(-S // SPLIT_UNIT)
     nsplit = min(units, -(-TARGET_BLOCKS // base))
@@ -90,14 +116,17 @@ def decode_attention_split(q: torch.Tensor, k: torch.Tensor,
     then o = sum acc_s e^(m_s - M) / max(sum l_s e^(m_s - M), 1e-30) over
     the splits that hold a visible key, M their largest m, in split order.
     A split without a visible key is left out (m = -1e30, l = 0 adds
-    nothing), so a sequence with none gets o = 0."""
+    nothing), so a sequence with none gets o = 0. Where v is a view of k's
+    first columns (:func:`v_in_k`), V is read from k's staged split, as
+    the kernel reads it from its K tile."""
     B, Hq, D = q.shape
     _, S, Hkv, Dv = (*k.shape[:3], v.shape[-1])
     rep = Hq // Hkv
     ns = -(-S // split)
     pad = ns * split - S
     kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
-    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    vf = (kf[..., :Dv] if v_in_k(k, v)
+          else torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad)))
     qr = q.float().reshape(B, Hkv, rep, D) * (1.0 / math.sqrt(D))
     s = torch.einsum("bhrd,bnjhd->bhrnj", qr,
                      kf.reshape(B, ns, split, Hkv, D))
@@ -130,11 +159,11 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # q, k, v, kv_len, o, part; B, S, Hq, Hkv, D, Dv, window; softcap,
-        # scale; split, dtype; stream
+        # scale; split, v_in_k, dtype; stream
         lib.decode_attention_launch.argtypes = [p] * 6 + [i] * 7 \
-            + [f, f, i, i, p]
+            + [f, f, i, i, i, p]
         lib.decode_attention_launch.restype = ctypes.c_int
-        lib.decode_attention_info.argtypes = [i] * 7 + [p]
+        lib.decode_attention_info.argtypes = [i] * 8 + [p]
         lib.decode_attention_info.restype = ctypes.c_int
         lib.decode_attention_error_string.argtypes = [ctypes.c_int]
         lib.decode_attention_error_string.restype = ctypes.c_char_p
@@ -148,14 +177,18 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             softcap: Optional[float] = None) -> torch.Tensor:
     """Launch ``csrc/decode_attention.cu``: (B, Hq, Dv) in q's dtype.
 
-    q, k, v contiguous, of one float dtype, on one CUDA device; kv_len
-    int32 (B,) on the same device; D and Dv at most 256; Hq a multiple of
-    Hkv.
+    q and k contiguous, of one float dtype, on one CUDA device; v
+    contiguous too, or k's first Dv columns (:func:`v_in_k`, read from k's
+    tiles without a copy); kv_len int32 (B,) on the same device; D at most
+    576 and Dv at most 512 (in float32 a separate v of more than 256
+    columns does not fit the shared memory); Hq a multiple of Hkv.
     """
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode attention kernel needs CUDA tensors, got {dev}")
-    check_operands(("q", "k", "v"), (q, k, v), (3, 4, 4), dev, q.dtype)
+    aliased = v.dim() == 4 and v_in_k(k, v)
+    check_operands(("q", "k", "v"), (q, k, k if aliased else v), (3, 4, 4),
+                   dev, q.dtype)
     B, Hq, D = q.shape
     _, S, Hkv, Dv = (*k.shape[:3], v.shape[-1])
     if k.shape != (B, S, Hkv, D) or v.shape[:3] != (B, S, Hkv):
@@ -168,8 +201,9 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{kv_len.device}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads are not a multiple of {Hkv}")
-    if not (1 <= D <= MAX_HEAD_DIM and 1 <= Dv <= MAX_HEAD_DIM):
-        raise ValueError(f"head dims D={D}, Dv={Dv} must be 1..{MAX_HEAD_DIM}")
+    if not (1 <= D <= MAX_D and 1 <= Dv <= MAX_DV):
+        raise ValueError(f"head dims D={D}, Dv={Dv} must be 1..{MAX_D} and "
+                         f"1..{MAX_DV}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     if window is not None and not window > 0:
@@ -179,7 +213,7 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     if S == 0:
         return out.zero_()
-    split = decode_split(B, S, Hq, Hkv)
+    split = decode_split(B, S, Hq, Hkv, Dv)
     ns = -(-S // split)
     # the splits' (m, l, acc), float32; freed to PyTorch's stream-ordered
     # allocator on return, after the launches on this stream
@@ -190,7 +224,7 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
         out.data_ptr(), None if part is None else part.data_ptr(), B, S, Hq,
         Hkv, D, Dv, int(window or 0), float(softcap or 0.0),
-        1.0 / math.sqrt(D), split, _build.DTYPE_CODES[q.dtype],
+        1.0 / math.sqrt(D), split, int(aliased), _build.DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode attention kernel launch failed: "
@@ -200,18 +234,20 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_info(S: int, Hq: int, Hkv: int, D: int, Dv: int,
-                          dtype: torch.dtype, B: int = 1) -> dict:
+                          dtype: torch.dtype, B: int = 1,
+                          aliased: bool = False) -> dict:
     """The split kernel's registers, shared memory per block and stages
-    (two tiles in flight per warp, or one) at a shape, from the built
-    library (it launches nothing), with the split length the wrapper
-    takes there."""
-    split = decode_split(B, S, Hq, Hkv)
+    (two tiles in flight per warp, or one) at a shape, with v read inside
+    k when ``aliased``, from the built library (it launches nothing), with
+    the split length and head group the wrapper takes there."""
+    split = decode_split(B, S, Hq, Hkv, Dv)
     attr = (ctypes.c_int * 3)()
     lib = _lib()
-    rc = lib.decode_attention_info(S, Hq, Hkv, D, Dv, split,
+    rc = lib.decode_attention_info(S, Hq, Hkv, D, Dv, split, int(aliased),
                                    _build.DTYPE_CODES[dtype], attr)
     if rc != 0:
         raise RuntimeError(f"decode attention info failed: "
                            f"{lib.decode_attention_error_string(rc).decode()}")
     return {"registers": attr[0], "smem_bytes": attr[1], "stages": attr[2],
-            "split": split, "splits": -(-S // split)}
+            "split": split, "splits": -(-S // split),
+            "group": group_size(Hq // Hkv, Dv)}

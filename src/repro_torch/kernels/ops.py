@@ -126,10 +126,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      softcap: Optional[float] = None) -> torch.Tensor:
     """(B, Hq, Dv) attention of one query per sequence over its cache
     prefix of ``kv_len`` rows (see
-    :mod:`repro_torch.kernels.decode_attention`)."""
+    :mod:`repro_torch.kernels.decode_attention`). A v that is k's first
+    columns (MLA's latent cache) is passed on as it is: the kernel reads
+    it inside k's tiles, so the cache is not copied."""
     if _on_card(q):
+        k = k.contiguous()
         return _da.decode_attention_kernel(
-            q.contiguous(), k.contiguous(), v.contiguous(),
+            q.contiguous(), k, v if _da.v_in_k(k, v) else v.contiguous(),
             kv_len.to(torch.int32).contiguous(), window=window,
             softcap=softcap)
     return _da.decode_attention_plain(q, k, v, kv_len, window=window,

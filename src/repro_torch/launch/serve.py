@@ -10,6 +10,11 @@ prompt token through ``decode_step``, then ``--tokens`` greedy tokens, the
 first from the prompt's last logits) with random weights from seed 0 and
 random prompts from seed 1, on ``--device`` (default ``cuda``). Prints the
 tokens per second of the whole loop, as the JAX launcher does.
+
+Like the JAX launcher, the command line feeds no cross-attention context.
+A config that needs one (``cross_context``: vision; ``encoder_stages``:
+whisper, whose decoder attends to the encoded frames) is refused with a
+``ValueError``; drive it through ``serve(..., context=...)``.
 """
 
 from __future__ import annotations
@@ -39,10 +44,13 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(step, params, cache, prompts: torch.Tensor,
-          n_tokens: int) -> ServeResult:
+def serve(step, params, cache, prompts: torch.Tensor, n_tokens: int,
+          context=None) -> ServeResult:
     """Feed ``prompts`` (B, P) one token per step, then generate
-    ``n_tokens`` greedily: P + n_tokens - 1 calls of ``step``."""
+    ``n_tokens`` greedily: P + n_tokens - 1 calls of ``step``, each given
+    ``context`` (B, Sc, d) for the cross-attention blocks, if any: the
+    patch embeddings of a vision model, the encoded frames
+    (``transformer.encode``) of whisper."""
     dev = params["embed"].device
     prompts = torch.as_tensor(prompts, device=dev).long()
     B, P = prompts.shape
@@ -51,14 +59,15 @@ def serve(step, params, cache, prompts: torch.Tensor,
     t0 = time.perf_counter()
     logits = None
     for i in range(P):
-        logits, cache = step(params, cache, prompts[:, i:i + 1], at(i))
+        logits, cache = step(params, cache, prompts[:, i:i + 1], at(i),
+                             context)
     prompt_logits = logits
     tok = logits[:, -1:].argmax(-1)
     out = [tok]
     _sync(dev)
     t1 = time.perf_counter()
     for j in range(n_tokens - 1):
-        logits, cache = step(params, cache, tok, at(P + j))
+        logits, cache = step(params, cache, tok, at(P + j), context)
         tok = logits[:, -1:].argmax(-1)
         out.append(tok)
     _sync(dev)
@@ -77,6 +86,12 @@ def main():
     args = ap.parse_args()
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.cross_context or cfg.encoder_stages is not None:
+        raise ValueError(
+            f"{cfg.name} attends to a cross-attention context, which this "
+            f"command line does not feed (nor does repro.launch.serve); call "
+            f"serve(..., context=...) with the context "
+            f"(repro_torch.launch.shapes.input_specs gives its shape)")
     dev = resolve(args.device)
     B = args.batch
     max_seq = args.prompt_len + args.tokens + 1

@@ -1,10 +1,15 @@
-"""Attention blocks: GQA (qk-norm / bias / softcap / sliding window).
+"""Attention blocks: GQA (qk-norm / bias / softcap / sliding window),
+MLA (DeepSeek's compressed KV) and cross-attention.
 
-Port of the GQA part of ``repro.models.attention``; MLA and
-cross-attention are not ported yet (ROADMAP.md, queue 1 item 8).
-Parameter names follow the JAX package: wq/wk/wv/wo (+bq/bk/bv),
-q_norm/k_norm. Head counts are padded to a multiple of ``tp`` as there, so
+Port of ``repro.models.attention``. Parameter names follow the JAX
+package: wq/wk/wv/wo (+bq/bk/bv), q_norm/k_norm; MLA's w_dkv, kv_norm,
+w_uk, w_uv. Head counts are padded to a multiple of ``tp`` as there, so
 converted weights keep their shapes; the port runs on one device (tp 1).
+Full-sequence attention (prefill, training, the encoder, cross-attention
+at every step) runs K5 (:func:`repro_torch.kernels.ops.flash_attention`);
+one-token decode against a cache runs K6
+(:func:`repro_torch.kernels.ops.decode_attention`), MLA's with v read
+inside its latent cache.
 """
 
 from __future__ import annotations
@@ -115,3 +120,120 @@ def gqa_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                              softcap=cfg.attn_softcap)
     y = o.reshape(B, 1, -1) @ p["wo"]
     return y, cache_k, cache_v
+
+
+# ------------------------------------------------------------ cross-attention
+def cross_init(gen: torch.Generator, cfg: ModelConfig, tp: int = 1,
+               ctx_dim: Optional[int] = None) -> Params:
+    dt = dtype_of(cfg.dtype)
+    hq, hkv = head_counts(cfg, tp)
+    hd = cfg.head_dim
+    dctx = ctx_dim or cfg.d_model
+    return {
+        "wq": dense_init(gen, cfg.d_model, hq * hd, dt),
+        "wk": dense_init(gen, dctx, hkv * hd, dt),
+        "wv": dense_init(gen, dctx, hkv * hd, dt),
+        "wo": dense_init(gen, hq * hd, cfg.d_model, dt),
+    }
+
+
+def cross_apply(p: Params, x: torch.Tensor, context: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d); context: (B, Sc, dctx). Non-causal attention into the
+    context (its k and v are recomputed at every call, decode steps
+    included, as in the JAX package). The context is taken in the
+    weights' dtype."""
+    B, S, _ = x.shape
+    Sc = context.shape[1]
+    hd = cfg.head_dim
+    context = context.to(p["wk"].dtype)
+    q = (x @ p["wq"]).reshape(B, S, -1, hd)
+    k = (context @ p["wk"]).reshape(B, Sc, -1, hd)
+    v = (context @ p["wv"]).reshape(B, Sc, -1, hd)
+    o = ops.flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap)
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+# ----------------------------------------------------------------------- MLA
+def mla_init(gen: torch.Generator, cfg: ModelConfig, tp: int = 1) -> Params:
+    """DeepSeek-V2(-lite) multi-head latent attention. No q-LoRA (lite)."""
+    dt = dtype_of(cfg.dtype)
+    hq = pad_heads(cfg.n_heads, tp)
+    r = cfg.kv_lora_rank
+    return {
+        "wq": dense_init(gen, cfg.d_model,
+                         hq * (cfg.qk_nope_dim + cfg.qk_rope_dim), dt),
+        "w_dkv": dense_init(gen, cfg.d_model, r + cfg.qk_rope_dim, dt),
+        "kv_norm": torch.ones(r, dtype=dt, device=gen.device),
+        "w_uk": dense_init(gen, r, hq * cfg.qk_nope_dim, dt),
+        "w_uv": dense_init(gen, r, hq * cfg.v_head_dim, dt),
+        "wo": dense_init(gen, hq * cfg.v_head_dim, cfg.d_model, dt),
+    }
+
+
+def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
+           positions: torch.Tensor, hq: int):
+    B, S, _ = x.shape
+    dq = cfg.qk_nope_dim + cfg.qk_rope_dim
+    q = (x @ p["wq"]).reshape(B, S, hq, dq)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
+            positions: torch.Tensor):
+    """(c_kv (B, S, r) normed, k_rope (B, S, 1, rope) rotated): the
+    compressed KV of each token, with the rope key's head axis of 1."""
+    r = cfg.kv_lora_rank
+    dkv = x @ p["w_dkv"]
+    c_kv = rms_norm(dkv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., None, r:], positions, cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Training/prefill path: expand the latent and run causal attention
+    (K5 with D = nope + rope, Dv = v_head_dim)."""
+    B, S, _ = x.shape
+    hq = p["wo"].shape[0] // cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, hq)
+    c_kv, k_rope = _latent(p, x, cfg, positions)
+    k_nope = (c_kv @ p["w_uk"]).reshape(B, S, hq, cfg.qk_nope_dim)
+    v = (c_kv @ p["w_uv"]).reshape(B, S, hq, cfg.v_head_dim)
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, hq, cfg.qk_rope_dim)], -1)
+    o = ops.flash_attention(q, k, v, causal=True)
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+               cache_ckv: torch.Tensor, pos: torch.Tensor):
+    """Absorbed decode: the cache holds only (c_kv || k_rope) per token
+    (r + rope = 576 columns for v2), MLA's compressed KV. Attention
+    becomes MQA with one latent KV head:
+      score_h = (q_nope_h @ W_uk_h) . c_kv + q_rope_h . k_rope
+      out_h   = (sum_t p_t c_kv_t) @ W_uv_h
+    so K6 runs with D = r + rope and v = the cache's first r columns, a
+    view that the kernel reads inside k's tiles. x: (B, 1, d); cache_ckv:
+    (B, S_max, r + rope), written IN PLACE at ``pos`` (no ring buffer, as
+    in JAX). Returns (y (B, 1, d), cache_ckv)."""
+    B = x.shape[0]
+    r = cfg.kv_lora_rank
+    hq = p["wo"].shape[0] // cfg.v_head_dim
+    q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None], hq)
+    c_kv, k_rope = _latent(p, x, cfg, pos[:, None])
+    entry = torch.cat([c_kv, k_rope[:, :, 0]], -1)            # (B, 1, r+rope)
+    bidx = torch.arange(B, device=x.device)
+    cache_ckv[bidx, pos] = entry[:, 0].to(cache_ckv.dtype)
+    # absorb W_uk into q: (B, hq, nope) x (r, hq, nope) -> (B, hq, r)
+    w_uk = p["w_uk"].reshape(r, hq, cfg.qk_nope_dim)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
+    q_full = torch.cat([q_lat, q_rope[:, 0]], -1)             # (B, hq, r+rope)
+    kv = cache_ckv[:, :, None, :]                             # (B, S, 1, r+rope)
+    ctx = ops.decode_attention(q_full, kv, kv[..., :r], pos + 1)  # (B, hq, r)
+    w_uv = p["w_uv"].reshape(r, hq, cfg.v_head_dim)
+    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv)
+    y = o.reshape(B, 1, -1) @ p["wo"]
+    return y, cache_ckv

@@ -1,0 +1,126 @@
+"""Mixture-of-Experts MLP with capacity-based dispatch (Shazeer-style).
+
+Port of ``repro.models.moe`` on one device. Expert weights are stacked on
+a leading expert axis, as in the JAX package. The JAX package computes
+MoE outside any Pallas kernel, so the port does too: a float32 router,
+top-k, a float32 cumulative sum for the slot ids, gathers into (E, C)
+expert buffers, batched products over the experts and a gather back. The
+reference's rules are kept exactly: capacity ``max(min(ceil(T k / E cf),
+T), 1)`` in Python float, slots past the capacity sent to an overflow bin
+E and dropped, gates a softmax over the top-k logits, token blocks of
+``moe_block_tokens`` when ``T % moe_block_tokens == 0 and T >
+moe_block_tokens`` (one data-parallel group: the port has no mesh), and
+shared experts through ``mlp_apply``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (dense_init, dtype_of, mlp_apply,
+                                       mlp_init, normal)
+
+Params = Dict[str, torch.Tensor]
+
+#: leaves kept in float32 whatever ``cfg.dtype`` is: routing (top-k over
+#: the router's logits) would drift from the reference if it were rounded
+FLOAT32_PARAMS = ("router",)
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    dt = dtype_of(cfg.dtype)
+    E, dff, d = cfg.n_experts, cfg.expert_d_ff, cfg.d_model
+    scale = 1.0 / math.sqrt(d)
+    p = {
+        "router": dense_init(gen, d, E, torch.float32),
+        "experts_gate": normal(gen, (E, d, dff), scale).to(dt),
+        "experts_up": normal(gen, (E, d, dff), scale).to(dt),
+        "experts_down": normal(gen, (E, dff, d), 1.0 / math.sqrt(dff)).to(dt),
+    }
+    if cfg.n_shared_experts > 0:
+        p["shared"] = mlp_init(gen, d, cfg.n_shared_experts * dff,
+                               cfg.mlp_act, dt)
+    return p
+
+
+def route(logits: torch.Tensor, k: int):
+    """(top-k router logits, their experts), each (T, k): the routing
+    choice. A module function, so a caller can observe or replay the
+    choices (``chip_smoke.py`` holds a bf16 model's kernels against their
+    plain versions at the same routing)."""
+    return torch.topk(logits, k, dim=-1)
+
+
+def capacity(T: int, cfg: ModelConfig) -> int:
+    """Slots per expert for a block of T tokens."""
+    c = int(math.ceil(T * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return max(min(c, T), 1)
+
+
+def _moe_block(p: Params, xt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Capacity dispatch for one token block. xt: (T, d) -> (T, d)."""
+    T, d = xt.shape
+    E, k = cfg.n_experts, cfg.top_k
+    logits = xt.float() @ p["router"]                        # (T, E)
+    topv, topi = route(logits, k)                            # (T, k)
+    gates = torch.softmax(topv, dim=-1)                      # normalize over k
+    C = capacity(T, cfg)
+
+    # position of each (token, choice) within its expert's buffer
+    onehot = F.one_hot(topi, E).float()                      # (T, k, E)
+    flat = onehot.reshape(T * k, E)
+    pos = torch.cumsum(flat, dim=0) - flat                   # (T*k, E)
+    pos = (pos.reshape(T, k, E) * onehot).sum(-1)            # (T, k) slot ids
+    kept = pos < C
+
+    # token ids into (E + 1, C) expert buffers; row E is the overflow bin
+    tok_ids = torch.arange(T, device=xt.device)[:, None].expand(T, k)
+    e_idx = torch.where(kept, topi, E).reshape(-1)
+    c_idx = pos.clamp(0, C - 1).long()
+    slot_tok = torch.zeros((E + 1, C), dtype=torch.long, device=xt.device)
+    slot_tok[e_idx, c_idx.reshape(-1)] = tok_ids.reshape(-1)
+    slot_valid = torch.zeros((E + 1, C), dtype=torch.bool, device=xt.device)
+    slot_valid[e_idx, c_idx.reshape(-1)] = True
+    xe = xt[slot_tok[:E].reshape(-1)].reshape(E, C, d)
+    xe = xe * slot_valid[:E, :, None].to(xe.dtype)           # (E, C, d)
+
+    h = F.silu(torch.bmm(xe, p["experts_gate"])) * torch.bmm(xe, p["experts_up"])
+    ye = torch.bmm(h, p["experts_down"])                     # (E, C, d)
+
+    # gather back: y_t = sum_k gate * ye[e_tk, c_tk]
+    flat_idx = topi.clamp(0, E - 1) * C + c_idx              # (T, k)
+    y_k = ye.reshape(E * C, d)[flat_idx.reshape(-1)].reshape(T, k, d)
+    w = (gates * kept).to(y_k.dtype)
+    return torch.einsum("tk,tkd->td", w, y_k).to(xt.dtype)
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d). Top-k capacity routing, in blocks of
+    ``moe_block_tokens`` tokens (capacity and slots per block) when the
+    tokens divide into more than one block, else as one block."""
+    B, S, d = x.shape
+    T = B * S
+    xt = x.reshape(T, d)
+    blk = cfg.moe_block_tokens
+    if T % blk == 0 and T > blk:
+        y = torch.cat([_moe_block(p, xb, cfg) for xb in xt.split(blk)])
+    else:
+        y = _moe_block(p, xt, cfg)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], xt, cfg.mlp_act)
+    return y.reshape(B, S, d).to(x.dtype)
+
+
+def moe_aux_loss(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Load-balancing auxiliary loss (Switch-style): E * sum_e f_e * p_e."""
+    xt = x.reshape(-1, x.shape[-1])
+    logits = xt.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    top1 = logits.argmax(-1)
+    frac = F.one_hot(top1, cfg.n_experts).float().mean(0)
+    return cfg.n_experts * (frac * probs.mean(0)).sum()

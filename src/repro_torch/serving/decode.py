@@ -2,7 +2,8 @@
 
 Port of ``repro.serving.decode`` without the mesh: ``make_prefill_step``
 runs :func:`~repro_torch.models.transformer.forward` (flash attention and
-the SSD scan on the card) and returns logits only, and
+the SSD scan on the card), after :func:`~repro_torch.models.transformer.encode`
+of the frames for an encoder-decoder model, and returns logits only, and
 ``make_decode_step`` runs one
 :func:`~repro_torch.models.transformer.decode_step` (decode attention),
 updating the cache in place. The sequence-sharded
@@ -31,12 +32,13 @@ def make_decode_step(cfg: ModelConfig):
 
 def make_prefill_step(cfg: ModelConfig):
     """Prefill: (params, tokens (B,S), context?) -> logits (B,S,V)
-    float32."""
-    if cfg.encoder_stages is not None:
-        raise tr._not_ported("the encoder (encoder_stages)")
+    float32. With ``cfg.encoder_stages`` (whisper) ``context`` holds the
+    frame embeddings, which are encoded first."""
 
     @torch.no_grad()
     def step(params, tokens, context=None):
+        if cfg.encoder_stages is not None:
+            context = tr.encode(params, context, cfg)
         return tr.forward(params, tokens, cfg, context=context)
 
     return step

@@ -10,9 +10,11 @@ is not None``. The port has no mesh: ``compressed_grads=True`` runs the
 int8 error-feedback mean over a data-parallel group of size 1, which is
 what JAX computes on a 1x1 mesh (quantise, dequantise, carry the error).
 
-Not ported: encoder models (``tr.forward`` raises for them) and MoE,
-whose auxiliary loss weight the JAX ``loss_fn`` takes; both raise
-``NotImplementedError`` through ``repro_torch.models.transformer``.
+Encoder models (whisper) encode ``batch["frames"]`` into
+``batch["context"]`` before the loss, as JAX's ``_loss`` does; a vision
+batch carries its ``context``. MoE's load-balancing loss is not added:
+the JAX ``loss_fn`` takes ``aux_weight`` and does not use it, and neither
+does the port's.
 """
 
 from __future__ import annotations
@@ -48,11 +50,21 @@ def init_train_state(gen: torch.Generator, cfg: ModelConfig,
     return {"params": params, "opt": opt.init_state(params, tcfg.adamw)}
 
 
+def _loss(params, batch, cfg: ModelConfig, remat: bool = False):
+    """``tr.loss_fn``, after encoding ``batch["frames"]`` into
+    ``batch["context"]`` for an encoder-decoder model."""
+    batch = dict(batch)
+    if cfg.encoder_stages is not None:
+        batch["context"] = tr.encode(params, batch.pop("frames"), cfg,
+                                     remat=remat)
+    return tr.loss_fn(params, batch, cfg, remat=remat)
+
+
 def _value_and_grad(params, batch, cfg: ModelConfig, remat: bool):
     """(loss, gradients shaped like ``params``, each in its leaf's dtype)."""
     p = tr.tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = tr.tree_leaves(p)
-    loss = tr.loss_fn(p, batch, cfg, remat=remat)
+    loss = _loss(p, batch, cfg, remat=remat)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     it = iter(torch.zeros_like(t) if g is None else g
               for t, g in zip(leaves, grads))
@@ -81,16 +93,29 @@ def _grads(params, batch, cfg: ModelConfig, tcfg: TrainConfig):
     return loss_acc, grad_acc
 
 
+#: batch entries that hold embeddings (float), not token ids
+FLOAT_INPUTS = ("context", "frames")
+
+
 def _on_device(batch, dev: torch.device) -> Dict[str, torch.Tensor]:
-    # numpy batches are copied: the loader's arrays are read-only views
-    return {k: torch.as_tensor(np.array(v, np.int64) if isinstance(
-        v, np.ndarray) else v, device=dev).long() for k, v in batch.items()}
+    """Token ids as int64 tensors on ``dev``; ``context`` and ``frames``
+    keep their float dtype. numpy batches are copied: the loader's arrays
+    are read-only views."""
+    out = {}
+    for k, v in batch.items():
+        if k in FLOAT_INPUTS:
+            out[k] = torch.as_tensor(np.array(v) if isinstance(
+                v, np.ndarray) else v, device=dev)
+        else:
+            out[k] = torch.as_tensor(np.array(v, np.int64) if isinstance(
+                v, np.ndarray) else v, device=dev).long()
+    return out
 
 
 def train_step(state, batch, cfg: ModelConfig, tcfg: TrainConfig,
                ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """state: {'params', 'opt'}; batch: {'tokens', 'labels'} (numpy or
-    tensors). Returns (state, {'loss', 'step'}); the parameters and the
+    tensors), with 'context' (vision) or 'frames' (whisper). Returns (state, {'loss', 'step'}); the parameters and the
     optimizer's tensors are updated in place."""
     params = state["params"]
     batch = _on_device(batch, tr.tree_leaves(params)[0].device)

@@ -88,7 +88,10 @@ def model_param_arrays(params):
     """``repro`` ``init_params`` pytree -> the same nesting of dicts and
     tuples with float32 numpy leaves. bfloat16 leaves are cast to float32
     first: numpy holds them as ``ml_dtypes.bfloat16``, which
-    ``torch.as_tensor`` refuses."""
+    ``torch.as_tensor`` refuses. ``None`` (a cross block's cache entry)
+    stays ``None``."""
+    if params is None:
+        return None
     if isinstance(params, dict):
         return {k: model_param_arrays(v) for k, v in params.items()}
     if isinstance(params, (tuple, list)):

@@ -464,6 +464,89 @@ def test_decode_split_kernel_edges_are_exact_and_repeatable(
     assert not out[kv_len == 0].float().any()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,lens", [
+    (161, [0, 1, 160, 37]),          # the zoo's serve loop: kv_len 0 .. 160
+    (4096, [4096, 1, 0, 2049]),      # a long latent cache: 64 splits
+])
+def test_decode_kernel_reads_mla_latent_v_inside_k(card, S, lens, dtype):
+    """MLA's absorbed decode: 16 query heads of 576 against one latent KV
+    head, v the cache's first 512 columns. The kernel reads v inside k's
+    tiles (no copy: ops.decode_attention hands the view on), agrees with
+    the plain version, gives 0 where kv_len is 0 and the same bits on a
+    second call."""
+    B, Hq, r, rope = 4, 16, 512, 64
+    q, cache = _randn(15, (B, Hq, r + rope), (B, S, r + rope), dtype=dtype,
+                      device=card)
+    k = cache[:, :, None, :]
+    v = k[..., :r]
+    assert tda.v_in_k(k, v) and not v.is_contiguous()
+    kv_len = torch.as_tensor(lens, dtype=torch.int32, device=card)
+    seen = []
+    orig = tda.decode_attention_kernel
+
+    def spy(q_, k_, v_, *a, **kw):
+        seen.append((k_.data_ptr(), v_.data_ptr(), v_.is_contiguous()))
+        return orig(q_, k_, v_, *a, **kw)
+
+    tda.decode_attention_kernel = spy
+    try:
+        ops.reset_launch_counts()
+        out = ops.decode_attention(q, k, v, kv_len)
+        again = ops.decode_attention(q, k, v, kv_len)
+        torch.cuda.synchronize()
+    finally:
+        tda.decode_attention_kernel = orig
+    assert ops.launch_counts["decode_attention"] == 2
+    assert seen == [(cache.data_ptr(), cache.data_ptr(), False)] * 2
+    assert out.shape == (B, Hq, r) and torch.equal(out, again)
+    _assert_close(out, tda.decode_attention_plain(q, k, v, kv_len),
+                  ATTN_TOL[dtype])
+    assert not out[kv_len == 0].float().any()
+    info = tda.decode_attention_info(S, Hq, 1, r + rope, r, dtype, B=B,
+                                     aliased=True)
+    assert info["group"] == tda.WIDE_GROUP and info["smem_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,lens", [
+    (4, 161, 40, 8, 128, [160, 1, 0, 77]),     # llama4-scout: rep 5
+    (4, 161, 64, 8, 128, [160, 100, 3, 0]),    # llama-3.2-vision: rep 8
+    (4, 161, 12, 12, 64, [160, 160, 9, 0]),    # whisper's decoder: MHA 64
+])
+def test_decode_kernel_at_the_zoo_gqa_shapes(card, B, S, Hq, Hkv, D, lens,
+                                             dtype):
+    q, k, v = _randn(16, (B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                     dtype=dtype, device=card)
+    kv_len = torch.as_tensor(lens, dtype=torch.int32, device=card)
+    out = ops.decode_attention(q, k, v, kv_len)
+    assert torch.equal(out, ops.decode_attention(q, k, v, kv_len))
+    _assert_close(out, tda.decode_attention_plain(q, k, v, kv_len),
+                  ATTN_TOL[dtype])
+    assert not out[kv_len == 0].float().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,Dv,causal", [
+    (2, 256, 256, 16, 16, 192, 128, True),     # MLA prefill: nope + rope
+    (1, 1500, 1500, 12, 12, 64, 64, False),    # whisper's encoder
+    (4, 1, 1500, 12, 12, 64, 64, False),       # cross-attention in decode
+    (2, 128, 1500, 12, 12, 64, 64, False),     # whisper's cross prefill
+    (1, 64, 4100, 64, 8, 128, 128, False),     # vision cross, rep 8
+])
+def test_flash_kernel_at_the_zoo_shapes(card, B, Sq, Sk, Hq, Hkv, D, Dv,
+                                        causal, dtype):
+    q, k, v = _randn(17, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv),
+                     dtype=dtype, device=card)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert dict(ops.route_counts) == {
+        f"flash_attention.{_build.ROUTES[dtype]}": 1}
+    _assert_close(out, tfa.flash_attention_plain(q, k, v, causal=causal),
+                  ATTN_TOL[dtype])
+
+
 @pytest.mark.parametrize("V,n_buckets", [(400_000, 1), (400_000, 16),
                                          (30_000, 1), (30_000, 5)])
 def test_entropy_cluster_kernel_large_vocab_is_repeatable(card, V, n_buckets):

@@ -142,6 +142,54 @@ def test_loss_and_grads_match_jax(arch):
         assert _normwise(v, g_plain[k]) <= 1e-6, k
 
 
+def _zoo_batch(seed, cfg, B=2, S=12):
+    """Tokens and labels, plus vision's patch embeddings ('context') or
+    whisper's frames ('frames', encoded by the train step's loss)."""
+    batch = _batch(seed, cfg, B, S)
+    rng = np.random.default_rng(seed + 100)
+    if cfg.cross_context:
+        batch["context"] = rng.standard_normal(
+            (B, cfg.cross_context, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_stages is not None:
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder_context, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "llama4-scout-17b-a16e",
+                                  "llama-3.2-vision-90b", "whisper-small"])
+def test_loss_and_grads_match_jax_with_moe_mla_and_context(arch):
+    """MLA and MoE blocks (deepseek, llama4), cross-attention into patch
+    embeddings (vision) and the encoder (whisper's frames encoded inside
+    the loss), against ``jax.value_and_grad`` of ``repro``'s train-step
+    loss: the loss within rel 1e-5 and every gradient, the router's and
+    the encoder's included, normwise within 1e-4."""
+    cfg, tcfg, jstate, tstate = _states(arch, jts.TrainConfig(),
+                                        tts.TrainConfig())
+    batch = _zoo_batch(2, cfg)
+    jl, jg = jax.jit(jax.value_and_grad(functools.partial(
+        jts._loss, cfg=cfg)))(jstate["params"],
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tg = tts._value_and_grad(tstate["params"], tts._on_device(
+        batch, torch.device("cpu")), tcfg, True)
+    assert float(tl) == pytest.approx(float(jl), rel=1e-5)
+    _assert_trees(tg, jg, 1e-4, f"{arch} grads")
+    if cfg.encoder_stages is not None:
+        assert float(np.abs(_paths(tg["encoder"])["/final_norm"]).max()) > 0
+
+
+def test_loss_fn_takes_aux_weight_and_ignores_it():
+    """As in repro, ``loss_fn`` takes ``aux_weight`` and adds no MoE
+    load-balancing term: the loss is the same at any weight."""
+    cfg, tcfg, _, tstate = _states("llama4-scout-17b-a16e",
+                                   jts.TrainConfig(), tts.TrainConfig())
+    batch = tts._on_device(_batch(3, cfg), torch.device("cpu"))
+    losses = {w: float(ttr.loss_fn(tstate["params"], batch, tcfg,
+                                   aux_weight=w)) for w in (0.0, 0.01, 10.0)}
+    assert len(set(losses.values())) == 1
+
+
 @pytest.mark.parametrize("compressed,microbatches", [
     (False, 1), (True, 1), (False, 2), (True, 2)])
 def test_three_train_steps_match_jax(compressed, microbatches):
