@@ -4,8 +4,9 @@ path, its re-optimization under drift, streaming placement, access
 forecasting and the multi-tenant fleet solver, the re-optimization daemon
 with its async migrator under injected faults, zamba2-2.7b serving, the
 model zoo's MLA, MoE, cross-attention and encoder models serving
-(deepseek-v2-lite-16b at full size), and zamba2-2.7b training with
-SCOPe-managed checkpoints.
+(deepseek-v2-lite-16b at full size), zamba2-2.7b served by two ranks that
+share the card with its decode cache sharded over them, and zamba2-2.7b
+training with SCOPe-managed checkpoints.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -14,7 +15,8 @@ non-zero (with no result line):
 
 1. device   the card's name and count, and ``nvidia-smi``'s name and power
             limit; no card is a failure.
-2. build    all seven kernels from ``src/repro_torch/kernels/csrc``, one
+2. build    all eight sources from ``src/repro_torch/kernels/csrc`` (the
+            seven TPU kernels and the fleet scan's usage sum), one
             nvcc per source, all started together (``-Xptxas -v``
             register/shared-memory lines, build seconds); K6's split kernel
             at the serve loop's cache (registers, shared memory, stages,
@@ -102,6 +104,11 @@ non-zero (with no result line):
             cells) and, uncoupled, to the per-tenant solves; the scan's
             device time (torch.profiler, outside the timed run), its
             operations on the card, the host finish, peak device memory.
+            The T 1,024 solve must launch the ``usage_sum`` kernel once
+            per scan step (counts zeroed before, read after); at its
+            first step's cells the kernel's float32 row-order sums equal
+            the host's ``np.add.at`` bit for bit, with its time, the
+            plain version's, ``index_add_``'s and its bound.
 10. daemon  runs after phase 9; each part on cuda and on cpu, its lines
             ending with the card's name and power limit, then its seconds.
             (1) ``benchmarks/bench_daemon.py``'s batch section (N 500,
@@ -143,7 +150,39 @@ non-zero (with no result line):
             of kernel and plain prefills identical except where the plain
             logits of the two picks lie within twice the logits' error.
             This phase runs before phase 5, which uses the shapes it saw.
-11. zoo    runs after phase 6, before 7: deepseek-v2-lite-16b (full width
+12. mesh   runs after phase 6, before 11. K6's partials mode at zamba2's
+            shape (B 4, 32 heads of 80, a cache of 544 cut in two) and
+            deepseek's latent shape (16 heads of 576, v inside k, 4,096
+            cut in two), each slice at four (offset, window) settings
+            against its plain version (m within 1e-5, l 1e-4, acc / l
+            2e-2; rows without a visible key exact; the same bits
+            twice), and 2 and 4 slices merged against unsharded K6 (2e-2,
+            bf16); a rank's slice timed against its bound. Then two ranks
+            (``torch.multiprocessing``, spawn) share the card:
+            ``launch_mesh(1, 2)`` under torchrun's variables starts gloo
+            (nccl refuses two ranks on one card), and each serves
+            zamba2-2.7b at full width from seed 0, B 4, a prompt of 32 fed
+            one token a step and 8 greedy tokens, its decode cache's
+            sequence sharded over 'model' (21 of 42 slots a rank): the
+            prefill through the mesh (K5 9, K7 54 launches), the serve
+            loop (counts zeroed before, read after: K6 launched 9 times a
+            step, every one in its partials mode; two all-reduces per
+            attention call, every reduced tensor on cuda). Rank 0 runs the
+            same prefill and loop unsharded (fed the sharded run's
+            tokens): bf16 logits within 0.15 and greedy picks equal
+            except at near-ties; 24 steps again in float32 (weights cast)
+            within 1e-3. Both ranks' tokens equal; ms a step sharded and
+            unsharded. Then at the serve phase's cache length: a cache of
+            544 slots filled at random from a seed, each rank given its
+            272 by ``serving.decode.shard_cache``, 4 steps from position
+            512 sharded and (rank 0) unsharded on the same cache and
+            seeded tokens, in bf16 (0.15) and float32 (1e-3), counts
+            zeroed before each; the phase's seconds. The K6 entry of the
+            kernel JSON line carries the partials rows under "partials",
+            each with the launches at its shape in this phase: zamba2's
+            272-key slice those of the full-length steps, deepseek's
+            latent slice 0 (no mesh path here decodes deepseek).
+11. zoo    runs after phase 12, before 7: deepseek-v2-lite-16b (full width
             and depth: 27 layers, MLA, 64 experts top-6 + 2 shared),
             whisper-small (full: 12 encoder + 12 decoder layers),
             llama4-scout-17b-a16e (full width, 8 of 48 layers) and
@@ -233,8 +272,8 @@ non-zero (with no result line):
             call), one CUDA launch a call and no host sync.
 
 The script takes no arguments: the sizes are fixed. The last three lines
-are the kernel JSON line, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``.
+are the kernel JSON line (K1-K7 and ``usage_sum``), the ``nvidia-smi``
+line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1860,9 +1899,13 @@ def phase_stream(torch, parts, rows, forest, smi_line):
     mb = 2 * SCALE_T * n_max * L * 3 * 4 / 1e6
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
     fk, tk, sk, args = _fleet_solve(torch, optassign, cols, CARD)
+    n_usage = ops.launch_counts["usage_sum"]
     peak = torch.cuda.max_memory_allocated()
     check(fk.feasible, f"fleet T {SCALE_T}: infeasible")
+    check(n_usage == args[9], f"fleet T {SCALE_T}: the usage-sum kernel "
+          f"launched {n_usage} times in {args[9]} scan steps")
     t0 = time.perf_counter()
     cells_cpu = optassign._fleet_scan(*args[:-1], torch.device("cpu"))
     t_cpu_scan = time.perf_counter() - t0
@@ -1877,7 +1920,51 @@ def phase_stream(torch, parts, rows, forest, smi_line):
         f"{peak / 1e6:.2f} MB; the scan's cells identical on the cpu "
         f"({t_cpu_scan:.3f} s there), so the host finish gives the same "
         f"plans {card}")
+    usage = _usage_row(torch, args, n_usage, card)
     say("stream", f"phase stream took {time.perf_counter() - t_phase:.1f} s")
+    return usage
+
+
+def _usage_row(torch, args, launches, card):
+    """The fleet scan's usage-sum kernel at the scale fleet's first step
+    (the cells of zero multipliers): bit for bit the host's float32 sums in
+    row order, its time, the plain version's, ``index_add_``'s (the same
+    sums in no fixed order) and its bound."""
+    from repro_torch.kernels import usage_sum as us
+    m, s = args[0], args[1]
+    T, N, L, K = m.shape
+    dev = torch.device(CARD)
+    idx = torch.as_tensor(m.reshape(T, N, L * K), dtype=torch.float32,
+                          device=dev).argmin(2)
+    chosen = torch.as_tensor(s.reshape(T, N, L * K), dtype=torch.float32,
+                             device=dev).gather(2, idx[..., None])[..., 0]
+    chosen = chosen.contiguous()
+    got = us.usage_sum_kernel(idx, chosen, K, L)
+    check(torch.equal(got, us.usage_sum_plain(idx, chosen, K, L))
+          and torch.equal(got, us.usage_sum_kernel(idx, chosen, K, L)),
+          "usage_sum: the kernel's sums are not the host's float32 sums in "
+          "row order, or two calls differ")
+    ms = cuda_ms(lambda: us.usage_sum_kernel(idx, chosen, K, L), torch)
+    plain = cuda_ms(lambda: us.usage_sum_plain(idx, chosen, K, L), torch,
+                    iters=5)
+    flat = (torch.arange(T, device=dev)[:, None] * L + idx // K).reshape(-1)
+    lib = cuda_ms(lambda: torch.zeros(T * L, device=dev).index_add_(
+        0, flat, chosen.reshape(-1)), torch)
+    need = {"idx": 8 * T * N, "chosen": 4 * T * N, "use": 4 * T * L}
+    n_ops = float(T * N)            # one addition per row
+    b, by = bound_ms(float(sum(need.values())), n_ops)
+    say("stream", f"usage_sum at the scale fleet (T {T:,}, N_max {N}, L "
+        f"{L}, K {K}): sums identical to the host's float32 sums in row "
+        f"order and on a second call; {launches} launches in the solve (one "
+        f"per scan step); kernel {ms:.4f} ms, plain (host np.add.at, with "
+        f"the copies) {plain:.4f} ms, index_add_ (no fixed order) {lib:.4f} "
+        f"ms; bound {b:.5f} ms ({by}; {_counts(need)} bytes, {n_ops:.0f} "
+        f"ops) {card}")
+    return {"name": "usage_sum", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/usage_sum.cu",
+            "replaces": "src/repro/core/optassign.py:713", "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b,
+            "bound_by": by, "library_ms": lib}
 
 
 # ------------------------------------------------------------- daemon phase
@@ -2538,6 +2625,402 @@ def phase_serve(torch, recorded):
             "logits of the two picks lie within twice the bf16 error there")
     return {"prefill": prefill_launches, "serve": serve_launches,
             "prefill_s": prefill_s, "step_ms": step_ms, "n_attn": n_attn}
+
+
+# -------------------------------------------------------------- mesh phase
+MESH_PROMPT, MESH_NEW = 32, 8        # the two-rank serve loop: 39 steps
+MESH_F32_STEPS = 24                  # of them replayed in float32
+MESH_FULL_AT, MESH_FULL_STEPS = 512, 4   # steps on a full-length cache
+MESH_TIMEOUT = 300                   # seconds the two ranks may take
+
+
+def _partials_case(torch, latent, S):
+    """q, the global cache and global lengths at zamba2's shared attention
+    block (B 4, 32 heads of 80) or deepseek's absorbed decode (16 heads of
+    576 on one latent head, v its first 512 columns), bf16, seeded."""
+    dev = torch.device(CARD)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16)
+    B = SERVE_BATCH
+    if latent:
+        q, cache = r(B, 16, 576), r(B, S, 576)
+        k = cache[:, :, None, :]
+        v = k[..., :512]
+    else:
+        q, k, v = r(B, 32, 80), r(B, S, 32, 80), r(B, S, 32, 80)
+    lens = torch.tensor([S, S // 2 + 3, 5, S - 40], dtype=torch.int32,
+                        device=dev)
+    return q, k, v, lens
+
+
+def _slice(k, v, latent, a, n):
+    """A rank's own slice [a, a + n) of the cache (contiguous, v inside k
+    for the latent cache, as ``serving.decode.init_cache`` allocates it)."""
+    ks = k[:, a:a + n].contiguous()
+    return ks, (ks[..., :512] if latent else v[:, a:a + n].contiguous())
+
+
+def _partials_rows(torch, smi_line):
+    """K6's partials mode on the card: each slice configuration against
+    the plain version, the merge of 2 and 4 slices against unsharded K6,
+    and the time, plain time and bound of a rank's slice at the sharded
+    decode's shapes (half of zamba2's serve cache, half of deepseek's
+    latent cache at kv_len 4,096)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    tol = 2e-2                       # K6's bf16 tolerance (its card tests)
+    rows = []
+    for what, latent, S in (("zamba2 (B 4, 32 heads of 80)", False,
+                             SERVE_PROMPT + SERVE_STEPS),
+                            ("deepseek latent (B 4, 16 heads of 576, v in "
+                             "k)", True, ZOO_LATENT_KV)):
+        q, k, v, lens = _partials_case(torch, latent, S)
+        n = S // 2
+        errs = []
+        for a, window in ((n, None), (n, 3 * S // 4), (0, S // 4),
+                          (3 * S // 4, S // 8)):
+            w = n if a < 3 * S // 4 else S // 4
+            ks, vs = _slice(k, v, latent, a, w)
+            local = torch.clamp(lens - a, 0, w).to(torch.int32)
+            kw = dict(offset=a, global_len=lens, window=window)
+            acc, m, l = da.decode_attention_partials_kernel(q, ks, vs, local,
+                                                            **kw)
+            again = da.decode_attention_partials_kernel(q, ks, vs, local, **kw)
+            check(all(torch.equal(x, y) for x, y in zip((acc, m, l), again)),
+                  f"K6 partials {what}: two calls differ")
+            acc_p, m_p, l_p = da.decode_attention_partials_plain(
+                q, ks, vs, local, **kw)
+            seen = l_p > 0
+            check(torch.equal(seen, l > 0) and torch.equal(m[~seen], m_p[~seen])
+                  and not acc[~seen].any(), f"K6 partials {what} at offset "
+                  f"{a}, window {window}: rows without a visible key differ")
+            if seen.any():
+                errs.append(_allclose(torch, m[seen], m_p[seen], 1e-5))
+                errs.append(_allclose(torch, l[seen], l_p[seen], 1e-4))
+                errs.append(_allclose(
+                    torch, acc[seen] / l[seen][:, None],
+                    acc_p[seen] / l_p[seen][:, None], tol))
+        merged = {}
+        want = ops.decode_attention(q, k, v, lens)
+        for slices in (2, 4):
+            w = S // slices
+            parts = []
+            for r in range(slices):
+                ks, vs = _slice(k, v, latent, r * w, w)
+                parts.append(da.decode_attention_partials_kernel(
+                    q, ks, vs, torch.clamp(lens - r * w, 0, w).to(torch.int32),
+                    offset=r * w, global_len=lens))
+            m_star = torch.stack([p[1] for p in parts]).amax(0)
+            c = [torch.exp(p[1] - m_star) for p in parts]
+            L = sum(p[2] * x for p, x in zip(parts, c))
+            A = sum(p[0] * x[..., None] for p, x in zip(parts, c))
+            got = (A / torch.clamp_min(L, 1e-30)[..., None]).to(q.dtype)
+            merged[slices] = _allclose(torch, got, want, tol)
+        # the sharded decode's rank-1 slice, every row at full occupancy
+        ks, vs = _slice(k, v, latent, n, n)
+        full = torch.full_like(lens, S)
+        local = torch.full_like(lens, n)
+        call = lambda: da.decode_attention_partials_kernel(
+            q, ks, vs, local, offset=n, global_len=full)
+        acc, m, l = call()
+        acc_p, m_p, l_p = da.decode_attention_partials_plain(
+            q, ks, vs, local, offset=n, global_len=full)
+        err = _allclose(torch, acc / l[..., None], acc_p / l_p[..., None], tol)
+        ms = cuda_ms(call, torch)
+        plain = cuda_ms(lambda: da.decode_attention_partials_plain(
+            q, ks, vs, local, offset=n, global_len=full), torch, iters=5)
+        B, Hq, D = q.shape
+        Hkv, Dv = ks.shape[2], vs.shape[-1]
+        el = q.element_size()
+        need = {"q": q.numel() * el,
+                "slice rows": B * n * Hkv * (D if latent else D + Dv) * el,
+                "lengths": 8 * B, "acc, m, l": 4 * B * Hq * (Dv + 2)}
+        n_ops = float(B * n * Hq * (2 * D + 2 * Dv))
+        b, by = bound_ms(float(sum(need.values())), n_ops,
+                         _rate(torch, q.dtype))
+        say("mesh", f"K6 partials, {what}: 4 slice configurations (offset "
+            f"and window: (S/2, none), (S/2, starting before the slice), (0, "
+            f"inside it), (3S/4, a quarter slice)) against the plain version, "
+            f"largest error {max(errs):.3e} (m within 1e-5, l 1e-4, acc / l "
+            f"{tol}), rows with no visible key exact, the same bits twice; 2 "
+            f"and 4 slices merged against unsharded K6: {merged[2]:.3e}, "
+            f"{merged[4]:.3e} (tolerance {tol}, bf16). A rank's slice (S "
+            f"{S} over 2: {n} keys): kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, no single PyTorch call gives (acc, m, l); bound {b:.5f} ms "
+            f"({by}; {_counts(need)} bytes, {n_ops:.0f} ops) | {smi_line}")
+        rows.append({"shape": f"{what}, slice {n} of {S}", "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain, "bound_ms": b,
+                     "bound_by": by, "library_ms": None})
+    return rows
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_rank(rank, out_dir, port):
+    """One of two ranks sharing the card: ``launch_mesh(1, 2)`` under
+    torchrun's variables (gloo, since both ranks are on one card), then
+    zamba2-2.7b at full width served with the decode cache's sequence over
+    'model': the prefill through the mesh and the serve loop, counts zeroed
+    before each; rank 0 then runs the same prefill and loop unsharded (the
+    loop fed the sharded run's tokens)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import ctx
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import launch_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import transformer as tr
+    from repro_torch.serving import decode
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh, dev = launch_mesh(1, 2, CARD)
+    out = {"backend": dist.get_backend(), "device": str(dev)}
+    cfg = get_config(ARCH)
+    B, P, N = SERVE_BATCH, MESH_PROMPT, MESH_NEW
+    max_seq = -(-(P + N + 1) // 2) * 2
+    params = tr.init_params(torch.Generator(device=dev).manual_seed(SEED),
+                            cfg, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), device=dev,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(SEED + 1))
+    prefill = decode.make_prefill_step(cfg, mesh)
+    prefill(params, prompts[:, :8])                        # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ctx.reduced_on.clear()
+    t0 = time.perf_counter()
+    pre = prefill(params, prompts)
+    torch.cuda.synchronize()
+    out["prefill_s"] = time.perf_counter() - t0
+    out["prefill_launches"] = dict(ops.launch_counts)
+    fed = []
+
+    def recording(step):
+        def wrapped(p, cache, tokens, pos, context=None):
+            logits, cache = step(p, cache, tokens, pos, context)
+            fed.append((tokens.clone(), pos.clone(), logits.float().cpu()))
+            return logits, cache
+        return wrapped
+
+    cache = decode.init_cache(cfg, B, max_seq, mesh=mesh, device=dev)
+    out["slots"] = [c[0].shape[2] for st, sc in zip(cfg.stages, cache)
+                    for kind, c in zip(st.unit, sc) if kind == "shared_attn"]
+    ops.reset_launch_counts()
+    ctx.reduced_on.clear()
+    res = serve(recording(decode.make_decode_step(cfg, mesh)), params, cache,
+                prompts, N)
+    out.update(launches=dict(ops.launch_counts),
+               routes=dict(ops.route_counts), reduced=dict(ctx.reduced_on),
+               tokens=res.tokens.cpu(), steps=len(fed),
+               step_ms=1e3 * (res.prompt_s + res.decode_s) / len(fed))
+    # float32, the same weights cast: the first steps' tokens again, through
+    # the sharded step and (rank 0) the unsharded one
+    cfg32 = cfg.scaled(dtype="float32")
+    p32 = tr.tree_map(lambda t: t.float(), params)
+    steps32 = {"sharded": (decode.make_decode_step(cfg32, mesh),
+                           decode.init_cache(cfg32, B, max_seq, mesh=mesh,
+                                             device=dev))}
+    if rank == 0:
+        steps32["unsharded"] = (decode.make_decode_step(cfg32),
+                                decode.init_cache(cfg32, B, max_seq,
+                                                  device=dev))
+    for name, (step, cache) in steps32.items():
+        lg = [step(p32, cache, tokens, pos)[0].cpu()
+              for tokens, pos, _ in fed[:MESH_F32_STEPS]]
+        out[f"f32_{name}"] = torch.stack(lg)
+    del steps32
+    # the serve phase's cache length: one global cache of SERVE_PROMPT +
+    # SERVE_STEPS slots filled at random from a seed (the same on both
+    # ranks), each rank's half taken by shard_cache; MESH_FULL_STEPS steps
+    # from position MESH_FULL_AT, fed seeded tokens, sharded and (rank 0)
+    # unsharded from a copy of the same cache, in bf16 and in float32
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    full = decode.init_cache(cfg, B, SERVE_PROMPT + SERVE_STEPS, device=dev)
+    for t in tr.tree_leaves(full):
+        t.copy_(torch.randn(t.shape, generator=g, device=dev))
+    toks = torch.randint(0, cfg.vocab_size, (MESH_FULL_STEPS, B, 1),
+                         generator=g, device=dev)
+    for name, c, p in (("bf16", cfg, params), ("f32", cfg32, p32)):
+        glob = tr.tree_map(lambda t: t.to(p["embed"].dtype, copy=True), full)
+        mine = tr.tree_map(lambda t: t.clone(),
+                           decode.shard_cache(glob, c, mesh))
+        runs = {"sharded": (decode.make_decode_step(c, mesh), mine)}
+        if rank == 0:
+            runs["unsharded"] = (decode.make_decode_step(c), glob)
+        for how, (step, cache) in runs.items():
+            ops.reset_launch_counts()
+            ctx.reduced_on.clear()
+            lg = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(MESH_FULL_STEPS):
+                at = torch.full((B,), MESH_FULL_AT + i, dtype=torch.int32,
+                                device=dev)
+                lg.append(step(p, cache, toks[i], at)[0].float().cpu())
+            torch.cuda.synchronize()
+            key = f"full_{name}_{how}"
+            out[key] = torch.stack(lg)
+            out[key + "_ms"] = 1e3 * (time.perf_counter() - t0) \
+                / MESH_FULL_STEPS
+            out[key + "_counts"] = (dict(ops.route_counts),
+                                    dict(ctx.reduced_on))
+        out["full_slots"] = [cc[0].shape[2] for st, sc in zip(cfg.stages, mine)
+                             for kind, cc in zip(st.unit, sc)
+                             if kind == "shared_attn"]
+        del glob, mine, runs
+    del p32, full
+    if rank == 0:
+        pre1 = decode.make_prefill_step(cfg)(params, prompts)
+        cache1 = decode.init_cache(cfg, B, max_seq, device=dev)
+        step1 = decode.make_decode_step(cfg)
+        logits1 = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tokens, pos, _ in fed:
+            lg, cache1 = step1(params, cache1, tokens, pos)
+            logits1.append(lg.float().cpu())
+        torch.cuda.synchronize()
+        out.update(unsharded_step_ms=1e3 * (time.perf_counter() - t0)
+                   / len(fed),
+                   prefill=pre.float().cpu(), prefill1=pre1.float().cpu(),
+                   logits=torch.stack([lg for _, _, lg in fed]),
+                   logits1=torch.stack(logits1))
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh(torch, smi_line):
+    """K6's partials on the card, then zamba2-2.7b served over two ranks
+    that share the card, its cache's sequence sharded over 'model'."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows = _partials_rows(torch, smi_line)
+
+    out_dir = tempfile.mkdtemp(dir=str(ROOT / "build"))
+    pc = mp.start_processes(_mesh_rank, args=(out_dir, _free_port()),
+                            nprocs=2, join=False, start_method="spawn")
+    deadline = time.perf_counter() + MESH_TIMEOUT
+    try:
+        while not pc.join(timeout=5):
+            check(time.perf_counter() < deadline,
+                  f"the two mesh ranks outlasted {MESH_TIMEOUT} s")
+    finally:
+        for p in pc.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    got = [torch.load(os.path.join(out_dir, f"rank{r}.pt")) for r in (0, 1)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(ARCH)
+    n_attn = sum(s.repeats * s.unit.count("shared_attn") for s in cfg.stages)
+    n_mamba = sum(s.repeats * s.unit.count("mamba") for s in cfg.stages)
+    steps = MESH_PROMPT + MESH_NEW - 1
+    for r, o in enumerate(got):
+        check(o["backend"] == "gloo" and o["device"] == "cuda:0",
+              f"rank {r}: {o['backend']} on {o['device']}, want gloo on cuda:0")
+        half = -(-(MESH_PROMPT + MESH_NEW + 1) // 2)
+        check(o["steps"] == steps and o["slots"]
+              and all(n == half for n in o["slots"]),
+              f"rank {r}: {o['steps']} steps, cache slots {o['slots']}, "
+              f"want {half} a rank")
+        check(o["prefill_launches"] == {"flash_attention": n_attn,
+                                        "ssd_scan": n_mamba},
+              f"rank {r}: prefill launches {o['prefill_launches']}")
+        check(o["launches"] == {"decode_attention": n_attn * steps}
+              and o["routes"] == {"decode_attention.partials": n_attn * steps},
+              f"rank {r}: serve launches {o['launches']}, routes "
+              f"{o['routes']}; want every decode attention through K6's "
+              f"partials, {n_attn * steps}")
+        check(o["reduced"] == {"cuda": 2 * n_attn * steps},
+              f"rank {r}: reduced tensors {o['reduced']}, want "
+              f"{2 * n_attn * steps}, all on cuda")
+    check(torch.equal(got[0]["tokens"], got[1]["tokens"]),
+          "the two ranks generated different tokens")
+    r0 = got[0]
+    e_pre = _allclose(torch, r0["prefill"], r0["prefill1"], TOL_BF16)
+    e_loop = _allclose(torch, r0["logits"], r0["logits1"], TOL_BF16)
+    e_32 = _allclose(torch, r0["f32_sharded"], r0["f32_unsharded"], TOL_F32)
+    check(torch.equal(got[0]["f32_sharded"], got[1]["f32_sharded"]),
+          "the two ranks' float32 logits differ")
+    ties = _near_ties(r0["logits"], r0["logits1"])
+    _check_ties(ties, "mesh serve loop")
+    check(bool(r0["logits"].isfinite().all()), "mesh logits not finite")
+    say("mesh", f"{cfg.name} at full width over two ranks on one card "
+        f"(launch_mesh(1, 2) under torchrun's variables: gloo, both on "
+        f"cuda:0), B {SERVE_BATCH}, prompt {MESH_PROMPT} fed one token a "
+        f"step, then {MESH_NEW} greedy tokens ({steps} steps), each rank "
+        f"holding {r0['slots'][0]} of the shared attention block's "
+        f"{2 * r0['slots'][0]} cache slots: K6 launched "
+        f"{r0['launches']['decode_attention']} times a rank, all in its "
+        f"partials mode; {r0['reduced']['cuda']} all-reduces a rank, every "
+        f"tensor on cuda; the prefill through the mesh launched "
+        f"{r0['prefill_launches']}")
+    say("mesh", f"against the same weights unsharded (rank 0, the loop fed "
+        f"the sharded run's tokens): prefill logits max abs diff "
+        f"{e_pre:.3e}, every step's logits {e_loop:.3e} (tolerance "
+        f"{TOL_BF16}, bf16), {len(ties)} greedy picks differ, each at a "
+        f"near-tie; in float32 (the weights cast) {MESH_F32_STEPS} steps "
+        f"{e_32:.3e} (tolerance {TOL_F32}: only the order of float32 sums "
+        f"differs); the two ranks' tokens identical; {r0['step_ms']:.2f} "
+        f"ms a step sharded, {r0['unsharded_step_ms']:.2f} unsharded; "
+        f"prefill through the mesh {1e3 * r0['prefill_s']:.1f} ms")
+    # the full-length steps: a rank's slice is the first row's shape
+    S_full = SERVE_PROMPT + SERVE_STEPS
+    n_full = n_attn * MESH_FULL_STEPS
+    for r, o in enumerate(got):
+        check(o["full_slots"] and all(n == S_full // 2
+                                      for n in o["full_slots"]),
+              f"rank {r}: full-length cache slots {o['full_slots']}, want "
+              f"{S_full // 2} a rank")
+        for name in ("bf16", "f32"):
+            routes, reduced = o[f"full_{name}_sharded_counts"]
+            check(routes == {"decode_attention.partials": n_full}
+                  and reduced == {"cuda": 2 * n_full},
+                  f"rank {r}, {name} at full length: routes {routes}, "
+                  f"reduced {reduced}; want {n_full} partials launches and "
+                  f"{2 * n_full} all-reduces on cuda")
+            check(torch.equal(o[f"full_{name}_sharded"],
+                              got[0][f"full_{name}_sharded"]),
+                  f"the two ranks' {name} logits differ at full length")
+    e_full = _allclose(torch, r0["full_bf16_sharded"],
+                       r0["full_bf16_unsharded"], TOL_BF16)
+    e_full32 = _allclose(torch, r0["full_f32_sharded"],
+                         r0["full_f32_unsharded"], TOL_F32)
+    check(bool(r0["full_bf16_sharded"].isfinite().all()),
+          "full-length mesh logits not finite")
+    say("mesh", f"at the serve phase's cache length: a cache of {S_full} "
+        f"slots filled at random from a seed, {r0['full_slots'][0]} a rank "
+        f"(serving.decode.shard_cache), {MESH_FULL_STEPS} steps from "
+        f"position {MESH_FULL_AT} fed seeded tokens, sharded against "
+        f"unsharded (rank 0) on the same cache: logits {e_full:.3e} in bf16 "
+        f"(tolerance {TOL_BF16}), {e_full32:.3e} in float32 (tolerance "
+        f"{TOL_F32}); K6 launched {n_full} times a rank in each, all in its "
+        f"partials mode over a slice of {r0['full_slots'][0]} keys, "
+        f"{2 * n_full} all-reduces a rank on cuda; "
+        f"{r0['full_bf16_sharded_ms']:.2f} ms a step sharded, "
+        f"{r0['full_bf16_unsharded_ms']:.2f} unsharded (bf16), "
+        f"{r0['full_f32_sharded_ms']:.2f} and "
+        f"{r0['full_f32_unsharded_ms']:.2f} in float32")
+    zamba_row, latent_row = rows
+    zamba_row["launches"] = n_full
+    latent_row["launches"] = 0         # no mesh path here decodes deepseek
+    say("mesh", f"phase mesh took {time.perf_counter() - t_phase:.1f} s "
+        f"| {smi_line}")
+    return rows
 
 
 # --------------------------------------------------------------- zoo phase
@@ -3920,10 +4403,11 @@ def main() -> int:
         torch, parts, rows, pred, total_gb, recorded)
     phase_cpu(torch, parts, rows, table, cfgs, cuda_runs)
     phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs, smi_line)
-    phase_stream(torch, parts, rows, forest, smi_line)
+    usage = phase_stream(torch, parts, rows, forest, smi_line)
     phase_daemon(torch, smi_line)
     served = {}
     serve_launches = phase_serve(torch, served)
+    partials = phase_mesh(torch, smi_line)
     zoo = phase_zoo(torch, smi_line)
     trained = phase_train(torch, smi_line)
     kernels = phase_kernels(torch, recorded, launches)
@@ -3933,6 +4417,9 @@ def main() -> int:
     for row in kernels:                 # K5 and K6 at the zoo's shapes
         if row["name"] in zoo_rows:
             row["zoo"] = zoo_rows[row["name"]]
+        if row["name"] == "decode_attention":
+            row["partials"] = partials  # K6 in the sharded decode
+    kernels.append(usage)
     torch.cuda.synchronize()
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

@@ -26,8 +26,8 @@ manifests. ``save`` copies every leaf to host bytes before it returns, so
 a caller may update the tensors in place while the write runs. The greedy
 argmin runs on ``device`` (default ``"cuda"``); sampling, compression and
 the store are host code. ``restore`` rebuilds the tree on the device it is
-given; re-sharding onto a mesh waits for ``distributed/`` (ROADMAP queue 1
-item 8).
+given; re-sharding onto a mesh is not ported yet (ROADMAP queue 1 item
+8c).
 """
 
 from __future__ import annotations
@@ -262,7 +262,7 @@ class CheckpointManager:
         if mesh is not None or shardings is not None:
             raise NotImplementedError(
                 "mesh=/shardings=: the port restores onto one device; "
-                "re-sharding waits for distributed/ (ROADMAP queue 1 item 8)")
+                "re-sharding is not ported yet (ROADMAP queue 1 item 8c)")
         dev = resolve(device)
         step = step if step is not None else self.latest_step()
         if step is None:

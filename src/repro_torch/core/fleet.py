@@ -70,8 +70,8 @@ class FleetEngine:
     ``shared_tier_groups``/``shared_capacity_gb`` pass arbitrary shared
     rows straight to the solver. The solves run on ``cfg.device``
     (default ``"cuda"``; asking for the card where there is none raises
-    here). ``mesh`` must be None: a sharded tenant axis waits for
-    ``distributed/`` (ROADMAP queue 1 item 8).
+    here). ``mesh`` must be None: a tenant axis sharded over a mesh is
+    not ported yet (ROADMAP queue 1 item 8c).
     """
 
     def __init__(self, table, cfg, *, mesh=None,
@@ -81,7 +81,7 @@ class FleetEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: the port solves a fleet on one device; a sharded "
-                "tenant axis waits for distributed/ (ROADMAP queue 1 item 8)")
+                "tenant axis is not ported yet (ROADMAP queue 1 item 8c)")
         self.engine = PlacementEngine(table, cfg)
         self.table = table
         self.cfg = cfg

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.kernels import ops
 
 BIG = 1e18
 
@@ -230,23 +231,32 @@ def _fleet_scan(masked_b: np.ndarray, stored_b: np.ndarray,
     shared group whose usage is summed over the whole tenant axis and
     dualized by one fleet-global multiplier vector.
 
-    Usage is summed through one-hot masks and ``sum`` (never float
-    atomics), with the float32 terms accumulated in float64 and the sum
-    rounded once to float32. A float64 sum of n float32 terms is exact
-    when n times the largest over the smallest nonzero term is at most
-    2**28 (every partial sum is then a multiple of the smallest term's
-    ulp, below 2**53 of them), and an exact sum has no order: the cells
-    are the same on the card and on the CPU, whatever order each device
-    reduces in, and a tenant gets the same cells alone or in any fleet.
-    Past that bound the float64 sums of two orders differ by at most
-    about n * 2**-53 of the terms' total, and round to different float32
-    values only where they straddle a float32 rounding boundary. The
-    reference sums in float32 (its scatter-add, in row order on the CPU),
-    so the two packages' cells part where a near-tie falls to that
-    rounding (ROADMAP queue 3). Padding rows carry BIG cost and zero
-    stored bytes and add exactly 0.0. With no finite group or shared cap
-    those multipliers stay exactly 0.0, and the lean body that skips them
-    gives the same bits.
+    Each tenant's per-tier usage is summed as the reference sums it: in
+    float32, row after row, each addition rounded (its scatter-add on the
+    CPU, ``.at[t_idx, idx // K].add(chosen)``), by ``ops.usage_sum``: the
+    ``usage_sum`` CUDA kernel on the card, one thread per (tenant, tier),
+    and ``np.add.at`` in float32 on the CPU, the same bits. The per-group
+    usage adds a tenant's tier usages in tier order in float32, as the
+    reference's second scatter-add does. So the multipliers, and the
+    cells, are the reference's at every step, and a tenant gets the same
+    cells alone or in any fleet (padding rows carry BIG cost and zero
+    stored bytes and add exactly 0.0). The order of a tenant's rows
+    reaches its sums, as it does in the reference.
+
+    The sum over tenants for the shared rows stays exact: the float32
+    terms are accumulated in float64 and the sum rounded once to float32.
+    The reference sums over tenants with ``use.sum(0)``, in an order that
+    XLA chooses and does not document, so no order can be matched there
+    (ROADMAP queue 3). A float64 sum of n float32 terms is exact when n
+    times the largest over the smallest nonzero term is at most 2**28
+    (every partial sum is then a multiple of the smallest term's ulp,
+    below 2**53 of them), and an exact sum has no order: the shared
+    multipliers are the same on the card and on the CPU. Past that bound
+    the float64 sums of two orders differ by at most about n * 2**-53 of
+    the terms' total, and round to different float32 values only where
+    they straddle a float32 rounding boundary. With no finite group or
+    shared cap those multipliers stay exactly 0.0, and the lean body that
+    skips them gives the same bits.
     """
     f32, f64 = torch.float32, torch.float64
     T, N, L, K = masked_b.shape
@@ -264,7 +274,6 @@ def _fleet_scan(masked_b: np.ndarray, stored_b: np.ndarray,
     zero = torch.zeros((), dtype=f32, device=dev)
     zero64 = torch.zeros((), dtype=f64, device=dev)
     its = 1.0 + torch.arange(iters, dtype=f32, device=dev)
-    tier_of = torch.arange(L, device=dev)
     cells = torch.empty((iters, T, N), dtype=torch.int32, device=dev)
     lam = torch.zeros((T, L), dtype=f32, device=dev)
     if not lean:
@@ -285,18 +294,19 @@ def _fleet_scan(masked_b: np.ndarray, stored_b: np.ndarray,
             eff = lam + lam_g[:, g_of_t] + lam_s[sg][None, :]
         adj = m + (eff[:, None, :, None] * s).reshape(T, N, L * K)
         idx = adj.argmin(dim=2)                                   # (T, N)
-        chosen = flat_s.gather(2, idx[:, :, None])[:, :, 0].double()
-        on_tier = (idx // K)[:, :, None] == tier_of
-        use = torch.where(on_tier, chosen[:, :, None], zero64).sum(1).float()
+        chosen = flat_s.gather(2, idx[:, :, None])[:, :, 0]
+        use = ops.usage_sum(idx, chosen, K, L)                   # (T, L)
         rate = step / its[it]
         lam = torch.clamp_min(
             lam + rate * torch.where(fin_cap, use - cap_t, zero), 0.0)
         if not lean:
-            use64 = use.double()
-            use_g = torch.where(in_g, use64[:, :, None], zero64).sum(1)
-            use_s = torch.where(in_s, use64.sum(0)[:, None], zero64).sum(0)
+            use_g = torch.zeros((T, G), dtype=f32, device=dev)
+            for l in range(L):                   # tier order, float32
+                use_g = use_g + torch.where(in_g[l], use[:, l:l + 1], zero)
+            use_s = torch.where(in_s, use.double().sum(0)[:, None],
+                                zero64).sum(0)
             lam_g = torch.clamp_min(lam_g + rate * torch.where(
-                fin_g, use_g.float() - gcap_t, zero), 0.0)
+                fin_g, use_g - gcap_t, zero), 0.0)
             lam_s = torch.clamp_min(lam_s + sstep / its[it] * torch.where(
                 fin_s, use_s.float() - scap_t, zero), 0.0)
         cells[it] = idx
@@ -950,13 +960,13 @@ def capacitated_assign_batch(
     residual-cap round-robin polish (:func:`_fleet_polish`) enforce them
     exactly.
 
-    ``mesh`` must be None: the port runs the fleet on one device, and a
-    tenant mesh waits for ``distributed/`` (ROADMAP queue 1 item 8).
+    ``mesh`` must be None: the port runs the fleet on one device; a tenant
+    axis sharded over a mesh is not ported yet (ROADMAP queue 1 item 8c).
     """
     if mesh is not None:
         raise NotImplementedError(
             "mesh: the port solves a fleet on one device; a sharded tenant "
-            "axis waits for distributed/ (ROADMAP queue 1 item 8)")
+            "axis is not ported yet (ROADMAP queue 1 item 8c)")
     dev = resolve(device)
     if (shared_tier_groups is None) != (shared_capacity_gb is None):
         raise ValueError("shared_tier_groups and shared_capacity_gb must be "

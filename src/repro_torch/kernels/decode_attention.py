@@ -16,6 +16,20 @@ and returns (B, Hq, Dv) in q's dtype. Row j of sequence b is visible when
   and the log-sum-exp merge of the visible splits in split order
   (``tests/test_torch_decode_split.py`` holds it against the JAX package).
 
+For a sequence-sharded cache (``repro_torch.serving.decode``) each rank
+computes the partials of its slice instead of o: the unnormalised softmax
+state acc (B, Hq, Dv) and m, l (B, Hq) in float32 over the slice's first
+``local_len`` keys, key j at global position ``offset + j`` and a window
+measured from ``global_len`` (``repro/kernels/ref.py``
+``decode_attention_partials``).
+:func:`decode_attention_partials_kernel` runs the kernel's two launches in
+that mode (the merge writes (m, l, acc) in place of o; the mode is a
+template parameter, built from ``csrc/decode_attention_partials.cu``, so
+the ordinary launches carry none of its branches), and
+:func:`decode_attention_partials_plain` is its plain version. A slice with
+no visible key gives m = -1e30, l = 0 and acc = 0, so it weighs nothing in
+the ranks' merge.
+
 The kernel cuts the cache into splits of :func:`decode_split` keys, a
 length chosen from the cache capacity S and the grid, never from kv_len
 (which lives on the card): enough splits that the blocks fill the card's
@@ -154,6 +168,41 @@ def decode_attention_split(q: torch.Tensor, k: torch.Tensor,
     return o.reshape(B, Hq, Dv).to(q.dtype)
 
 
+def decode_attention_partials_plain(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        local_len: torch.Tensor, *, offset: int = 0,
+        global_len: Optional[torch.Tensor] = None,
+        window: Optional[int] = None, softcap: Optional[float] = None):
+    """(acc (B, Hq, Dv), m (B, Hq), l (B, Hq)), float32: the softmax state
+    of one query per sequence over the slice k/v (B, S, Hkv, D/Dv) of a
+    sequence-sharded cache. Key j is visible when ``j < local_len[b]``
+    and, with a ``window`` and ``global_len``, ``offset + j >
+    global_len[b] - 1 - window``; m is the largest visible score (-1e30
+    where none is), l the sum of e^(s - m) and acc of e^(s - m) v over
+    the visible keys."""
+    B, Hq, D = q.shape
+    _, S, Hkv, Dv = (*k.shape[:3], v.shape[-1])
+    rep = Hq // Hkv
+    qr = q.float().reshape(B, Hkv, rep, D) * (1.0 / math.sqrt(D))
+    s = torch.einsum("bhrd,bkhd->bhrk", qr, k.float())
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    j = torch.arange(S, device=q.device)[None, :]
+    mask = j < local_len.to(device=q.device, dtype=torch.int64)[:, None]
+    if window is not None and global_len is not None:
+        g = global_len.to(device=q.device, dtype=torch.int64)[:, None]
+        mask &= j + offset > g - 1 - window
+    mask = mask[:, None, None, :]
+    s = s.masked_fill(~mask, NEG_INF)
+    m = (s.amax(-1) if S else torch.full((B, Hkv, rep), NEG_INF,
+                                         device=q.device))
+    p = torch.where(mask, torch.exp(s - m[..., None]),
+                    torch.zeros((), device=q.device))
+    acc = torch.einsum("bhrk,bkhd->bhrd", p, v.float())
+    return (acc.reshape(B, Hq, Dv), m.reshape(B, Hq),
+            p.sum(-1).reshape(B, Hq))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     if not getattr(lib, "_typed", False):
@@ -171,6 +220,21 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _partials_lib() -> ctypes.CDLL:
+    lib = _build.load("decode_attention_partials")
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, local_len, glen; offset; acc, m, l, part; B, S, Hq, Hkv,
+        # D, Dv, window; softcap, scale; split, v_in_k, dtype; stream
+        lib.decode_attention_partials_launch.argtypes = [p] * 5 + [i] \
+            + [p] * 4 + [i] * 7 + [f, f, i, i, i, p]
+        lib.decode_attention_partials_launch.restype = ctypes.c_int
+        lib.decode_attention_partials_error_string.argtypes = [ctypes.c_int]
+        lib.decode_attention_partials_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
 def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             kv_len: torch.Tensor, *,
                             window: Optional[int] = None,
@@ -183,6 +247,89 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     576 and Dv at most 512 (in float32 a separate v of more than 256
     columns does not fit the shared memory); Hq a multiple of Hkv.
     """
+    dev = q.device
+    aliased = _check(q, k, v, kv_len, window, softcap)
+    B, Hq, D = q.shape
+    _, S, Hkv, Dv = (*k.shape[:3], v.shape[-1])
+    out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    if S == 0:
+        return out.zero_()
+    split, part = _split_and_scratch(B, S, Hq, Hkv, Dv, dev)
+    lib = _lib()
+    rc = lib.decode_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(), B, S, Hq,
+        Hkv, D, Dv, int(window or 0), float(softcap or 0.0),
+        1.0 / math.sqrt(D), split, int(aliased), _build.DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode attention kernel launch failed: "
+                           f"{lib.decode_attention_error_string(rc).decode()}")
+    _build.launch_counts["decode_attention"] += 1
+    return out
+
+
+def _split_and_scratch(B: int, S: int, Hq: int, Hkv: int, Dv: int,
+                       dev: torch.device):
+    """The split length the kernel takes at this shape, and the splits'
+    (m, l, acc) scratch (None for one split), float32; the scratch goes
+    back to PyTorch's stream-ordered allocator on return, after the
+    launches on this stream."""
+    split = decode_split(B, S, Hq, Hkv, Dv)
+    ns = -(-S // split)
+    part = (torch.empty(B * Hq * ns * (Dv + 2), dtype=torch.float32,
+                        device=dev) if ns > 1 else None)
+    return split, part
+
+
+def decode_attention_partials_kernel(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        local_len: torch.Tensor, *, offset: int = 0,
+        global_len: Optional[torch.Tensor] = None,
+        window: Optional[int] = None, softcap: Optional[float] = None):
+    """Launch ``csrc/decode_attention_partials.cu``, K6 in its partials
+    mode: (acc (B, Hq, Dv), m (B, Hq), l (B, Hq)) float32 over the slice
+    k/v, with the operands of :func:`decode_attention_kernel` (``local_len``
+    in place of kv_len) and ``global_len`` int32 (B,) on the same device, or None
+    (then no window applies, as in the plain version)."""
+    dev = q.device
+    aliased = _check(q, k, v, local_len, window, softcap)
+    if global_len is not None and (
+            global_len.shape != local_len.shape
+            or global_len.dtype != torch.int32 or global_len.device != dev
+            or not global_len.is_contiguous()):
+        raise ValueError(f"global_len: expected contiguous int32 "
+                         f"{tuple(local_len.shape)} on {dev}")
+    B, Hq, D = q.shape
+    _, S, Hkv, Dv = (*k.shape[:3], v.shape[-1])
+    acc = torch.zeros((B, Hq, Dv), dtype=torch.float32, device=dev)
+    m = torch.full((B, Hq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hq), dtype=torch.float32, device=dev)
+    if acc.numel() == 0 or S == 0:
+        return acc, m, l
+    split, part = _split_and_scratch(B, S, Hq, Hkv, Dv, dev)
+    lib = _partials_lib()
+    rc = lib.decode_attention_partials_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), local_len.data_ptr(),
+        None if global_len is None else global_len.data_ptr(), int(offset),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        None if part is None else part.data_ptr(), B, S, Hq, Hkv, D, Dv,
+        int(window or 0), float(softcap or 0.0), 1.0 / math.sqrt(D), split,
+        int(aliased), _build.DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode attention partials launch failed: "
+                           f"{lib.decode_attention_partials_error_string(rc).decode()}")
+    _build.launch_counts["decode_attention"] += 1
+    _build.route_counts["decode_attention.partials"] += 1
+    return acc, m, l
+
+
+def _check(q, k, v, kv_len, window, softcap) -> bool:
+    """Raise unless the operands fit the kernel (see
+    :func:`decode_attention_kernel`); True when v is read inside k."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode attention kernel needs CUDA tensors, got {dev}")
@@ -208,29 +355,7 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"softcap must be positive, got {softcap}")
     if window is not None and not window > 0:
         raise ValueError(f"window must be positive, got {window}")
-    out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    if S == 0:
-        return out.zero_()
-    split = decode_split(B, S, Hq, Hkv, Dv)
-    ns = -(-S // split)
-    # the splits' (m, l, acc), float32; freed to PyTorch's stream-ordered
-    # allocator on return, after the launches on this stream
-    part = (torch.empty(B * Hq * ns * (Dv + 2), dtype=torch.float32,
-                        device=dev) if ns > 1 else None)
-    lib = _lib()
-    rc = lib.decode_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(), B, S, Hq,
-        Hkv, D, Dv, int(window or 0), float(softcap or 0.0),
-        1.0 / math.sqrt(D), split, int(aliased), _build.DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"decode attention kernel launch failed: "
-                           f"{lib.decode_attention_error_string(rc).decode()}")
-    _build.launch_counts["decode_attention"] += 1
-    return out
+    return aliased
 
 
 def decode_attention_info(S: int, Hq: int, Hkv: int, D: int, Dv: int,

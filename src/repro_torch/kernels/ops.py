@@ -25,7 +25,9 @@ device, as in the JAX package.
 counts kernel launches by name: ``"overlap"`` (K1),
 ``"entropy_features"`` (K2), ``"quant_pack"`` (K3), ``"byte_entropy"``
 (K4), ``"flash_attention"`` (K5), ``"decode_attention"`` (K6) and
-``"ssd_scan"`` (K7). ``route_counts`` counts the calls of K5 and K7 by
+``"ssd_scan"`` (K7), and ``"usage_sum"`` (the fleet dual ascent's
+float32 usage sum, :func:`usage_sum`, which replaces a jitted scatter-add
+and no Pallas kernel). ``route_counts`` counts the calls of K5 and K7 by
 the route their dtype chose: ``"<name>.bf16_tc"`` (bfloat16, the
 tensor-core kernels) or ``"<name>.f32"`` (float32, the CUDA-core kernels).
 """
@@ -37,18 +39,21 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import ctx
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import entropy_features as _ef
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import overlap as _ov
 from repro_torch.kernels import quant_pack as _qp
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import usage_sum as _us
 from repro_torch.kernels._build import (launch_counts, reset_launch_counts,
                                         route_counts)
 
 __all__ = ["fractional_overlap_matrix", "weighted_entropy_features",
            "byte_entropy", "quant_pack", "quant_unpack", "flash_attention",
-           "decode_attention", "ssd_scan", "ssd_step", "launch_counts",
+           "decode_attention", "decode_attention_partials", "ssd_scan",
+           "ssd_step", "usage_sum", "launch_counts",
            "route_counts", "reset_launch_counts"]
 
 
@@ -128,7 +133,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     prefix of ``kv_len`` rows (see
     :mod:`repro_torch.kernels.decode_attention`). A v that is k's first
     columns (MLA's latent cache) is passed on as it is: the kernel reads
-    it inside k's tiles, so the cache is not copied."""
+    it inside k's tiles, so the cache is not copied.
+
+    Under a mesh whose model axis is above 1 (:mod:`repro_torch.distributed.ctx`),
+    k and v are this rank's slice of a sequence-sharded cache, and the
+    call goes to :func:`repro_torch.serving.decode.sharded_decode_attention`,
+    as ``repro/kernels/ops.py`` sends it there when the cache's global
+    length divides by the model axis. The port's caches under such a mesh
+    are allocated sliced (``serving.decode.init_cache``), which refuses a
+    length that does not divide, so every call there takes that path."""
+    if ctx.model_axis_size() > 1:
+        from repro_torch.serving.decode import sharded_decode_attention
+        return sharded_decode_attention(q, k, v, kv_len, window=window,
+                                        softcap=softcap)
     if _on_card(q):
         k = k.contiguous()
         return _da.decode_attention_kernel(
@@ -137,6 +154,29 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             softcap=softcap)
     return _da.decode_attention_plain(q, k, v, kv_len, window=window,
                                       softcap=softcap)
+
+
+def decode_attention_partials(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, local_len: torch.Tensor, *,
+                              offset: int = 0,
+                              global_len: Optional[torch.Tensor] = None,
+                              window: Optional[int] = None,
+                              softcap: Optional[float] = None,
+                              ) -> Tuple[torch.Tensor, ...]:
+    """(acc (B, Hq, Dv), m (B, Hq), l (B, Hq)) float32: the unnormalised
+    softmax state of one query per sequence over one rank's slice of a
+    sequence-sharded cache (see :mod:`repro_torch.kernels.decode_attention`);
+    K6 in its partials mode on the card."""
+    if _on_card(q):
+        k = k.contiguous()
+        i32 = lambda t: None if t is None else t.to(torch.int32).contiguous()
+        return _da.decode_attention_partials_kernel(
+            q.contiguous(), k, v if _da.v_in_k(k, v) else v.contiguous(),
+            i32(local_len), offset=offset, global_len=i32(global_len),
+            window=window, softcap=softcap)
+    return _da.decode_attention_partials_plain(
+        q, k, v, local_len, offset=offset, global_len=global_len,
+        window=window, softcap=softcap)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -173,6 +213,17 @@ def quant_unpack(q: torch.Tensor, scale: torch.Tensor,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``q * scale`` per block, in ``dtype`` (plain tensor ops)."""
     return _qp.quant_unpack(q, scale, dtype)
+
+
+def usage_sum(idx: torch.Tensor, chosen: torch.Tensor, K: int,
+              L: int) -> torch.Tensor:
+    """(T, L) float32 per-tier usage of chosen cells ``idx`` (T, N) with
+    stored bytes ``chosen`` (T, N), each (tenant, tier) summed in float32
+    in row order (see :mod:`repro_torch.kernels.usage_sum`)."""
+    if _on_card(idx):
+        return _us.usage_sum_kernel(idx.contiguous(),
+                                    chosen.float().contiguous(), K, L)
+    return _us.usage_sum_plain(idx, chosen, K, L)
 
 
 def byte_entropy(data, *, device: DeviceLike = "cuda",

@@ -1,15 +1,25 @@
 """Serving launcher: prompt fed token by token, then batched greedy decode,
-on one device.
+on one device or over a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
         --smoke --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --arch zamba2-2.7b --model-mesh 2
 
-Port of ``repro.launch.serve`` without the mesh flags: the same loop (each
-prompt token through ``decode_step``, then ``--tokens`` greedy tokens, the
-first from the prompt's last logits) with random weights from seed 0 and
-random prompts from seed 1, on ``--device`` (default ``cuda``). Prints the
-tokens per second of the whole loop, as the JAX launcher does.
+Port of ``repro.launch.serve``: the same loop (each prompt token through
+``decode_step``, then ``--tokens`` greedy tokens, the first from the
+prompt's last logits) with random weights from seed 0 and random prompts
+from seed 1, on ``--device`` (default ``cuda``). Prints the tokens per
+second of the whole loop, as the JAX launcher does.
+
+``--data-mesh`` and ``--model-mesh`` lay the ranks out as ``--data-mesh``
+x ``--model-mesh`` (``launch.mesh.launch_mesh``; under ``torchrun`` the
+world size must be their product): the batch over 'data', the decode
+cache's sequence over 'model' (``serving.decode``: the sequence-sharded
+decode). The cache's slots are rounded up to a multiple of
+``--model-mesh`` (slots past a sequence's length are never attended).
+Ranks that share a card run over gloo; rank 0 prints.
 
 Like the JAX launcher, the command line feeds no cross-attention context.
 A config that needs one (``cross_context``: vision; ``encoder_stages``:
@@ -24,11 +34,13 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.registry import get_config
-from repro_torch.device import describe, resolve
+from repro_torch.device import describe
+from repro_torch.launch.mesh import launch_mesh
 from repro_torch.models import transformer as tr
-from repro_torch.serving.decode import make_decode_step
+from repro_torch.serving.decode import init_cache, make_decode_step
 
 
 @dataclasses.dataclass
@@ -82,6 +94,11 @@ def main():
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--data-mesh", type=int, default=1,
+                    help="data-parallel ranks (0, the production mesh, is "
+                         "refused: one card)")
+    ap.add_argument("--model-mesh", type=int, default=1,
+                    help="ranks the decode cache's sequence is sharded over")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
@@ -92,19 +109,27 @@ def main():
             f"command line does not feed (nor does repro.launch.serve); call "
             f"serve(..., context=...) with the context "
             f"(repro_torch.launch.shapes.input_specs gives its shape)")
-    dev = resolve(args.device)
+    mesh, dev = launch_mesh(args.data_mesh, args.model_mesh, args.device)
     B = args.batch
-    max_seq = args.prompt_len + args.tokens + 1
+    n = args.model_mesh
+    max_seq = -(-(args.prompt_len + args.tokens + 1) // n) * n
     params = tr.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                             device=dev)
-    cache = tr.init_cache(cfg, B, max_seq=max_seq, device=dev)
+    cache = init_cache(cfg, B, max_seq=max_seq, mesh=mesh, device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
                             generator=torch.Generator(device=dev).manual_seed(1),
                             device=dev)
-    res = serve(make_decode_step(cfg), params, cache, prompts, args.tokens)
+    res = serve(make_decode_step(cfg, mesh), params, cache, prompts,
+                args.tokens)
     dt = res.prompt_s + res.decode_s
-    print(f"{cfg.name}: {B * args.tokens} tokens in {dt:.2f}s "
-          f"({B * args.tokens / dt:.1f} tok/s) on {describe(dev)['kind']}")
+    if mesh is None or dist.get_rank() == 0:
+        where = describe(dev)["kind"]
+        if mesh is not None:
+            where += f", mesh {args.data_mesh} x {args.model_mesh}"
+        print(f"{cfg.name}: {B * args.tokens} tokens in {dt:.2f}s "
+              f"({B * args.tokens / dt:.1f} tok/s) on {where}")
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

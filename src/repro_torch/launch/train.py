@@ -1,17 +1,26 @@
-"""Training launcher: tiered data -> train step -> AdamW, on one device.
+"""Training launcher: tiered data -> train step -> AdamW, on one device or
+data-parallel over a mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
         --smoke --steps 4 --batch 4 --seq 64 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
         --steps 5 --batch 4 --seq 512 --compressed-grads
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch qwen3-4b --smoke --steps 4 --batch 8 --data-mesh 2 \\
+        --device cpu
 
-Port of ``repro.launch.train`` without the mesh: the same synthetic Zipf
+Port of ``repro.launch.train``: the same synthetic Zipf
 token shards in a :class:`~repro_torch.storage.store.TieredStore` (16
 shards of 32 rows), the same :class:`~repro_torch.data.loader.TieredDataLoader`
 order, random weights from seed 0 and ``TrainConfig(remat=not smoke)``, on
-``--device`` (default ``cuda``). ``--data-mesh`` and ``--model-mesh`` take
-only 1 (one card). ``--compressed-grads`` turns on the int8 error-feedback
-gradient mean (the K3 kernel on the card). ``--ckpt-every k`` saves the
+``--device`` (default ``cuda``). ``--data-mesh N`` trains data-parallel
+over N ranks (``launch.mesh.launch_mesh``: under ``torchrun`` the world
+size must be N; every rank reads the same global batches and takes its
+rows, ``training.train_step``); ``--model-mesh`` above 1 is refused, since
+tensor-parallel weights are not ported (ROADMAP queue 1), and
+``--data-mesh 0``, the production mesh, is refused too.
+``--compressed-grads`` turns on the int8 error-feedback gradient mean (the
+K3 kernel on the card). ``--ckpt-every k`` saves the
 state every k steps through a
 :class:`~repro_torch.checkpoint.manager.CheckpointManager` on the data's
 store (greedy tier and codec choice on ``--device``), waits for the last
@@ -33,11 +42,13 @@ import time
 from typing import Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.registry import get_config
 from repro_torch.data.loader import TieredDataLoader, write_token_shards
-from repro_torch.device import describe, resolve
+from repro_torch.device import describe
+from repro_torch.launch.mesh import launch_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.storage.store import TieredStore
 from repro_torch.training import train_step as ts
@@ -65,12 +76,15 @@ def _sync(dev: torch.device) -> None:
 def train(cfg: ModelConfig, tcfg: ts.TrainConfig, state, loader, steps: int,
           *, start: int = 0,
           on_step: Optional[Callable[[int, dict, dict], None]] = None,
-          ) -> TrainResult:
+          mesh=None) -> TrainResult:
     """Run train steps ``start + 1`` to ``steps`` from ``loader``'s batches
     (epoch ``i`` at step ``i``, as the JAX launcher walks them, a resumed
-    run included). ``on_step(i, state, metrics)`` is called after step
-    ``i`` (1-based), once the device is idle."""
-    step_fn = ts.make_train_step(cfg, tcfg)
+    run included), data-parallel over ``mesh`` when one is given.
+    ``on_step(i, state, metrics)`` is called after step ``i`` (1-based),
+    once the device is idle. The progress lines are printed by the one
+    process, or by rank 0 of a mesh."""
+    step_fn = ts.make_train_step(cfg, tcfg, mesh)
+    log = mesh is None or dist.get_rank() == 0
     dev = state["opt"].step.device
     losses, secs = [], []
     tokens = loader.batch * loader.seq
@@ -89,7 +103,7 @@ def train(cfg: ModelConfig, tcfg: ts.TrainConfig, state, loader, steps: int,
             i += 1
             if on_step is not None:
                 on_step(i, state, m)
-            if i % LOG_EVERY == 0 or i == steps:
+            if log and (i % LOG_EVERY == 0 or i == steps):
                 print(f"step {i} loss {loss:.4f} "
                       f"({sum(secs) / len(secs):.2f}s/step, "
                       f"{tokens * len(secs) / sum(secs):.1f} tokens/s)",
@@ -106,22 +120,24 @@ def main():
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--data-mesh", type=int, default=1,
-                    help="data-parallel width; only 1 (one card)")
+                    help="data-parallel ranks (0, the production mesh, is "
+                         "refused: one card)")
     ap.add_argument("--model-mesh", type=int, default=1,
-                    help="tensor-parallel width; only 1 (one card)")
+                    help="tensor-parallel width; only 1 (tensor-parallel "
+                         "weights are not ported)")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compressed-grads", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
-    if args.data_mesh != 1 or args.model_mesh != 1:
-        raise NotImplementedError("repro_torch trains on one device: "
-                                  "--data-mesh and --model-mesh take only 1 "
-                                  "(distributed/ is not ported, ROADMAP.md "
-                                  "queue 1 item 8)")
+    if args.model_mesh != 1:
+        raise NotImplementedError("--model-mesh above 1 needs tensor-parallel "
+                                  "weights (param_specs), which are not "
+                                  "ported yet (ROADMAP.md queue 1)")
     cfg = get_config(args.arch, smoke=args.smoke)
-    dev = resolve(args.device)
+    mesh, dev = launch_mesh(args.data_mesh, args.model_mesh, args.device)
+    lead = mesh is None or dist.get_rank() == 0
     tcfg = ts.TrainConfig(remat=not args.smoke,
                           microbatches=args.microbatches,
                           compressed_grads=args.compressed_grads)
@@ -142,16 +158,22 @@ def main():
             mgr.save(i, state)
 
     res = train(cfg, tcfg, state, loader, args.steps, start=start,
-                on_step=save if mgr else None)
+                on_step=save if mgr else None, mesh=mesh)
     if not all(math.isfinite(x) for x in res.losses):
         raise RuntimeError(f"non-finite loss: {res.losses}")
     if mgr:
         mgr.wait()
-        print("ckpt bill:", {k: round(v, 6) for k, v in
-                             store.meter.as_dict().items() if v})
-    print(f"done at step {start + len(res.losses)} on "
-          f"{describe(dev)['kind']}: {res.tokens_per_s:.1f} training "
-          f"tokens/s")
+        if lead:
+            print("ckpt bill:", {k: round(v, 6) for k, v in
+                                 store.meter.as_dict().items() if v})
+    if lead:
+        where = describe(dev)["kind"]
+        if mesh is not None:
+            where += f", data-parallel over {args.data_mesh}"
+        print(f"done at step {start + len(res.losses)} on {where}: "
+              f"{res.tokens_per_s:.1f} training tokens/s")
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -4,7 +4,12 @@ MLA (DeepSeek's compressed KV) and cross-attention.
 Port of ``repro.models.attention``. Parameter names follow the JAX
 package: wq/wk/wv/wo (+bq/bk/bv), q_norm/k_norm; MLA's w_dkv, kv_norm,
 w_uk, w_uv. Head counts are padded to a multiple of ``tp`` as there, so
-converted weights keep their shapes; the port runs on one device (tp 1).
+converted weights keep their shapes; every rank holds them whole (tensor
+parallelism is ROADMAP queue 1). Under a mesh whose model axis is above 1
+(:mod:`repro_torch.distributed.ctx`) a decode cache is this rank's slice
+of the sequence: a step writes its new entry only on the rank that holds
+its slot (:func:`cache_write`), as GSPMD routes the JAX package's
+``.at[pos].set``, and the decode attention merges the ranks' partials.
 Full-sequence attention (prefill, training, the encoder, cross-attention
 at every step) runs K5 (:func:`repro_torch.kernels.ops.flash_attention`);
 one-token decode against a cache runs K6
@@ -18,6 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import ctx
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init, dtype_of, rms_norm
@@ -36,6 +42,31 @@ def head_counts(cfg: ModelConfig, tp: int) -> Tuple[int, int]:
         return hq, hq
     assert hq % cfg.n_kv_heads == 0, (cfg.name, hq, cfg.n_kv_heads)
     return hq, cfg.n_kv_heads
+
+
+def cache_write(cache: torch.Tensor, slot: torch.Tensor,
+                val: torch.Tensor) -> None:
+    """``cache[b, slot[b]] = val[b]`` IN PLACE for a cache (B, S, ...)
+    and global slots (B,). Under a sequence-sharded mesh ``cache`` holds
+    this rank's S slots from ``model_rank * S`` on, and only the rows whose
+    slot lies there are written (a select, so the card is not waited
+    for)."""
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    val = val.to(cache.dtype)
+    if ctx.model_axis_size() == 1:
+        cache[bidx, slot] = val
+        return
+    s_loc = cache.shape[1]
+    local = slot - ctx.model_rank() * s_loc
+    mine = ((local >= 0) & (local < s_loc)).reshape(
+        (-1,) + (1,) * (val.dim() - 1))
+    local = local.clamp(0, s_loc - 1)
+    cache[bidx, local] = torch.where(mine, val, cache[bidx, local])
+
+
+def cache_length(cache: torch.Tensor) -> int:
+    """Slots of a decode cache (B, S, ...) over all model ranks."""
+    return cache.shape[1] * ctx.model_axis_size()
 
 
 # ------------------------------------------------------------------ GQA init
@@ -110,11 +141,10 @@ def gqa_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, pos[:, None])
-    bidx = torch.arange(B, device=x.device)
-    cache_len = cache_k.shape[1]
+    cache_len = cache_length(cache_k)
     slot = pos % cache_len                      # ring write (no-op when full)
-    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+    cache_write(cache_k, slot, k[:, 0])
+    cache_write(cache_v, slot, v[:, 0])
     kv_len = torch.clamp(pos + 1, max=cache_len)
     o = ops.decode_attention(q[:, 0], cache_k, cache_v, kv_len,
                              softcap=cfg.attn_softcap)
@@ -225,8 +255,7 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None], hq)
     c_kv, k_rope = _latent(p, x, cfg, pos[:, None])
     entry = torch.cat([c_kv, k_rope[:, :, 0]], -1)            # (B, 1, r+rope)
-    bidx = torch.arange(B, device=x.device)
-    cache_ckv[bidx, pos] = entry[:, 0].to(cache_ckv.dtype)
+    cache_write(cache_ckv, pos, entry[:, 0])
     # absorb W_uk into q: (B, hq, nope) x (r, hq, nope) -> (B, hq, r)
     w_uk = p["w_uk"].reshape(r, hq, cfg.qk_nope_dim)
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)

@@ -25,8 +25,19 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 # ------------------------------------------------------------------- helpers
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` on the meta device, which has
+    none: the initializers given it make tensors of the right shape and
+    dtype without storage (``transformer.init_params(MetaGenerator(), cfg,
+    tp, device="meta")``, what ``jax.eval_shape`` of ``init_params``
+    gives in the JAX package)."""
+    device = torch.device("meta")
+
+
 def normal(gen: torch.Generator, shape, scale: float = 1.0) -> torch.Tensor:
     """float32 standard normals on ``gen``'s device, times ``scale``."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen.device) * scale
 

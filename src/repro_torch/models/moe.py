@@ -7,10 +7,19 @@ top-k, a float32 cumulative sum for the slot ids, gathers into (E, C)
 expert buffers, batched products over the experts and a gather back. The
 reference's rules are kept exactly: capacity ``max(min(ceil(T k / E cf),
 T), 1)`` in Python float, slots past the capacity sent to an overflow bin
-E and dropped, gates a softmax over the top-k logits, token blocks of
-``moe_block_tokens`` when ``T % moe_block_tokens == 0 and T >
-moe_block_tokens`` (one data-parallel group: the port has no mesh), and
-shared experts through ``mlp_apply``.
+E and dropped, gates a softmax over the top-k logits, and shared experts
+through ``mlp_apply``.
+
+Routing per data-parallel group (``repro/models/moe.py`` ``moe_apply``):
+with dp data-parallel ranks and blocks of ``blk = moe_block_tokens``, the
+reference routes consecutive blocks of blk tokens of the flattened global
+batch when T divides by blk * dp and T > blk, and the whole global batch
+as one block (capacity over all T) otherwise. A rank that holds its rows
+of the batch (``ctx.batch_is_split()``) holds whole blocks in the first
+case and routes them alone; in the second it all-gathers the tokens over
+the data axes, routes the whole batch and keeps its own rows. So at T = 3
+blk and dp 2 the mesh's routing is not the single device's, in both
+packages.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (dense_init, dtype_of, mlp_apply,
                                        mlp_init, normal)
@@ -102,13 +112,27 @@ def _moe_block(p: Params, xt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d). Top-k capacity routing, in blocks of
     ``moe_block_tokens`` tokens (capacity and slots per block) when the
-    tokens divide into more than one block, else as one block."""
+    global batch's tokens divide into blocks over every data-parallel
+    rank, else as one block of the whole global batch (see the module
+    docstring)."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
     blk = cfg.moe_block_tokens
-    if T % blk == 0 and T > blk:
+    dp = ctx.dp_size()
+    split = ctx.batch_is_split()
+    T_all = T * dp if split else T
+    if T_all % (blk * dp) == 0 and T_all > blk:
         y = torch.cat([_moe_block(p, xb, cfg) for xb in xt.split(blk)])
+    elif split:
+        # the whole global batch is one block: gather the others' tokens
+        # (no gradient reaches them: a token's output depends on its own
+        # input once routed), route all, keep this rank's rows
+        r = ctx.dp_rank()
+        parts = list(ctx.all_gather_rows(xt.detach(), ctx.dp_group())
+                     .split(T))
+        parts[r] = xt
+        y = _moe_block(p, torch.cat(parts), cfg)[r * T:(r + 1) * T]
     else:
         y = _moe_block(p, xt, cfg)
     if "shared" in p:

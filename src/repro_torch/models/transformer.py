@@ -208,8 +208,10 @@ def stage_apply(sp, stage: Stage, x, cfg: ModelConfig, *, positions,
 # -------------------------------------------------------------- model init
 def init_params(gen: torch.Generator, cfg: ModelConfig, tp: int = 1, *,
                 device: DeviceLike = "cuda") -> Dict[str, Any]:
-    """Random weights from ``gen``, which must live on ``device``."""
-    dev = resolve(device)
+    """Random weights from ``gen``, which must live on ``device``; with
+    ``device="meta"`` and a :class:`~repro_torch.models.layers.MetaGenerator`,
+    their shapes and dtypes without storage."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, weights asked on {dev}")
     dt = dtype_of(cfg.dtype)

@@ -10,20 +10,28 @@ padded to a multiple of 256:
   3. mean over the data-parallel group of dequant(q, s)
   4. err' = g' - dequant(q, s)        (carry-out)
 
-The port runs on one card, so the data-parallel group has size 1 and the
-mean of step 3 is the identity, exactly as JAX's ``psum(.) / n`` is on a
-1x1 mesh. The quantisation error is not lost: it is carried into the next
+With a ``mesh``, step 3 all-reduces the dequantised gradients (one
+float32 buffer for all leaves) over the flattened data-parallel axes,
+('pod', 'data') or the ``dp_axes`` given, and divides by their size, as
+JAX's ``psum(.) / n`` does; the int8 wire format is what a runtime that
+ships bytes would send. Without one the group has size 1
+and the mean is the identity, exactly as ``psum(.) / n`` is on a 1x1
+mesh. The quantisation error is not lost: it is carried into the next
 step. The residual is written into ``err``'s tensors in place.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import math
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.transformer import tree_leaves, tree_map
 
 _BLOCK = 256
@@ -44,11 +52,24 @@ def _quant_leaf(g: torch.Tensor, e: torch.Tensor,
     return deq[:n].reshape(g.shape), new_err
 
 
-def compressed_mean(grads, err: Optional[Any] = None) -> Tuple[Any, Any]:
-    """Mean of ``grads`` over the data-parallel group (size 1) with int8
-    error feedback. ``err`` (None means zeros) is a float32 tree shaped
-    like ``grads``; its tensors receive the new residual in place. Returns
-    (float32 gradients, err)."""
+def group_sum(leaves: Sequence[torch.Tensor], mesh,
+              axes: Sequence[str]) -> list:
+    """Each leaf summed over the ranks of ``axes`` of ``mesh``, in float32:
+    one all-reduce of all leaves packed into one buffer."""
+    flat = torch.cat([t.float().reshape(-1) for t in leaves])
+    ctx.all_reduce(flat, dist.ReduceOp.SUM, ctx.axes_group(mesh, tuple(axes)))
+    return [c.reshape(t.shape) for c, t in
+            zip(flat.split([t.numel() for t in leaves]), leaves)]
+
+
+def compressed_mean(grads, err: Optional[Any] = None, mesh=None,
+                    dp_axes: Optional[Sequence[str]] = None,
+                    ) -> Tuple[Any, Any]:
+    """Mean of ``grads`` over the data-parallel group with int8 error
+    feedback: over ``dp_axes`` of ``mesh`` (default its 'pod' and 'data'
+    axes), or a group of one without a mesh. ``err`` (None means zeros)
+    is a float32 tree shaped like ``grads``; its tensors receive the new
+    residual in place. Returns (float32 gradients, err)."""
     if err is None:
         err = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
                                              device=g.device), grads)
@@ -56,6 +77,14 @@ def compressed_mean(grads, err: Optional[Any] = None) -> Tuple[Any, Any]:
     for g, e in zip(tree_leaves(grads), tree_leaves(err)):
         deq, new_e = _quant_leaf(g, e)
         e.copy_(new_e)
-        out.append(deq)             # the mean over a group of one
+        out.append(deq)
+    if mesh is not None:
+        if dp_axes is None:
+            dp_axes = tuple(a for a in axis_sizes(mesh) if a in ("pod", "data"))
+        sizes = axis_sizes(mesh)
+        # an IEEE division by the group's size, as JAX's psum(.) / n
+        n = torch.tensor(float(math.prod(sizes[a] for a in dp_axes)),
+                         device=out[0].device)
+        out = [t / n for t in group_sum(out, mesh, dp_axes)]
     it = iter(out)
     return tree_map(lambda _: next(it), grads), err

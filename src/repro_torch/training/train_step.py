@@ -1,14 +1,31 @@
 """The train step: loss -> gradients -> (int8 error-feedback mean) ->
 AdamW, with per-unit remat and microbatch gradient accumulation.
 
-Port of ``repro.training.train_step`` on one device. PyTorch runs eagerly,
-so there is no jit and no donation; instead the optimizer state and the
-parameters are updated in place (:mod:`repro_torch.training.optimizer`).
+Port of ``repro.training.train_step``. PyTorch runs eagerly, so there is
+no jit and no donation; instead the optimizer state and the parameters
+are updated in place (:mod:`repro_torch.training.optimizer`).
+
+With a ``mesh`` the step is data-parallel: every rank holds the whole
+state and takes its rows of the global batch (``batch_specs``: its block
+of rows when the batch divides the data axes, all of them otherwise). Its
+gradient is of its tokens' share of the global mean: each rank's mean
+weighted by its count of loss tokens over the global count, so ranks that
+hold different numbers of loss tokens still give the reference's mean.
+One all-reduce over the data axes (all leaves in one float32 buffer) then
+gives every rank the global gradient, which is what GSPMD inserts in the
+reference, and the reported loss is the global one. Only then, with
+``compressed_grads``, comes ``compressed_mean``, as the reference calls
+it at ``repro/training/train_step.py:83-86``: the reference quantises the
+already-reduced gradient, so its psum runs over identical values. That is
+a quirk of the reference, kept: quantising each rank's local gradient
+would give a different result. A mesh whose model axis is above 1 is
+refused: tensor-parallel weights are ROADMAP queue 1.
 
 JAX compresses the gradient mean only ``if tcfg.compressed_grads and mesh
-is not None``. The port has no mesh: ``compressed_grads=True`` runs the
-int8 error-feedback mean over a data-parallel group of size 1, which is
-what JAX computes on a 1x1 mesh (quantise, dequantise, carry the error).
+is not None``. Without a mesh, the port's ``compressed_grads=True`` runs
+the int8 error-feedback mean over a data-parallel group of size 1, which
+is what JAX computes on a 1x1 mesh (quantise, dequantise, carry the
+error).
 
 Encoder models (whisper) encode ``batch["frames"]`` into
 ``batch["context"]`` before the loss, as JAX's ``_loss`` does; a vision
@@ -26,11 +43,15 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.device import DeviceLike
+from repro_torch.distributed import ctx
+from repro_torch.launch.mesh import tp_size
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 from repro_torch.training import optimizer as opt
-from repro_torch.training.grad_compression import compressed_mean
+from repro_torch.training.grad_compression import compressed_mean, group_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,37 +81,19 @@ def _loss(params, batch, cfg: ModelConfig, remat: bool = False):
     return tr.loss_fn(params, batch, cfg, remat=remat)
 
 
-def _value_and_grad(params, batch, cfg: ModelConfig, remat: bool):
-    """(loss, gradients shaped like ``params``, each in its leaf's dtype)."""
+def _value_and_grad(params, batch, cfg: ModelConfig, remat: bool,
+                    weight=None):
+    """(loss, gradients shaped like ``params``, each in its leaf's dtype),
+    of the loss times ``weight`` when one is given."""
     p = tr.tree_map(lambda t: t.detach().requires_grad_(), params)
     leaves = tr.tree_leaves(p)
     loss = _loss(p, batch, cfg, remat=remat)
+    if weight is not None:
+        loss = loss * weight
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     it = iter(torch.zeros_like(t) if g is None else g
               for t, g in zip(leaves, grads))
     return loss.detach(), tr.tree_map(lambda _: next(it), params)
-
-
-def _grads(params, batch, cfg: ModelConfig, tcfg: TrainConfig):
-    """Loss and gradients of the batch; with ``microbatches`` > 1 the mean
-    over that many equal slices of the batch, accumulated in float32."""
-    remat = tcfg.remat
-    if tcfg.microbatches <= 1:
-        return _value_and_grad(params, batch, cfg, remat)
-    mb = tcfg.microbatches
-    split = {k: v.reshape((mb, v.shape[0] // mb) + tuple(v.shape[1:]))
-             for k, v in batch.items()}
-    dev = tr.tree_leaves(params)[0].device
-    loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
-    grad_acc = tr.tree_map(lambda t: torch.zeros(
-        t.shape, dtype=torch.float32, device=t.device), params)
-    for i in range(mb):
-        loss, g = _value_and_grad(params, {k: v[i] for k, v in split.items()},
-                                  cfg, remat)
-        loss_acc = loss_acc + loss / mb
-        for a, b in zip(tr.tree_leaves(grad_acc), tr.tree_leaves(g)):
-            a.add_(b / mb)
-    return loss_acc, grad_acc
 
 
 #: batch entries that hold embeddings (float), not token ids
@@ -112,17 +115,71 @@ def _on_device(batch, dev: torch.device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _grads(params, batch, cfg: ModelConfig, tcfg: TrainConfig):
+    """Loss and gradient of the global batch, the mean over
+    ``microbatches`` equal slices of it. On a data-parallel mesh (the
+    active one) each rank takes its rows of every slice, weighted by its
+    share of the slice's loss tokens, and one all-reduce over the data
+    axes sums all leaves and the loss. Without a mesh, or when a slice
+    does not split over the data axes, a rank takes whole slices with
+    weight 1/mb and no collective runs. One slice gives its gradients
+    in the leaves' dtype, more than one accumulate in float32."""
+    B = batch["tokens"].shape[0]
+    mb = max(tcfg.microbatches, 1)
+    dev = tr.tree_leaves(params)[0].device
+    per = B // mb
+    split = ctx.dp_sharded(per)
+    rows = ctx.dp_rows(per)
+    chunks = [{k: v[i * per:(i + 1) * per][rows] for k, v in batch.items()}
+              for i in range(mb)]
+    if split:
+        counts = torch.stack([(c["labels"] >= 0).sum()
+                              for c in chunks]).float()
+        total = ctx.all_reduce(counts.clone(), dist.ReduceOp.SUM,
+                               ctx.dp_group())
+        weights = counts / torch.clamp_min(total, 1.0) / mb
+    else:
+        weights = torch.ones(mb, device=dev) / mb
+    with ctx.split_batch(split):
+        parts = (_value_and_grad(params, c, cfg, tcfg.remat, weight=w)
+                 for c, w in zip(chunks, weights))
+        if mb == 1:
+            loss, grads = next(parts)
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            grads = tr.tree_map(lambda t: torch.zeros(
+                t.shape, dtype=torch.float32, device=t.device), params)
+            for l, g in parts:
+                loss = loss + l
+                for a, b in zip(tr.tree_leaves(grads), tr.tree_leaves(g)):
+                    a.add_(b)
+    if not split:           # every rank computed the whole batch
+        return loss, grads
+    summed = group_sum(tr.tree_leaves(grads) + [loss], ctx.mesh(),
+                       ctx.dp_axes())
+    it = iter(summed[:-1])
+    return summed[-1], tr.tree_map(lambda _: next(it), grads)
+
+
 def train_step(state, batch, cfg: ModelConfig, tcfg: TrainConfig,
-               ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+               mesh=None) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """state: {'params', 'opt'}; batch: {'tokens', 'labels'} (numpy or
-    tensors), with 'context' (vision) or 'frames' (whisper). Returns (state, {'loss', 'step'}); the parameters and the
-    optimizer's tensors are updated in place."""
+    tensors), with 'context' (vision) or 'frames' (whisper): the global
+    batch, on every rank when ``mesh`` is given (data-parallel, see the
+    module docstring). Returns (state, {'loss', 'step'}); the parameters
+    and the optimizer's tensors are updated in place."""
     params = state["params"]
     batch = _on_device(batch, tr.tree_leaves(params)[0].device)
-    loss, grads = _grads(params, batch, cfg, tcfg)
     err = state["opt"].err
-    if tcfg.compressed_grads:
-        grads, err = compressed_mean(grads, err)
+    if mesh is not None and tp_size(mesh) > 1:
+        raise NotImplementedError(
+            "train_step on a mesh whose model axis is above 1 needs "
+            "tensor-parallel weights (param_specs), which are not "
+            "ported yet (ROADMAP.md queue 1)")
+    with ctx.activate(mesh):
+        loss, grads = _grads(params, batch, cfg, tcfg)
+        if tcfg.compressed_grads:
+            grads, err = compressed_mean(grads, err, mesh)
     new_opt = opt.apply_updates(
         state["opt"]._replace(err=err), grads, tcfg.adamw, params,
         compute_dtype=tr.tree_leaves(params)[0].dtype)
@@ -130,6 +187,7 @@ def train_step(state, batch, cfg: ModelConfig, tcfg: TrainConfig,
                                                 "step": new_opt.step}
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
-    """``train_step`` with the configs bound (JAX jits and donates here)."""
-    return functools.partial(train_step, cfg=cfg, tcfg=tcfg)
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
+    """``train_step`` with the configs and the mesh bound (JAX jits and
+    donates here)."""
+    return functools.partial(train_step, cfg=cfg, tcfg=tcfg, mesh=mesh)

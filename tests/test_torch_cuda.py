@@ -508,6 +508,118 @@ def test_decode_kernel_reads_mla_latent_v_inside_k(card, S, lens, dtype):
     assert info["group"] == tda.WIDE_GROUP and info["smem_bytes"] <= 232448
 
 
+def _slice_operands(latent, dtype, device, S=544):
+    """q, the global cache k/v (v inside k for MLA's latent cache) and
+    global lengths: zamba2's shared attention block at full width (32
+    heads of 80, B 4), or deepseek's absorbed decode (16 heads of 576 over
+    one latent head, v its first 512 columns)."""
+    B = 4
+    if latent:
+        q, cache = _randn(21, (B, 16, 576), (B, S, 576), dtype=dtype,
+                          device=device)
+        k = cache[:, :, None, :]
+        v = k[..., :512]
+    else:
+        q, k, v = _randn(21, (B, 32, 80), (B, S, 32, 80), (B, S, 32, 80),
+                         dtype=dtype, device=device)
+    lens = torch.as_tensor([S, S // 2 + 3, 5, S - 40], dtype=torch.int32,
+                           device=device)
+    return q, k, v, lens
+
+
+def _merge(parts):
+    """The ranks' log-sum-exp merge of (acc, m, l) partials."""
+    m_star = torch.stack([m for _, m, _ in parts]).amax(0)
+    w = [torch.exp(m - m_star) for _, m, _ in parts]
+    L = sum(l * c for (_, _, l), c in zip(parts, w))
+    A = sum(a * c[..., None] for (a, _, _), c in zip(parts, w))
+    return A / torch.clamp_min(L, 1e-30)[..., None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent", [False, True])
+@pytest.mark.parametrize("offset,window", [(272, None), (272, 300),
+                                           (0, 100), (408, 64)])
+def test_decode_partials_kernel_matches_plain(card, latent, offset, window,
+                                              dtype):
+    """K6's partials mode over one slice of a sequence-sharded cache, key j
+    at global position offset + j and the window measured from the global
+    length (one that starts before the slice, one inside it): the
+    kernel's (acc, m, l) against the plain version's, each row with a
+    visible key within tolerance, each row without one exactly (m -1e30,
+    l 0, acc 0), the same bits on a second call."""
+    q, k, v, lens = _slice_operands(latent, dtype, card)
+    n = 136 if offset == 408 else 272
+    ks = k[:, offset:offset + n].contiguous()     # a rank's own slice
+    vs = ks[..., :512] if latent else v[:, offset:offset + n].contiguous()
+    local = torch.clamp(lens - offset, 0, n).to(torch.int32)
+    kw = dict(offset=offset, global_len=lens, window=window)
+    ops.reset_launch_counts()
+    acc, m, l = ops.decode_attention_partials(q, ks, vs, local, **kw)
+    again = ops.decode_attention_partials(q, ks, vs, local, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["decode_attention"] == 2
+    assert ops.route_counts["decode_attention.partials"] == 2
+    assert all(torch.equal(a, b) for a, b in zip((acc, m, l), again))
+    acc_p, m_p, l_p = tda.decode_attention_partials_plain(q, ks, vs, local,
+                                                          **kw)
+    seen = l_p > 0
+    assert torch.equal(seen, l > 0)
+    assert seen.any() and (~seen).any() or offset == 0
+    assert torch.equal(m[~seen], m_p[~seen]) and not acc[~seen].any()
+    _assert_close(m[seen], m_p[seen], 1e-5)
+    _assert_close(l[seen], l_p[seen], 1e-4)
+    _assert_close(acc[seen] / l[seen][:, None], acc_p[seen] /
+                  l_p[seen][:, None], ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("latent", [False, True])
+@pytest.mark.parametrize("slices", [2, 4])
+def test_decode_partials_merged_equal_unsharded_kernel(card, latent, slices,
+                                                       dtype):
+    """The sequence-sharded decode's arithmetic on one card: the cache cut
+    into 2 or 4 slices, K6's partials on each, merged by the ranks' rule,
+    equal K6 on the whole cache within K6's tolerance."""
+    q, k, v, lens = _slice_operands(latent, dtype, card)
+    S = k.shape[1]
+    n = S // slices
+    parts = []
+    for r in range(slices):
+        ks = k[:, r * n:(r + 1) * n].contiguous()
+        vs = ks[..., :512] if latent else v[:, r * n:(r + 1) * n].contiguous()
+        local = torch.clamp(lens - r * n, 0, n).to(torch.int32)
+        parts.append(ops.decode_attention_partials(
+            q, ks, vs, local, offset=r * n, global_len=lens))
+    got = _merge(parts).to(dtype)
+    _assert_close(got, ops.decode_attention(q, k, v, lens), ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("T,N,L,K", [(1, 16_000, 12, 3), (64, 40, 4, 3),
+                                     (300, 257, 4, 2)])
+def test_usage_sum_kernel_is_the_cpus_float32_row_order_bit_for_bit(
+        card, T, N, L, K):
+    """The fleet scan's usage sum: the kernel's float32 sums in row order
+    are the CPU's ``np.add.at`` in float32, bit for bit, and a second
+    call's."""
+    rng = np.random.default_rng(T)
+    idx = torch.as_tensor(rng.integers(0, L * K, (T, N)), device=card)
+    chosen = torch.as_tensor(np.exp(rng.uniform(-8, 8, (T, N)))
+                             .astype(np.float32), device=card)
+    ops.reset_launch_counts()
+    got = ops.usage_sum(idx, chosen, K, L)
+    again = ops.usage_sum(idx, chosen, K, L)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["usage_sum"] == 2
+    want = ops.usage_sum(idx.cpu(), chosen.cpu(), K, L)
+    assert torch.equal(got.cpu(), want) and torch.equal(got, again)
+    exact = np.zeros((T, L))
+    np.add.at(exact, (np.repeat(np.arange(T), N),
+                      (idx.cpu().numpy() // K).ravel()),
+              chosen.cpu().numpy().astype(np.float64).ravel())
+    assert (want.numpy() != exact.astype(np.float32)).any() or N < 100
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,lens", [
     (4, 161, 40, 8, 128, [160, 1, 0, 77]),     # llama4-scout: rep 5

@@ -412,7 +412,7 @@ def test_train_launcher_resume_without_checkpoint_starts_at_zero():
     assert "ckpt bill" not in out.stdout
 
 
-@pytest.mark.parametrize("flag", [["--data-mesh", "2"]])
+@pytest.mark.parametrize("flag", [["--model-mesh", "2"]])
 def test_train_launcher_refuses_what_is_not_ported(flag, monkeypatch):
     monkeypatch.setattr(sys, "argv", ["train", "--smoke", "--device", "cpu",
                                       *flag])

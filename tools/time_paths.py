@@ -5,7 +5,7 @@ GPU, for comparing two source trees in one run on one card.
 
     python tools/time_paths.py [--src SRC] [--k2-inputs FILE]
         [--k1-inputs FILE] [--k4-inputs FILE] [--scan-inputs FILE]
-        [--scan-only]
+        [--scan-only | --k6-only]
 
 ``--src`` is the ``src`` directory of the tree to time (default: this
 checkout's); its kernels are built from that tree's sources into
@@ -43,10 +43,8 @@ its uncapped footprint. Its arguments are caught from that tree's
 finish, and kept in ``--scan-inputs`` (``build/time_paths_scan.npz``).
 It gets its wall time per call (host clock to ``torch.cuda.synchronize()``,
 5 calls after one warm-up) and its device time from torch.profiler (one
-call), with ``n * max / min`` of the instance's nonzero stored GB: the
-float64 usage sums are exact while that stays at or under 2**28.
-``--scan-only`` times the dual ascent alone (no build, prefill, steps or
-kernels).
+call). ``--scan-only`` times the dual ascent alone (no build, prefill, steps or
+kernels), and ``--k6-only`` K6 alone (building only its library).
 
 Prints, as its last line, one JSON object: the tree, the card's name and
 ``nvidia-smi`` power limit, the prefill seconds, the step seconds, the
@@ -160,8 +158,7 @@ def scan_inputs(path: Path) -> dict:
 
 
 def scan_times(torch, a: dict) -> dict:
-    """The dual ascent's wall ms per call and device ms (torch.profiler),
-    with the exactness measure of its usage sums."""
+    """The dual ascent's wall ms per call and device ms (torch.profiler)."""
     sys.path.insert(0, str(ROOT))
     from chip_smoke import device_ms
     from repro_torch.core import optassign
@@ -177,12 +174,8 @@ def scan_times(torch, a: dict) -> dict:
         torch.cuda.synchronize()
         if i:                                   # the first warms up
             wall.append(1e3 * (time.perf_counter() - t0))
-    s = a["stored"].astype(np.float32)
-    s = s[s > 0]
     return {"N": int(a["masked"].shape[0]), "iters": int(a["iters"]),
-            "wall_ms": wall, "device_ms": device_ms(fn, torch, iters=1)[0],
-            "n_max_over_min": float(a["masked"].shape[0] * s.max()
-                                    / s.min())}
+            "wall_ms": wall, "device_ms": device_ms(fn, torch, iters=1)[0]}
 
 
 def kernel_times(torch, fn) -> dict:
@@ -193,6 +186,22 @@ def kernel_times(torch, fn) -> dict:
     from chip_smoke import cuda_ms, device_ms
     return {"ms": cuda_ms(fn, torch, iters=50),
             "device_ms": device_ms(fn, torch)[0]}
+
+
+def k6_times(torch, cfg, da) -> dict:
+    """K6 on the serve loop's last cache at each of KV_LENS."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((BATCH, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=dev).bfloat16()
+    k, v = (torch.randn((BATCH, CACHE, cfg.n_kv_heads, cfg.head_dim),
+                        generator=g, device=dev).bfloat16() for _ in range(2))
+    out = {}
+    for L in KV_LENS:
+        lens = torch.full((BATCH,), L, dtype=torch.int32, device=dev)
+        out[f"K6 kv_len {L}"] = kernel_times(
+            torch, lambda: da.decode_attention_kernel(q, k, v, lens))
+    return out
 
 
 def main() -> int:
@@ -206,7 +215,9 @@ def main() -> int:
                                                / "time_paths_k4.npy"))
     ap.add_argument("--scan-inputs", default=str(ROOT / "build"
                                                  / "time_paths_scan.npz"))
-    ap.add_argument("--scan-only", action="store_true")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--scan-only", action="store_true")
+    only.add_argument("--k6-only", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -218,6 +229,16 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    if args.k6_only:
+        from repro_torch.configs.registry import get_config
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import decode_attention as da
+        _build.build(["decode_attention"])
+        print(json.dumps({"src": str(src),
+                          "device": torch.cuda.get_device_name(0),
+                          "nvidia_smi": smi,
+                          "kernels": k6_times(torch, get_config(ARCH), da)}))
+        return 0
     scan = scan_times(torch, scan_inputs(Path(args.scan_inputs)))
     if args.scan_only:
         print(json.dumps({"src": str(src),
@@ -242,16 +263,7 @@ def main() -> int:
     cfg = get_config(ARCH)
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
 
-    kernels = {}
-    g = gen()
-    q = torch.randn((BATCH, cfg.n_heads, cfg.head_dim), generator=g,
-                    device=dev).bfloat16()
-    k, v = (torch.randn((BATCH, CACHE, cfg.n_kv_heads, cfg.head_dim),
-                        generator=g, device=dev).bfloat16() for _ in range(2))
-    for L in KV_LENS:
-        lens = torch.full((BATCH,), L, dtype=torch.int32, device=dev)
-        kernels[f"K6 kv_len {L}"] = kernel_times(
-            torch, lambda: da.decode_attention_kernel(q, k, v, lens))
+    kernels = k6_times(torch, cfg, da)
     k2, k1 = placement_inputs(Path(args.k2_inputs), Path(args.k1_inputs))
     for i, a in enumerate(k2):
         t = [torch.as_tensor(x, dtype=dt, device=dev).contiguous()
