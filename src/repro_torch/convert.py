@@ -1,7 +1,8 @@
 """Carry learned state across as plain numpy arrays: a fitted COMPREDICT
 predictor (:func:`predictor_from_arrays`), model weights
 (:func:`model_params_from_arrays`) and a training state
-(:func:`train_state_from_arrays`).
+(:func:`train_state_from_arrays`), whole or as one rank's shards of a
+mesh.
 
 The placement path's only learned state is the fitted
 :class:`~repro_torch.core.compredict.CompressionPredictor`: one regression
@@ -34,10 +35,13 @@ import torch
 from repro_torch.core import ml
 from repro_torch.core.compredict import CompressionPredictor
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import map_specs
+from repro_torch.launch.mesh import tp_size
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of
 from repro_torch.models import mamba2, moe
-from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.optimizer import AdamWState, zero1_tree_specs
 
 Key = Tuple[str, str, str]          # (scheme, layout, 'ratio' | 'dspeed')
 
@@ -106,7 +110,7 @@ def predictor_from_arrays(arrays: Mapping[Key, Mapping[str, object]], *,
 
 
 def model_params_from_arrays(tree: Any, cfg: ModelConfig,
-                             device: DeviceLike = "cuda") -> Any:
+                             device: DeviceLike = "cuda", mesh=None) -> Any:
     """Model parameters for :mod:`repro_torch.models.transformer` from a
     tree of nested dicts and tuples of float32 numpy arrays, laid out as
     ``repro``'s ``init_params`` pytree (stages as tuples of per-unit dicts
@@ -115,7 +119,13 @@ def model_params_from_arrays(tree: Any, cfg: ModelConfig,
     to ``cfg.dtype``, except those that are float32 in every config
     (:data:`FLOAT32_PARAMS`: Mamba2's and the MoE router). ``None`` stays
     ``None``, so a cache tree (a cross block's entry is None) converts
-    too."""
+    too. With a ``mesh`` the result is this rank's shards of the weights
+    by ``sharding.param_specs`` at the mesh's model axis (the arrays are
+    the whole weights, their heads padded at that axis), each a copy."""
+    if mesh is not None:
+        whole = model_params_from_arrays(tree, cfg, device)
+        return _shards(whole, sharding.param_specs(whole, cfg,
+                                                   tp_size(mesh)), mesh)
     dev = resolve(device)
     dt = dtype_of(cfg.dtype)
 
@@ -155,18 +165,33 @@ def _float32_like(node: Any, ref: Any, dev: torch.device) -> Any:
     return torch.as_tensor(arr, device=dev).clone()
 
 
+def _shards(tree, specs, mesh):
+    """This rank's pieces of ``tree`` by ``specs``, each a copy."""
+    return map_specs(lambda s, t: sharding.shard_leaf(t, s, mesh).clone(),
+                     specs, tree)
+
+
 def train_state_from_arrays(state: Mapping[str, Any], cfg: ModelConfig,
-                            device: DeviceLike = "cuda") -> dict:
+                            device: DeviceLike = "cuda", mesh=None) -> dict:
     """The port's training state ``{'params', 'opt': AdamWState}`` from
     ``repro``'s, as numpy: ``state['params']`` as for
     :func:`model_params_from_arrays`, and ``state['opt']`` a mapping of
     ``repro``'s ``AdamWState`` fields: ``step`` (an int), ``master``,
     ``m``, ``v`` and ``err`` (None or a tree). The optimizer trees are
-    float32 and follow the parameters' structure, matched by key."""
+    float32 and follow the parameters' structure, matched by key. With a
+    ``mesh``: this rank's shards of the parameters (``param_specs``) and
+    of ``master``, ``m`` and ``v`` (ZeRO-1, ``optimizer.zero1_tree_specs``),
+    and ``err`` whole, as the reference keeps it."""
     dev = resolve(device)
     params = model_params_from_arrays(state["params"], cfg, device=dev)
     o = state["opt"]
+    trees = [_float32_like(o[k], params, dev) for k in ("master", "m", "v")]
+    err = None if o["err"] is None else _float32_like(o["err"], params, dev)
+    if mesh is not None:
+        p_specs = sharding.param_specs(params, cfg, tp_size(mesh))
+        z = zero1_tree_specs(p_specs, params, mesh)
+        params = _shards(params, p_specs, mesh)
+        trees = [_shards(t, z, mesh) for t in trees]
     return {"params": params, "opt": AdamWState(
         torch.tensor(int(o["step"]), dtype=torch.int32, device=dev),
-        *(_float32_like(o[k], params, dev) for k in ("master", "m", "v")),
-        None if o["err"] is None else _float32_like(o["err"], params, dev))}
+        *trees, err)}

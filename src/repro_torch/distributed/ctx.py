@@ -11,7 +11,34 @@ consult it:
   (``serving.decode.sharded_decode_attention``) when the model axis is
   above 1;
 * ``models.moe.moe_apply`` -> routing per data-parallel group;
-* ``training`` -> the data-parallel gradient mean.
+* ``training`` -> the data-parallel gradient mean;
+* the model's layers -> tensor parallelism over 'model' when its size is
+  above 1: each rank then holds its shards of the weights
+  (``sharding.param_specs``), and the layers join their column- and
+  row-parallel products with the collectives below.
+
+Tensor parallelism is Megatron's, written out: the counterpart of what
+GSPMD inserts for the reference's ``param_specs``. Four collectives over
+the model axis are ``torch.autograd.Function`` subclasses, each the
+identity when the axis is 1:
+
+* :func:`copy_to_model`: identity forward, all-reduce SUM backward. It
+  marks where a tensor that every rank holds whole enters a computation
+  each rank does on its own shards (a column-parallel product, the rank's
+  heads or experts), so the ranks' partial gradients meet there;
+* :func:`reduce_from_model`: all-reduce SUM forward, identity backward:
+  the end of a row-parallel product, whose output every rank then holds
+  whole;
+* :func:`gather_from_model`: all-gather forward along a dimension, this
+  rank's slice backward (vocab-sharded logits, q heads gathered for the
+  sequence-sharded decode);
+* :func:`sum_over_model`: all-reduce SUM both ways, for a sum whose
+  result each rank uses on its own shard (the sum of squares of an RMS
+  norm over a sharded feature axis).
+
+Sums run in float32 and every rank receives the same bits, so the
+computations every rank repeats (norms, the MoE router and its top-k)
+stay identical across ranks.
 
 Each rank runs the same eager program on its own tensors, and the
 collectives are explicit calls on the mesh's process groups
@@ -32,12 +59,16 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+_LOW = (torch.bfloat16, torch.float16)
+
 _MESH = None
 _SPLIT = False
 
 #: device type -> tensors reduced or gathered by :func:`all_reduce` and
 #: :func:`all_gather_rows` since the last clear
 reduced_on: "collections.Counter[str]" = collections.Counter()
+#: "all_reduce" / "all_gather" -> calls since the last clear
+collectives: "collections.Counter[str]" = collections.Counter()
 
 
 @contextlib.contextmanager
@@ -101,6 +132,17 @@ def model_rank() -> int:
 def model_group():
     """The process group of this rank's model axis."""
     return _MESH.get_group("model")
+
+
+def model_shard(n: int) -> slice:
+    """This rank's block of ``n`` entries sharded over the model axis
+    (``torch.chunk``'s piece: ``n`` must divide)."""
+    tp = model_axis_size()
+    if n % tp:
+        raise ValueError(f"{n} does not divide over {tp} model ranks")
+    per = n // tp
+    r = model_rank()
+    return slice(r * per, (r + 1) * per)
 
 
 def dp_size() -> int:
@@ -179,6 +221,7 @@ def all_reduce(x: torch.Tensor, op, group) -> torch.Tensor:
     """``dist.all_reduce`` of ``x`` in place over ``group``, counted in
     :data:`reduced_on` by ``x``'s device type."""
     reduced_on[x.device.type] += 1
+    collectives["all_reduce"] += 1
     dist.all_reduce(x, op=op, group=group)
     return x
 
@@ -187,6 +230,84 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes) of ``group`` concatenated along
     dim 0, in rank order; counted in :data:`reduced_on`."""
     reduced_on[x.device.type] += 1
+    collectives["all_gather"] += 1
     parts = [x.new_empty(x.shape) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=0)
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) of ``group`` concatenated along
+    ``dim``, in rank order; counted in :data:`reduced_on`."""
+    return all_gather_rows(x.movedim(dim, 0), group).movedim(0, dim)
+
+
+def _model_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the model axis, in float32 for a 16-bit ``x``,
+    returned in ``x``'s dtype (a new tensor)."""
+    y = x.float() if x.dtype in _LOW else x.clone()
+    all_reduce(y, dist.ReduceOp.SUM, model_group())
+    return y.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _model_sum(g)
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x):
+        return _model_sum(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x):
+        return _model_sum(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _model_sum(g)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim):
+        fctx.dim, fctx.n = dim, x.shape[dim]
+        return all_gather(x, dim, model_group())
+
+    @staticmethod
+    def backward(fctx, g):
+        r = model_rank()
+        return g.narrow(fctx.dim, r * fctx.n, fctx.n), None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; the gradient summed over the model axis."""
+    return x if model_axis_size() == 1 else _CopyToModel.apply(x)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the model axis; the gradient passed through."""
+    return x if model_axis_size() == 1 else _ReduceFromModel.apply(x)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the model axis, and its gradient too."""
+    return x if model_axis_size() == 1 else _SumOverModel.apply(x)
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model ranks' ``x`` concatenated along ``dim``; the gradient is
+    this rank's slice of it."""
+    return x if model_axis_size() == 1 else _GatherFromModel.apply(x, dim)

@@ -22,18 +22,24 @@ parameters get leading None axes padded by rank. :func:`to_named` turns a
 spec into the DTensor placements ``torch.distributed.tensor.distribute_tensor``
 takes, ``Shard(i)`` or ``Replicate()`` per mesh dimension.
 
-These are metadata. The port's collectives in this slice shard the
-decode cache's sequence over 'model' (``cache_specs``) and the batch over
-the data axes (``batch_specs``); every rank holds the weights whole and
-the Mamba states whole over 'model', so the results are the reference's
-and the bytes per rank are not (weights by ``param_specs`` and ZeRO-1
-state by ``zero1_specs`` are ROADMAP queue 1).
+Under a mesh each rank holds this rank's piece of every leaf as a plain
+tensor, which :func:`shard_tree` cuts: the ``torch.chunk`` piece along
+each dimension that names an axis, what ``to_named``'s ``Shard(i)``
+names. The weights follow ``param_specs`` (the layers' collectives are in
+:mod:`repro_torch.distributed.ctx`), the decode cache ``cache_specs``
+(sequence over 'model', Mamba's conv_x by channels and its SSM state by
+heads), the batch ``batch_specs``, and the optimizer's master weights and
+moments ``zero1_specs`` (ZeRO-1: the parameters' specs with one more
+dimension over 'data'). :func:`local_bytes` counts what a rank holds and
+:func:`reckoned_bytes` what the specs say it holds; the two are equal.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
+import torch
 from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.launch.mesh import axis_sizes
@@ -217,3 +223,78 @@ def zero1_specs(spec_tree, struct_tree, dp_axis: str = "data",
         return Spec(*entries)
 
     return map_specs(f, spec_tree, struct_tree)
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _coord(mesh, entry) -> Tuple[int, int]:
+    """(this rank's index, the number of pieces) along a spec entry: one
+    axis, or axes flattened with the first major."""
+    sizes = axis_sizes(mesh)
+    idx, n = 0, 1
+    for a in _axes(entry):
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+        n *= sizes[a]
+    return idx, n
+
+
+def shard_leaf(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's piece of ``t`` (a view): along each dimension whose
+    entry names axes, the ``torch.chunk`` piece of this rank's
+    coordinate. A dimension that does not divide is refused, as
+    ``jax.device_put`` refuses such a sharding."""
+    for dim, e in enumerate(spec):
+        if e is None:
+            continue
+        i, n = _coord(mesh, e)
+        if t.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                             f"divide over {n} ranks ({e})")
+        per = t.shape[dim] // n
+        t = t.narrow(dim, i * per, per)
+    return t
+
+
+def shard_tree(tree, specs, mesh):
+    """This rank's pieces (views) of a whole tree under its spec tree."""
+    return map_specs(lambda s, t: shard_leaf(t, s, mesh), specs, tree)
+
+
+def leaves(tree) -> list:
+    """The leaves of a tree of tensors or of specs, in the
+    order of ``transformer.tree_leaves``; None holds none."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, Spec):
+        return [x for v in tree for x in leaves(v)]
+    return [tree]
+
+
+def local_bytes(tree) -> int:
+    """Bytes of the tensors a rank holds in ``tree``."""
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def reckoned_bytes(structs, specs, mesh) -> int:
+    """Bytes a rank holds of whole leaves ``structs`` (meta tensors, or
+    any tensors) sharded by ``specs`` on ``mesh``: each leaf's bytes over
+    the number of pieces its sharded dimensions are cut into."""
+    sizes = axis_sizes(mesh)
+    total = 0
+    for t, spec in zip(leaves(structs), leaves(specs)):
+        pieces = math.prod(sizes[a] for e in spec if e is not None
+                           for a in _axes(e))
+        total += t.numel() * t.element_size() // pieces
+    return total
+
+
+def spec_dim(spec: Spec, axis: str) -> Optional[int]:
+    """The dimension of ``spec`` sharded over ``axis``, or None."""
+    for i, e in enumerate(spec):
+        if e is not None and axis in _axes(e):
+            return i
+    return None

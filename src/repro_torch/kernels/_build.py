@@ -14,8 +14,9 @@ stream are passed as ``ctypes.c_void_p``, and every C entry returns
 ``launch_counts`` counts launches per kernel: each wrapper adds one where
 it launches its kernel, and nowhere else, once per call whatever number of
 CUDA launches the call makes. A kernel with more than one route (K5 and K7:
-``bf16_tc`` for bfloat16, ``f32`` for float32, :data:`ROUTES`) also adds one
-to ``route_counts["<name>.<route>"]``; :func:`reset_launch_counts` clears
+``bf16_tc`` for bfloat16, ``f32`` for float32, :data:`ROUTES`; and ``wide``
+for K5, K6 and K7 above the widths those kernels take) also adds one to
+``route_counts["<name>.<route>"]``; :func:`reset_launch_counts` clears
 both.
 """
 
@@ -36,8 +37,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("overlap", "entropy_features", "flash_attention",
-           "decode_attention", "decode_attention_partials", "ssd_scan",
-           "quant_pack", "byte_entropy", "usage_sum")
+           "decode_attention", "decode_attention_partials", "attention_wide",
+           "ssd_scan", "quant_pack", "byte_entropy", "usage_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,108 @@
+"""The wide route of K5 and K6: ``csrc/attention_wide.cu``.
+
+The Pallas kernels take heads of any width; the port's prefill kernel
+(``csrc/flash_attention.cu``) takes D and Dv up to 256 and its decode
+kernel (``csrc/decode_attention.cu``) D up to 576 and Dv up to 512, within
+its shared memory. :func:`flash_attention_kernel` and
+:func:`decode_attention_kernel` (and its partials mode) send a call here
+only above those limits: a route chosen by shape between two hand-written
+kernels. This kernel is the simplest correct one (one block per query row
+and head, the online softmax in float32 over the visible keys, looping
+over D for the scores and over Dv for the output); no config's path
+reaches it.
+
+The wrappers here take operands their callers have checked
+(``flash_attention.check_operands`` and ``decode_attention._check``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("attention_wide")
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, o, kv_len, glen; offset; acc, m, l; B, Sq, Sk, Hq, Hkv,
+        # D, Dv, ldv, causal, window; softcap, scale; dtype; stream
+        lib.attention_wide_launch.argtypes = [p] * 6 + [i] + [p] * 3 \
+            + [i] * 10 + [f, f, i, p]
+        lib.attention_wide_launch.restype = ctypes.c_int
+        lib.attention_wide_smem_bytes.argtypes = [i, i]
+        lib.attention_wide_smem_bytes.restype = ctypes.c_longlong
+        lib.attention_wide_error_string.argtypes = [ctypes.c_int]
+        lib.attention_wide_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k, v, o, *, kv_len=None, glen=None, offset=0, acc=None,
+            m=None, l=None, Sq, causal=False, window=None, softcap=None):
+    B, Hq, D = q.shape[0], q.shape[-2], q.shape[-1]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    lib = _lib()
+    rc = lib.attention_wide_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(o), _ptr(kv_len),
+        _ptr(glen), int(offset), _ptr(acc), _ptr(m), _ptr(l), B, Sq, Sk, Hq,
+        Hkv, D, Dv, v.stride(-2), int(causal), int(window or 0),
+        float(softcap or 0.0), 1.0 / math.sqrt(D),
+        _build.DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wide attention kernel launch failed: "
+                           f"{lib.attention_wide_error_string(rc).decode()}")
+
+
+def prefill(q, k, v, *, causal, window, softcap) -> torch.Tensor:
+    """K5's function: (B, Sq, Hq, Dv) in q's dtype."""
+    B, Sq, Hq, _ = q.shape
+    out = torch.empty((B, Sq, Hq, v.shape[-1]), dtype=q.dtype,
+                      device=q.device)
+    if out.numel():
+        _launch(q, k, v, out, Sq=Sq, causal=causal, window=window,
+                softcap=softcap)
+        _build.launch_counts["flash_attention"] += 1
+        _build.route_counts["flash_attention.wide"] += 1
+    return out
+
+
+def decode(q, k, v, kv_len, *, window, softcap) -> torch.Tensor:
+    """K6's function: (B, Hq, Dv) in q's dtype; v may be k's first
+    columns (its row stride is k's)."""
+    B, Hq, _ = q.shape
+    out = torch.empty((B, Hq, v.shape[-1]), dtype=q.dtype, device=q.device)
+    if out.numel():
+        _launch(q, k, v, out, kv_len=kv_len, Sq=1, window=window,
+                softcap=softcap)
+        _build.launch_counts["decode_attention"] += 1
+        _build.route_counts["decode_attention.wide"] += 1
+    return out
+
+
+def partials(q, k, v, local_len, acc, m, l, *, offset, global_len, window,
+             softcap) -> None:
+    """K6's partials mode into ``acc``, ``m``, ``l`` (filled in place)."""
+    if acc.numel():
+        _launch(q, k, v, None, kv_len=local_len, glen=global_len,
+                offset=offset, acc=acc, m=m, l=l, Sq=1,
+                window=window if global_len is not None else None,
+                softcap=softcap)
+        _build.launch_counts["decode_attention"] += 1
+        _build.route_counts["decode_attention.partials_wide"] += 1
+
+
+def smem_bytes(D: int, Dv: int) -> int:
+    """Shared memory one block takes at head widths D and Dv (CUDA build
+    needed)."""
+    return int(_lib().attention_wide_smem_bytes(D, Dv))

@@ -67,6 +67,15 @@
 //   share of the state. Its products run on the float32 CUDA cores with
 //   both operands read from shared memory; it is the float32 check route,
 //   not a speed path.
+//
+// bfloat16 at n above 256 (the wide route): the tensor-core route's tiles
+//   stop at n 256, and the Pallas kernel takes any n. The CUDA-core kernel
+//   above, instantiated to read bfloat16 x, B and C, takes the call: it
+//   computes in float32 as the f32 route does, writes y in bfloat16 and
+//   keeps the state in float32. Its shared memory, 4 (Q p + (Q + p)(n | 1)
+//   + 32 n + 32 Q + 3 Q) bytes, bounds (chunk, p, n) instead: at p 64,
+//   chunk 128 takes n up to 202, chunk 64 n up to 323, chunk 32 n up to
+//   429.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -748,10 +757,10 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
 
 // Shared memory the kernels take for chunk Q, head width P and state N:
 // dtype 0 (the f32 route's one kernel) or 1 (the larger of the bf16
-// route's chunk and scan passes).
+// route's chunk and scan passes; above n 256, the CUDA-core kernel's).
 extern "C" long long ssd_scan_smem_bytes(int Q, int P, int N, int dtype)
 {
-    if (dtype == 1) {
+    if (dtype == 1 && N <= bf16tc::kMaxState) {
         const size_t a = bf16tc::smem_pass1(Q, P, N);
         const size_t b = bf16tc::smem_pass3(Q, P, N);
         return (long long)(a > b ? a : b);
@@ -762,8 +771,9 @@ extern "C" long long ssd_scan_smem_bytes(int Q, int P, int N, int dtype)
 // dtype (of x, B, C and y): 0 float32 (the f32 route), 1 bfloat16 (the
 // tensor-core route, which also takes the f32 scratch s_loc (b, nc, h, p,
 // n), decay (b, nc, h) and cbuf (b, nc, g, Q16, Q16), nc = ceil(s / Q),
-// Q16 = Q rounded up to 16; null for dtype 0). Dskip may be null (no skip
-// connection).
+// Q16 = Q rounded up to 16; null for dtype 0; above n 256 the CUDA-core
+// kernel reading bfloat16, which takes no scratch). Dskip may be null (no
+// skip connection).
 extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A,
                                const void* Bm, const void* Cm,
                                const float* Dskip, void* y, float* state_out,
@@ -779,6 +789,10 @@ extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A,
                                             state_out, Bsz, S, H, P, G, N, Q,
                                             s);
         case 1:
+            if (N > bf16tc::kMaxState)
+                return f32::launch_t<__nv_bfloat16>(x, dt, A, Bm, Cm, Dskip,
+                                                    y, state_out, Bsz, S, H,
+                                                    P, G, N, Q, s);
             if (S > 0 && (s_loc == nullptr || decay == nullptr
                           || cbuf == nullptr))
                 return (int)cudaErrorInvalidValue;

@@ -42,7 +42,10 @@ Heads go up to D 576 and Dv 512, MLA's absorbed decode
 columns whose value is its first 512. There v is a view of k
 (:func:`v_in_k`); the kernel then reads V from the K tile it has staged
 and never copies v, and :func:`decode_attention_split` takes v from k's
-columns in the same way.
+columns in the same way. Wider heads, and float32 heads whose one stage
+does not fit the shared memory (:func:`split_fits`), take the wide route
+in both modes (``wide`` and ``partials_wide``: ``csrc/attention_wide.cu``,
+:mod:`repro_torch.kernels.attention_wide`), the Pallas kernel's any width.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, attention_wide
 from repro_torch.kernels.flash_attention import NEG_INF, check_operands
 
 SPLIT_UNIT = 64          # kTile x kWarps in csrc/decode_attention.cu
@@ -63,6 +66,7 @@ MAX_GROUP = 8            # query heads a block takes of one KV head
 WIDE_GROUP = 4           # ... when Dv is above NARROW_DV
 NARROW_DV = 256
 MAX_D, MAX_DV = 576, 512  # MLA's latent head: kv_lora_rank 512 + rope 64
+MAX_SMEM = 232448         # a block's shared memory on Hopper (227 KB)
 
 
 def v_in_k(k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -80,6 +84,25 @@ def group_size(rep: int, Dv: int) -> int:
     """Query heads one block of the kernel takes of a KV head."""
     hb = 1 if rep == 1 else 2 if rep == 2 else 4 if rep <= 4 else MAX_GROUP
     return min(hb, WIDE_GROUP) if Dv > NARROW_DV else hb
+
+
+@functools.lru_cache(maxsize=None)
+def split_fits(Hq: int, Hkv: int, D: int, Dv: int, dtype: torch.dtype,
+               aliased: bool) -> bool:
+    """True when ``csrc/decode_attention.cu`` takes these heads: D at most
+    576, Dv at most 512, and one stage of its tiles within the shared
+    memory (``geometry`` there; a float32 v of more than 256 columns apart
+    from k does not fit). Else the call takes the wide route."""
+    if not (D <= MAX_D and Dv <= MAX_DV and (not aliased or Dv <= D)):
+        return False
+    el = torch.empty((), dtype=dtype).element_size()
+    per = 16 // el
+    ku, kv = -(-D // per), -(-Dv // per)
+    hb = group_size(Hq // Hkv, Dv)
+    stage_off = 4 * hb * ku * per + 4 * 2 * hb * (Dv + 2)
+    stage_off = -(-stage_off // 16) * 16
+    ld = (ku | 1) * per + (0 if aliased else kv * per)
+    return stage_off + el * SPLIT_UNIT * ld <= MAX_SMEM
 
 
 @functools.lru_cache(maxsize=None)
@@ -243,14 +266,17 @@ def decode_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q and k contiguous, of one float dtype, on one CUDA device; v
     contiguous too, or k's first Dv columns (:func:`v_in_k`, read from k's
-    tiles without a copy); kv_len int32 (B,) on the same device; D at most
-    576 and Dv at most 512 (in float32 a separate v of more than 256
-    columns does not fit the shared memory); Hq a multiple of Hkv.
+    tiles without a copy); kv_len int32 (B,) on the same device; Hq a
+    multiple of Hkv. Heads that ``csrc/decode_attention.cu`` does not take
+    (:func:`split_fits`) launch the wide route instead.
     """
     dev = q.device
     aliased = _check(q, k, v, kv_len, window, softcap)
     B, Hq, D = q.shape
     _, S, Hkv, Dv = (*k.shape[:3], v.shape[-1])
+    if not split_fits(Hq, Hkv, D, Dv, q.dtype, aliased):
+        return attention_wide.decode(q, k, v, kv_len, window=window,
+                                     softcap=softcap)
     out = torch.empty((B, Hq, Dv), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
@@ -307,6 +333,11 @@ def decode_attention_partials_kernel(
     acc = torch.zeros((B, Hq, Dv), dtype=torch.float32, device=dev)
     m = torch.full((B, Hq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hq), dtype=torch.float32, device=dev)
+    if not split_fits(Hq, Hkv, D, Dv, q.dtype, aliased):
+        attention_wide.partials(q, k, v, local_len, acc, m, l, offset=offset,
+                                global_len=global_len, window=window,
+                                softcap=softcap)
+        return acc, m, l
     if acc.numel() == 0 or S == 0:
         return acc, m, l
     split, part = _split_and_scratch(B, S, Hq, Hkv, Dv, dev)
@@ -348,9 +379,8 @@ def _check(q, k, v, kv_len, window, softcap) -> bool:
                          f"{kv_len.device}")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads are not a multiple of {Hkv}")
-    if not (1 <= D <= MAX_D and 1 <= Dv <= MAX_DV):
-        raise ValueError(f"head dims D={D}, Dv={Dv} must be 1..{MAX_D} and "
-                         f"1..{MAX_DV}")
+    if D < 1 or Dv < 1:
+        raise ValueError(f"head dims D={D}, Dv={Dv} must be positive")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     if window is not None and not window > 0:

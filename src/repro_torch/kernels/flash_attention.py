@@ -11,7 +11,9 @@ softcap comes after the scale and before the mask, and with ``causal`` a
 * :func:`flash_attention_kernel` launches ``csrc/flash_attention.cu`` on
   CUDA tensors (it raises for anything else): bfloat16 takes the
   tensor-core route (``bf16_tc``: mma.sync, cp.async), float32 the
-  CUDA-core kernel (``f32``);
+  CUDA-core kernel (``f32``); heads wider than :data:`MAX_HEAD_DIM` take
+  the wide route (``wide``, ``csrc/attention_wide.cu``,
+  :mod:`repro_torch.kernels.attention_wide`) in either dtype;
 * :func:`flash_attention_plain` is the same function in tensor ops, with
   the (B, Hkv, rep, Sq, Sk) scores materialised, used for CPU tensors and
   as the kernel's yardstick on the card;
@@ -30,9 +32,11 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, attention_wide
 
 NEG_INF = -1e30
+#: the widest D and Dv of ``csrc/flash_attention.cu``; wider heads take
+#: the wide route
 MAX_HEAD_DIM = 256
 
 
@@ -97,8 +101,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            softcap: Optional[float] = None) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu``: (B, Sq, Hq, Dv) in q's dtype.
 
-    q, k, v contiguous, of one float dtype, on one CUDA device; D and Dv
-    at most 256; Hq a multiple of Hkv.
+    q, k, v contiguous, of one float dtype, on one CUDA device; Hq a
+    multiple of Hkv. D or Dv above :data:`MAX_HEAD_DIM` launches the wide
+    route (``csrc/attention_wide.cu``) instead.
     """
     dev = q.device
     if dev.type != "cuda":
@@ -111,12 +116,15 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)} do not fit together")
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"{Hq} query heads are not a multiple of {Hkv}")
-    if not (1 <= D <= MAX_HEAD_DIM and 1 <= Dv <= MAX_HEAD_DIM):
-        raise ValueError(f"head dims D={D}, Dv={Dv} must be 1..{MAX_HEAD_DIM}")
+    if D < 1 or Dv < 1:
+        raise ValueError(f"head dims D={D}, Dv={Dv} must be positive")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     if window is not None and not window > 0:
         raise ValueError(f"window must be positive, got {window}")
+    if D > MAX_HEAD_DIM or Dv > MAX_HEAD_DIM:
+        return attention_wide.prefill(q, k, v, causal=causal, window=window,
+                                      softcap=softcap)
     out = torch.empty((B, Sq, Hq, Dv), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out

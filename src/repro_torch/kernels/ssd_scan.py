@@ -17,7 +17,9 @@ and the scan returns (y (b, s, h, p) in x's dtype, final state
 * :func:`ssd_scan_kernel` launches ``csrc/ssd_scan.cu`` on CUDA tensors
   (it raises for anything else): bfloat16 takes the tensor-core route
   (``bf16_tc``: a chunk pass, a state pass and a scan pass), float32 the
-  CUDA-core kernel (``f32``);
+  CUDA-core kernel (``f32``), and bfloat16 at n above
+  :data:`BF16_TC_MAX_STATE` the CUDA-core kernel reading bfloat16
+  (``wide``: float32 arithmetic, y in bfloat16, the state in float32);
 * :func:`ssd_scan_plain` is the chunked algorithm in tensor ops, used for
   CPU tensors and as the kernel's yardstick on the card;
 * :func:`ssd_scan_chunked` is the ``bf16_tc`` route's three passes in
@@ -45,6 +47,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import check_operands
 
 _MAX_SMEM = 227 * 1024          # per-block shared memory on Hopper
+#: the widest state of the tensor-core route (``kMaxState`` in the source)
+BF16_TC_MAX_STATE = 256
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -240,7 +244,9 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x, B, C contiguous and of one float dtype; dt, A, D contiguous
     float32; all on one CUDA device; h a multiple of g. bfloat16 takes the
     tensor-core route, which also takes :func:`ssd_scan_scratch_bytes` of
-    float32 scratch and n up to 256 (the C entry refuses a wider state).
+    float32 scratch, up to n :data:`BF16_TC_MAX_STATE`; a wider bfloat16
+    state takes the CUDA-core kernel (the ``wide`` route), which takes no
+    scratch.
     """
     dev = x.device
     if dev.type != "cuda":
@@ -262,6 +268,10 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     lib = _lib()
     code = _build.DTYPE_CODES[x.dtype]
     smem = lib.ssd_scan_smem_bytes(chunk, p, n, code)
+    # the CUDA-core kernel (f32 and wide routes) holds a chunk of x and B,
+    # a 32-row tile of C and of weights and the (p, n) state: at p 64 it
+    # takes n up to 202 at chunk 128, 323 at chunk 64 and 429 at chunk 32
+    # (the tensor-core route's bound is its chunk and scan passes')
     if smem > _MAX_SMEM:
         raise ValueError(f"chunk {chunk}, p {p}, n {n} need {smem} bytes of "
                          f"shared memory, more than {_MAX_SMEM}")
@@ -269,8 +279,9 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     if b * h == 0:
         return y, state
+    wide = x.dtype == torch.bfloat16 and n > BF16_TC_MAX_STATE
     scratch = [None] * 3                     # s_loc, decay, cbuf
-    if x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16 and not wide:
         scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
                    for shape in _scratch_shapes(b, s, h, p, g, n, chunk)]
     ptr = lambda t: t.data_ptr() if t is not None else None
@@ -282,7 +293,8 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise RuntimeError(f"SSD scan kernel launch failed: "
                            f"{lib.ssd_scan_error_string(rc).decode()}")
     _build.launch_counts["ssd_scan"] += 1
-    _build.route_counts[f"ssd_scan.{_build.ROUTES[x.dtype]}"] += 1
+    route = "wide" if wide else _build.ROUTES[x.dtype]
+    _build.route_counts[f"ssd_scan.{route}"] += 1
     return y, state
 
 

@@ -15,11 +15,14 @@ second of the whole loop, as the JAX launcher does.
 
 ``--data-mesh`` and ``--model-mesh`` lay the ranks out as ``--data-mesh``
 x ``--model-mesh`` (``launch.mesh.launch_mesh``; under ``torchrun`` the
-world size must be their product): the batch over 'data', the decode
-cache's sequence over 'model' (``serving.decode``: the sequence-sharded
-decode). The cache's slots are rounded up to a multiple of
-``--model-mesh`` (slots past a sequence's length are never attended).
-Ranks that share a card run over gloo; rank 0 prints.
+world size must be their product): the batch over 'data', the weights
+tensor-parallel over 'model' (each rank draws the whole weights from seed
+0 and keeps its shards, ``sharding.param_specs``) and the decode cache's
+sequence over 'model' (``serving.decode``: the sequence-sharded decode).
+The cache's slots are rounded up to a multiple of ``--model-mesh`` (slots
+past a sequence's length are never attended). Ranks that share a card run
+over gloo. Each rank prints its parameter bytes beside the reckoning from
+the specs; rank 0 prints the rate.
 
 Like the JAX launcher, the command line feeds no cross-attention context.
 A config that needs one (``cross_context``: vision; ``encoder_stages``:
@@ -39,6 +42,7 @@ import torch.distributed as dist
 from repro_torch.configs.registry import get_config
 from repro_torch.device import describe
 from repro_torch.launch.mesh import launch_mesh
+from repro_torch.launch.shapes import rank_bytes
 from repro_torch.models import transformer as tr
 from repro_torch.serving.decode import init_cache, make_decode_step
 
@@ -114,7 +118,12 @@ def main():
     n = args.model_mesh
     max_seq = -(-(args.prompt_len + args.tokens + 1) // n) * n
     params = tr.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                            device=dev)
+                            n, mesh, device=dev)
+    if mesh is not None:
+        b = rank_bytes(cfg, mesh, params)
+        print(f"rank {dist.get_rank()}: parameters {b['params']:,} bytes "
+              f"(reckoned from param_specs: {b['params_reckoned']:,})",
+              flush=True)
     cache = init_cache(cfg, B, max_seq=max_seq, mesh=mesh, device=dev)
     prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
                             generator=torch.Generator(device=dev).manual_seed(1),

@@ -12,7 +12,8 @@ whisper's decode uses its fixed 1500-frame encoder context as the cross
 input. Where JAX returns ``jax.ShapeDtypeStruct``s, :func:`input_specs`
 returns tensors on the ``meta`` device: each has the shape and dtype and
 no data. ``param_structs`` and ``train_state_structs`` wait for the port
-of ``launch/dryrun.py``.
+of ``launch/dryrun.py``; :func:`rank_bytes` reckons a rank's parameter
+and ZeRO-1 bytes from the specs on meta tensors, for the launchers.
 """
 
 from __future__ import annotations
@@ -22,8 +23,12 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import tp_size
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import MetaGenerator
+from repro_torch.training.optimizer import zero1_tree_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,4 +98,23 @@ def input_specs(cfg: ModelConfig, shape_name: str,
     ctx = _context(cfg, B)
     if ctx is not None:
         out["context"] = ctx
+    return out
+
+
+def rank_bytes(cfg: ModelConfig, mesh, params, opt=None) -> Dict[str, int]:
+    """This rank's bytes of ``params`` (and of the optimizer state
+    ``opt``'s master weights and moments) beside the reckoning from the
+    specs of the whole weights on the meta device: ``param_specs`` for the
+    parameters, ``zero1_specs`` over 'data' for the float32 state."""
+    tp = tp_size(mesh)
+    structs = tr.init_params(MetaGenerator(), cfg, tp, device="meta")
+    specs = sharding.param_specs(structs, cfg, tp)
+    out = {"params": sharding.local_bytes(params),
+           "params_reckoned": sharding.reckoned_bytes(structs, specs, mesh)}
+    if opt is not None:
+        f32 = tr.tree_map(lambda t: t.float(), structs)
+        z = zero1_tree_specs(specs, structs, mesh)
+        out["opt"] = sum(sharding.local_bytes(t)
+                         for t in (opt.master, opt.m, opt.v))
+        out["opt_reckoned"] = 3 * sharding.reckoned_bytes(f32, z, mesh)
     return out

@@ -8,17 +8,22 @@ data-parallel over a mesh.
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
         --arch qwen3-4b --smoke --steps 4 --batch 8 --data-mesh 2 \\
         --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch zamba2-2.7b --smoke --steps 4 --batch 4 --model-mesh 2 \\
+        --device cpu
 
 Port of ``repro.launch.train``: the same synthetic Zipf
 token shards in a :class:`~repro_torch.storage.store.TieredStore` (16
 shards of 32 rows), the same :class:`~repro_torch.data.loader.TieredDataLoader`
 order, random weights from seed 0 and ``TrainConfig(remat=not smoke)``, on
 ``--device`` (default ``cuda``). ``--data-mesh N`` trains data-parallel
-over N ranks (``launch.mesh.launch_mesh``: under ``torchrun`` the world
-size must be N; every rank reads the same global batches and takes its
-rows, ``training.train_step``); ``--model-mesh`` above 1 is refused, since
-tensor-parallel weights are not ported (ROADMAP queue 1), and
-``--data-mesh 0``, the production mesh, is refused too.
+over N ranks and ``--model-mesh M`` tensor-parallel over M
+(``launch.mesh.launch_mesh``: under ``torchrun`` the world size must be N
+x M; every rank reads the same global batches and takes its rows, holds
+its shards of the weights by ``param_specs`` and, at N above 1, its
+ZeRO-1 slices of the optimizer state, ``training.train_step``); each rank
+prints its parameter and optimizer bytes beside the reckoning from the
+specs. ``--data-mesh 0``, the production mesh, is refused.
 ``--compressed-grads`` turns on the int8 error-feedback gradient mean (the
 K3 kernel on the card). ``--ckpt-every k`` saves the
 state every k steps through a
@@ -49,6 +54,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.data.loader import TieredDataLoader, write_token_shards
 from repro_torch.device import describe
 from repro_torch.launch.mesh import launch_mesh
+from repro_torch.launch.shapes import rank_bytes
 from repro_torch.models.config import ModelConfig
 from repro_torch.storage.store import TieredStore
 from repro_torch.training import train_step as ts
@@ -123,18 +129,13 @@ def main():
                     help="data-parallel ranks (0, the production mesh, is "
                          "refused: one card)")
     ap.add_argument("--model-mesh", type=int, default=1,
-                    help="tensor-parallel width; only 1 (tensor-parallel "
-                         "weights are not ported)")
+                    help="tensor-parallel ranks")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--compressed-grads", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
-    if args.model_mesh != 1:
-        raise NotImplementedError("--model-mesh above 1 needs tensor-parallel "
-                                  "weights (param_specs), which are not "
-                                  "ported yet (ROADMAP.md queue 1)")
     cfg = get_config(args.arch, smoke=args.smoke)
     mesh, dev = launch_mesh(args.data_mesh, args.model_mesh, args.device)
     lead = mesh is None or dist.get_rank() == 0
@@ -148,7 +149,13 @@ def main():
     mgr = (CheckpointManager(store, device=dev) if args.ckpt_every
            else None)
     state = ts.init_train_state(torch.Generator(device=dev).manual_seed(0),
-                                cfg, tcfg, device=dev)
+                                cfg, tcfg, args.model_mesh, mesh, device=dev)
+    if mesh is not None:
+        b = rank_bytes(cfg, mesh, state["params"], state["opt"])
+        print(f"rank {dist.get_rank()}: parameters {b['params']:,} bytes "
+              f"(reckoned from param_specs: {b['params_reckoned']:,}), "
+              f"optimizer {b['opt']:,} bytes (reckoned from zero1_specs: "
+              f"{b['opt_reckoned']:,})", flush=True)
     start = 0
     if args.resume and mgr and mgr.latest_step() is not None:
         state, start = mgr.restore(state, device=dev)
@@ -169,7 +176,7 @@ def main():
     if lead:
         where = describe(dev)["kind"]
         if mesh is not None:
-            where += f", data-parallel over {args.data_mesh}"
+            where += f", mesh {args.data_mesh} x {args.model_mesh}"
         print(f"done at step {start + len(res.losses)} on {where}: "
               f"{res.tokens_per_s:.1f} training tokens/s")
     if mesh is not None:

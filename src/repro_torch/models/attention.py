@@ -4,12 +4,24 @@ MLA (DeepSeek's compressed KV) and cross-attention.
 Port of ``repro.models.attention``. Parameter names follow the JAX
 package: wq/wk/wv/wo (+bq/bk/bv), q_norm/k_norm; MLA's w_dkv, kv_norm,
 w_uk, w_uv. Head counts are padded to a multiple of ``tp`` as there, so
-converted weights keep their shapes; every rank holds them whole (tensor
-parallelism is ROADMAP queue 1). Under a mesh whose model axis is above 1
-(:mod:`repro_torch.distributed.ctx`) a decode cache is this rank's slice
-of the sequence: a step writes its new entry only on the rank that holds
-its slot (:func:`cache_write`), as GSPMD routes the JAX package's
-``.at[pos].set``, and the decode attention merges the ranks' partials.
+converted weights keep their shapes.
+
+Under a mesh whose model axis is above 1 (:mod:`repro_torch.distributed.ctx`)
+the weights are this rank's shards (``sharding.param_specs``), and the
+blocks read their local head counts from their local shapes: wq (and
+MLA's w_uk, w_uv) hold the rank's query heads, wk/wv its KV heads, or
+every KV head where ``_rules`` replicates them (KV heads that do not
+divide and are not MHA; the rank then keeps the KV heads its query heads
+map to), and wo is row-parallel, summed over the ranks. A decode cache is
+then this rank's slice of the sequence, every KV head of it
+(``cache_specs``): a step gathers the new k/v over heads (MLA's latent is
+whole on every rank) and writes them only on the rank that holds the slot
+(:func:`cache_write`), as GSPMD routes the JAX package's ``.at[pos].set``;
+it gathers the query heads, runs the decode attention for all heads over
+its own slots and merges the ranks' partials, and keeps its own heads for
+wo. Replicated leaves used on the rank's heads (q_norm, k_norm, replicated
+wk/wv and their biases) pass through ``ctx.copy_to_model``, so their
+gradients are summed over the ranks.
 Full-sequence attention (prefill, training, the encoder, cross-attention
 at every step) runs K5 (:func:`repro_torch.kernels.ops.flash_attention`);
 one-token decode against a cache runs K6
@@ -26,7 +38,8 @@ import torch
 from repro_torch.distributed import ctx
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, dense_init, dtype_of, rms_norm
+from repro_torch.models.layers import (apply_rope, dense_init, dtype_of,
+                                       rms_norm, row_parallel)
 
 Params = Dict[str, torch.Tensor]
 
@@ -93,35 +106,91 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, tp: int = 1,
     return p
 
 
+def kv_replicated(cfg: ModelConfig) -> bool:
+    """True when the active mesh's model axis is above 1 and ``_rules``
+    holds wk/wv whole on every rank (KV heads that do not divide by it
+    and are not MHA's)."""
+    tp = ctx.model_axis_size()
+    return tp > 1 and not (cfg.n_kv_heads % tp == 0
+                           or cfg.n_kv_heads == cfg.n_heads)
+
+
+def _copied(p: Params, name: str, replicated: bool) -> torch.Tensor:
+    """``p[name]``, through ``ctx.copy_to_model`` when it is held whole and
+    used on the rank's heads."""
+    return ctx.copy_to_model(p[name]) if replicated else p[name]
+
+
+def rank_kv(k: torch.Tensor, hq_loc: int) -> torch.Tensor:
+    """Of k/v (B, S, Hkv, hd) holding every KV head, the heads this rank's
+    ``hq_loc`` query heads map to: a contiguous block when they map in
+    equal groups (GQA), else one KV head per query head."""
+    hkv = k.shape[2]
+    rep = hq_loc * ctx.model_axis_size() // hkv
+    first = ctx.model_rank() * hq_loc
+    idx = [(first + i) // rep for i in range(hq_loc)]
+    used = sorted(set(idx))
+    if hq_loc % len(used) == 0 and idx == [
+            u for u in used for _ in range(hq_loc // len(used))]:
+        return k[:, :, used[0]:used[-1] + 1]
+    return k[:, :, idx]
+
+
 def _project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
+    """q (B, S, the rank's query heads, hd), and k, v with the rank's KV
+    heads, or every KV head where they are replicated."""
     B, S, _ = x.shape
     hd = cfg.head_dim
+    rep_kv = kv_replicated(cfg)
+    sharded = ctx.model_axis_size() > 1
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    k = x @ _copied(p, "wk", rep_kv)
+    v = x @ _copied(p, "wv", rep_kv)
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
+        k = k + _copied(p, "bk", rep_kv)
+        v = v + _copied(p, "bv", rep_kv)
     q = q.reshape(B, S, -1, hd)
     k = k.reshape(B, S, -1, hd)
     v = v.reshape(B, S, -1, hd)
     if "q_norm" in p:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, _copied(p, "q_norm", sharded), cfg.norm_eps)
+        k = rms_norm(k, _copied(p, "k_norm", sharded), cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
+def _out(p: Params, o: torch.Tensor) -> torch.Tensor:
+    """``wo`` over the rank's heads of o (B, S, heads, dv), summed over
+    the model axis."""
+    B, S = o.shape[:2]
+    return row_parallel(o.reshape(B, S, -1), p["wo"])
+
+
 def gqa_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor, causal: bool = True,
               window: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence self attention (prefill)."""
-    B, S, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    """Full-sequence self attention (prefill) on the rank's heads."""
+    q, k, v = _project_qkv(p, ctx.copy_to_model(x), cfg, positions)
+    if kv_replicated(cfg):
+        k, v = rank_kv(k, q.shape[2]), rank_kv(v, q.shape[2])
     o = ops.flash_attention(q, k, v, causal=causal, window=window,
                             softcap=cfg.attn_softcap)
-    return o.reshape(B, S, -1) @ p["wo"]
+    return _out(p, o)
+
+
+def _all_heads(t: torch.Tensor, whole: bool) -> torch.Tensor:
+    """t (..., heads, hd) with every head: gathered over the model axis
+    unless the rank holds them all already."""
+    return t if whole else ctx.gather_from_model(t, -2)
+
+
+def _own_heads(o: torch.Tensor, hq_loc: int) -> torch.Tensor:
+    """The rank's ``hq_loc`` heads of o (B, every head, dv)."""
+    r = ctx.model_rank()
+    return o[:, r * hq_loc:(r + 1) * hq_loc]
 
 
 def gqa_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -139,16 +208,18 @@ def gqa_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     permutation-invariant over cached entries and keys are stored after
     RoPE. So ``window`` is not passed to the kernel, as in JAX.
     """
-    B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, pos[:, None])
+    hq_loc = q.shape[2]
+    rep_kv = kv_replicated(cfg)
+    k, v = _all_heads(k, rep_kv), _all_heads(v, rep_kv)
     cache_len = cache_length(cache_k)
     slot = pos % cache_len                      # ring write (no-op when full)
     cache_write(cache_k, slot, k[:, 0])
     cache_write(cache_v, slot, v[:, 0])
     kv_len = torch.clamp(pos + 1, max=cache_len)
-    o = ops.decode_attention(q[:, 0], cache_k, cache_v, kv_len,
-                             softcap=cfg.attn_softcap)
-    y = o.reshape(B, 1, -1) @ p["wo"]
+    o = ops.decode_attention(_all_heads(q[:, 0], False), cache_k, cache_v,
+                             kv_len, softcap=cfg.attn_softcap)
+    y = _out(p, _own_heads(o, hq_loc)[:, None])
     return y, cache_k, cache_v
 
 
@@ -176,12 +247,15 @@ def cross_apply(p: Params, x: torch.Tensor, context: torch.Tensor,
     B, S, _ = x.shape
     Sc = context.shape[1]
     hd = cfg.head_dim
-    context = context.to(p["wk"].dtype)
-    q = (x @ p["wq"]).reshape(B, S, -1, hd)
-    k = (context @ p["wk"]).reshape(B, Sc, -1, hd)
-    v = (context @ p["wv"]).reshape(B, Sc, -1, hd)
+    rep_kv = kv_replicated(cfg)
+    context = ctx.copy_to_model(context.to(p["wk"].dtype))
+    q = (ctx.copy_to_model(x) @ p["wq"]).reshape(B, S, -1, hd)
+    k = (context @ _copied(p, "wk", rep_kv)).reshape(B, Sc, -1, hd)
+    v = (context @ _copied(p, "wv", rep_kv)).reshape(B, Sc, -1, hd)
+    if rep_kv:
+        k, v = rank_kv(k, q.shape[2]), rank_kv(v, q.shape[2])
     o = ops.flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap)
-    return o.reshape(B, S, -1) @ p["wo"]
+    return _out(p, o)
 
 
 # ----------------------------------------------------------------------- MLA
@@ -225,17 +299,20 @@ def _latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
 def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
               positions: torch.Tensor) -> torch.Tensor:
     """Training/prefill path: expand the latent and run causal attention
-    (K5 with D = nope + rope, Dv = v_head_dim)."""
+    (K5 with D = nope + rope, Dv = v_head_dim) on the rank's heads; the
+    latent (w_dkv, kv_norm) is computed whole on every rank and enters the
+    rank's heads through ``ctx.copy_to_model``."""
     B, S, _ = x.shape
     hq = p["wo"].shape[0] // cfg.v_head_dim
-    q_nope, q_rope = _mla_q(p, x, cfg, positions, hq)
+    q_nope, q_rope = _mla_q(p, ctx.copy_to_model(x), cfg, positions, hq)
     c_kv, k_rope = _latent(p, x, cfg, positions)
+    c_kv, k_rope = ctx.copy_to_model(c_kv), ctx.copy_to_model(k_rope)
     k_nope = (c_kv @ p["w_uk"]).reshape(B, S, hq, cfg.qk_nope_dim)
     v = (c_kv @ p["w_uv"]).reshape(B, S, hq, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], -1)
     k = torch.cat([k_nope, k_rope.expand(B, S, hq, cfg.qk_rope_dim)], -1)
     o = ops.flash_attention(q, k, v, causal=True)
-    return o.reshape(B, S, -1) @ p["wo"]
+    return _out(p, o)
 
 
 def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -249,7 +326,6 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     view that the kernel reads inside k's tiles. x: (B, 1, d); cache_ckv:
     (B, S_max, r + rope), written IN PLACE at ``pos`` (no ring buffer, as
     in JAX). Returns (y (B, 1, d), cache_ckv)."""
-    B = x.shape[0]
     r = cfg.kv_lora_rank
     hq = p["wo"].shape[0] // cfg.v_head_dim
     q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None], hq)
@@ -261,8 +337,8 @@ def mla_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], w_uk)
     q_full = torch.cat([q_lat, q_rope[:, 0]], -1)             # (B, hq, r+rope)
     kv = cache_ckv[:, :, None, :]                             # (B, S, 1, r+rope)
-    ctx = ops.decode_attention(q_full, kv, kv[..., :r], pos + 1)  # (B, hq, r)
+    lat = ops.decode_attention(_all_heads(q_full, False), kv, kv[..., :r],
+                               pos + 1)                       # (B, Hq, r)
     w_uv = p["w_uv"].reshape(r, hq, cfg.v_head_dim)
-    o = torch.einsum("bhr,rhd->bhd", ctx, w_uv)
-    y = o.reshape(B, 1, -1) @ p["wo"]
-    return y, cache_ckv
+    o = torch.einsum("bhr,rhd->bhd", _own_heads(lat, hq), w_uv)
+    return _out(p, o[:, None]), cache_ckv

@@ -7,6 +7,12 @@ plain dicts of tensors so stages can stack them on a leading repeats axis
 on the generator's device; the numbers differ from ``jax.random``'s for
 the same seed, so parity tests carry weights over with
 :func:`repro_torch.convert.model_params_from_arrays`.
+
+Under a mesh whose model axis is above 1 (:mod:`repro_torch.distributed.ctx`)
+the parameters are this rank's shards (``sharding.param_specs``): the MLP
+is column-parallel in ``gate``/``up`` and row-parallel in ``down``, the
+embedding vocab-parallel, and :func:`rms_norm` with ``sharded=True``
+normalises over a feature axis split across the ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import ctx
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -54,10 +62,18 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
-             plus_one: bool = False) -> torch.Tensor:
-    """RMS norm computed in float32 and cast back to ``x.dtype``."""
+             plus_one: bool = False, sharded: bool = False) -> torch.Tensor:
+    """RMS norm computed in float32 and cast back to ``x.dtype``. With
+    ``sharded`` the last axis of ``x`` and ``weight`` is this rank's shard
+    of a feature axis split over the model axis: the sum of squares is
+    summed over the ranks in float32, so the norm is over the whole axis
+    (Mamba2's ``gate_norm`` over ``d_inner``)."""
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if sharded and ctx.model_axis_size() > 1:
+        ss = ctx.sum_over_model((x32 * x32).sum(dim=-1, keepdim=True))
+        var = ss / (x.shape[-1] * ctx.model_axis_size())
+    else:
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     w = weight.float()
     if plus_one:                      # gemma-style (1 + w) scaling
@@ -106,12 +122,56 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
-              act: str) -> torch.Tensor:
+def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a row-parallel ``w``: this rank's share of the
+    product. Under a model axis above 1 a 16-bit product is taken in
+    float32, so the ranks' shares are summed before the one rounding the
+    unsharded product makes (a share rounded to bfloat16 first would add a
+    second rounding at every row-parallel product)."""
+    if ctx.model_axis_size() > 1 and x.dtype in (torch.bfloat16,
+                                                 torch.float16):
+        return x.float() @ w.float()
+    return x @ w
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with ``w`` row-parallel: the ranks' shares summed over the
+    model axis, in ``x``'s dtype."""
+    return ctx.reduce_from_model(partial_matmul(x, w)).to(x.dtype)
+
+
+def mlp_partial(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                act: str) -> torch.Tensor:
+    """The MLP on this rank's ``d_ff`` columns: under tensor parallelism
+    its share of the output (:func:`partial_matmul`), which the ranks sum
+    (``x`` is the input after ``ctx.copy_to_model``); the whole output on
+    one rank."""
     if act == "swiglu":
         h = F.silu(x @ p["gate"]) * (x @ p["up"])
     elif act == "geglu":
         h = gelu(x @ p["gate"]) * (x @ p["up"])
     else:
         h = gelu(x @ p["up"])
-    return h @ p["down"]
+    return partial_matmul(h, p["down"])
+
+
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
+              act: str) -> torch.Tensor:
+    """``gate``/``up`` column-parallel, ``down`` row-parallel and summed
+    over the model axis."""
+    return ctx.reduce_from_model(mlp_partial(p, ctx.copy_to_model(x),
+                                             act)).to(x.dtype)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of an embedding table that is vocab-sharded over the
+    model axis: this rank looks up the ids in its block of rows, zeros for
+    the others, and the ranks' rows are summed (exact: one rank holds each
+    id)."""
+    if ctx.model_axis_size() == 1:
+        return table[ids]
+    rows = table.shape[0]
+    local = ids - ctx.model_rank() * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)] * mine[..., None].to(table.dtype)
+    return ctx.reduce_from_model(x)

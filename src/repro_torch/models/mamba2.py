@@ -9,6 +9,19 @@ B/C parts, as in the JAX package, so converted weights map one to one.
 
 Decode carries (conv_x, conv_bc, ssm_state), O(1) in context length; the
 port updates them in place.
+
+Under a mesh whose model axis is above 1 (:mod:`repro_torch.distributed.ctx`)
+the weights are this rank's shards (``sharding.param_specs``): in_z,
+in_x, conv_x_* and out_proj by channels, and A_log, D, dt_bias and in_dt
+by heads when the heads divide. The scan (K7) and the decode step then run
+on the rank's heads, with B and C (in_bc, conv_bc_*, replicated) entering
+through ``ctx.copy_to_model``; gate_norm normalises over the whole
+``d_inner`` (a sum of squares over the ranks), and out_proj is
+row-parallel. Where the heads do not divide, the rank's channels of x are
+gathered and the scan runs whole on every rank, as ``_rules`` replicates
+the head vectors, before each rank keeps its channels. The decode states
+follow ``cache_specs``: conv_x by channels, conv_bc whole, the SSM state by
+heads when they divide.
 """
 
 from __future__ import annotations
@@ -19,9 +32,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dense_init, dtype_of, normal, rms_norm
+from repro_torch.models.layers import (dense_init, dtype_of, normal,
+                                       rms_norm, row_parallel)
 
 N_GROUPS = 1  # B/C groups (mamba2 default)
 #: parameters kept in float32 whatever the model's dtype
@@ -76,26 +91,45 @@ def _causal_conv(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
 
 def _gate(y: torch.Tensor, z: torch.Tensor, p: Params, cfg: ModelConfig):
     return rms_norm(y * F.silu(z.float()).to(y.dtype), p["gate_norm"],
-                    cfg.norm_eps)
+                    cfg.norm_eps, sharded=True)
+
+
+def heads_split(cfg: ModelConfig) -> bool:
+    """True when the scan runs on this rank's heads: no model axis above
+    1, or heads that divide by it (``_rules`` shards the head vectors)."""
+    return cfg.mamba_heads % ctx.model_axis_size() == 0
+
+
+def _channels(y: torch.Tensor) -> torch.Tensor:
+    """This rank's block of the last axis of ``y`` (every channel)."""
+    return y[..., ctx.model_shard(y.shape[-1])]
 
 
 def mamba_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence SSD. x: (B, S, d) -> (B, S, d)."""
     Bsz, S, _ = x.shape
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.mamba_heads
-    hd = cfg.mamba_headdim
-    z = x @ p["in_z"]
-    xi = _causal_conv(x @ p["in_x"], p["conv_x_w"], p["conv_x_b"])
+    n, hd = cfg.ssm_state, cfg.mamba_headdim
+    split = heads_split(cfg)
+    xc = ctx.copy_to_model(x)
+    z = xc @ p["in_z"]
+    xi = _causal_conv(xc @ p["in_x"], p["conv_x_w"], p["conv_x_b"])
     bc = _causal_conv(x @ p["in_bc"], p["conv_bc_w"], p["conv_bc_b"])
-    dt_raw = x @ p["in_dt"]
-    xs = xi.reshape(Bsz, S, h, hd)
+    if split:
+        bc = ctx.copy_to_model(bc)
+        dt_raw = xc @ p["in_dt"]
+    else:
+        xi = ctx.gather_from_model(xi, -1)
+        dt_raw = x @ p["in_dt"]
+    xs = xi.reshape(Bsz, S, -1, hd)
     Bm = bc[..., :N_GROUPS * n].reshape(Bsz, S, N_GROUPS, n)
     Cm = bc[..., N_GROUPS * n:].reshape(Bsz, S, N_GROUPS, n)
     dt_v = softplus(dt_raw.float() + p["dt_bias"][None, None, :])
     A = -torch.exp(p["A_log"])
     y, _ = ops.ssd_scan(xs, dt_v, A, Bm, Cm, p["D"])
-    y = _gate(y.reshape(Bsz, S, di), z, p, cfg)
-    return y @ p["out_proj"]
+    y = y.reshape(Bsz, S, -1)
+    if not split:
+        y = _channels(ctx.copy_to_model(y))
+    return row_parallel(_gate(y, z, p, cfg), p["out_proj"])
 
 
 def mamba_cache_init(cfg: ModelConfig, batch: int, dtype: torch.dtype,
@@ -126,22 +160,26 @@ def mamba_decode(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                  conv_x: torch.Tensor, conv_bc: torch.Tensor,
                  ssm_state: torch.Tensor):
     """Single-token step. x: (B,1,d). Returns (y, conv_x, conv_bc, ssm),
-    the three states updated in place."""
+    the three states updated in place (this rank's channels of conv_x and,
+    when the heads divide, its heads of the SSM state)."""
     Bsz = x.shape[0]
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.mamba_heads
-    hd = cfg.mamba_headdim
+    n, hd = cfg.ssm_state, cfg.mamba_headdim
     z = x @ p["in_z"]
     xi_t = _conv_step(conv_x, (x @ p["in_x"])[:, 0], p["conv_x_w"],
                       p["conv_x_b"])
     bc_t = _conv_step(conv_bc, (x @ p["in_bc"])[:, 0], p["conv_bc_w"],
                       p["conv_bc_b"])
+    split = heads_split(cfg)
+    if not split:
+        xi_t = ctx.gather_from_model(xi_t, -1)
     dt_raw = (x @ p["in_dt"])[:, 0]
-    xs = xi_t.reshape(Bsz, h, hd)
+    xs = xi_t.reshape(Bsz, -1, hd)
     Bm = bc_t[:, :N_GROUPS * n].reshape(Bsz, N_GROUPS, n)
     Cm = bc_t[:, N_GROUPS * n:].reshape(Bsz, N_GROUPS, n)
     dt_v = softplus(dt_raw.float() + p["dt_bias"][None, :])
     A = -torch.exp(p["A_log"])
     y_t, new_state = ops.ssd_step(ssm_state, xs, dt_v, A, Bm, Cm, p["D"])
     ssm_state.copy_(new_state)
-    y = _gate(y_t.reshape(Bsz, 1, di), z, p, cfg)
-    return y @ p["out_proj"], conv_x, conv_bc, ssm_state
+    y_t = y_t.reshape(Bsz, 1, -1)
+    y = _gate(y_t if split else _channels(y_t), z, p, cfg)
+    return row_parallel(y, p["out_proj"]), conv_x, conv_bc, ssm_state

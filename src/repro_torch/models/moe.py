@@ -1,6 +1,6 @@
 """Mixture-of-Experts MLP with capacity-based dispatch (Shazeer-style).
 
-Port of ``repro.models.moe`` on one device. Expert weights are stacked on
+Port of ``repro.models.moe``. Expert weights are stacked on
 a leading expert axis, as in the JAX package. The JAX package computes
 MoE outside any Pallas kernel, so the port does too: a float32 router,
 top-k, a float32 cumulative sum for the slot ids, gathers into (E, C)
@@ -20,6 +20,15 @@ case and routes them alone; in the second it all-gathers the tokens over
 the data axes, routes the whole batch and keeps its own rows. So at T = 3
 blk and dp 2 the mesh's routing is not the single device's, in both
 packages.
+
+Expert parallelism over a model axis above 1 (``experts_*`` are
+``P("model", None, None)``): every rank routes the same tokens with the
+whole router (the same top-k on every rank), runs its E / tp experts on
+the tokens sent to them, and adds its share of the combine; the shared
+experts are column- and row-parallel as the MLP, and the ranks' shares
+are summed (``ctx.reduce_from_model``). The tokens and the router's
+logits enter the rank's experts through ``ctx.copy_to_model``, so their
+gradients, and the router's, are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -32,8 +41,8 @@ import torch.nn.functional as F
 
 from repro_torch.distributed import ctx
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (dense_init, dtype_of, mlp_apply,
-                                       mlp_init, normal)
+from repro_torch.models.layers import (dense_init, dtype_of, mlp_init,
+                                       mlp_partial, normal)
 
 Params = Dict[str, torch.Tensor]
 
@@ -73,10 +82,12 @@ def capacity(T: int, cfg: ModelConfig) -> int:
 
 
 def _moe_block(p: Params, xt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Capacity dispatch for one token block. xt: (T, d) -> (T, d)."""
+    """Capacity dispatch for one token block. xt: (T, d) -> (T, d): the
+    experts this rank holds, which are all of them on one rank."""
     T, d = xt.shape
     E, k = cfg.n_experts, cfg.top_k
-    logits = xt.float() @ p["router"]                        # (T, E)
+    logits = ctx.copy_to_model(xt.float() @ p["router"])     # (T, E)
+    xt = ctx.copy_to_model(xt)
     topv, topi = route(logits, k)                            # (T, k)
     gates = torch.softmax(topv, dim=-1)                      # normalize over k
     C = capacity(T, cfg)
@@ -96,16 +107,24 @@ def _moe_block(p: Params, xt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     slot_tok[e_idx, c_idx.reshape(-1)] = tok_ids.reshape(-1)
     slot_valid = torch.zeros((E + 1, C), dtype=torch.bool, device=xt.device)
     slot_valid[e_idx, c_idx.reshape(-1)] = True
-    xe = xt[slot_tok[:E].reshape(-1)].reshape(E, C, d)
-    xe = xe * slot_valid[:E, :, None].to(xe.dtype)           # (E, C, d)
+    # this rank's experts [e0, e0 + El)
+    El = p["experts_gate"].shape[0]
+    e0 = ctx.model_rank() * El if El < E else 0
+    xe = xt[slot_tok[e0:e0 + El].reshape(-1)].reshape(El, C, d)
+    xe = xe * slot_valid[e0:e0 + El, :, None].to(xe.dtype)   # (El, C, d)
 
     h = F.silu(torch.bmm(xe, p["experts_gate"])) * torch.bmm(xe, p["experts_up"])
-    ye = torch.bmm(h, p["experts_down"])                     # (E, C, d)
+    ye = torch.bmm(h, p["experts_down"])                     # (El, C, d)
 
-    # gather back: y_t = sum_k gate * ye[e_tk, c_tk]
-    flat_idx = topi.clamp(0, E - 1) * C + c_idx              # (T, k)
-    y_k = ye.reshape(E * C, d)[flat_idx.reshape(-1)].reshape(T, k, d)
-    w = (gates * kept).to(y_k.dtype)
+    # gather back: y_t = sum_k gate * ye[e_tk, c_tk] over this rank's
+    # experts (the others' choices weigh 0 here)
+    local = topi - e0
+    mine = (local >= 0) & (local < El)
+    flat_idx = local.clamp(0, El - 1) * C + c_idx            # (T, k)
+    y_k = ye.reshape(El * C, d)[flat_idx.reshape(-1)].reshape(T, k, d)
+    w = (gates * (kept & mine)).to(y_k.dtype)
+    if ctx.model_axis_size() > 1:       # a share, summed in float32
+        return torch.einsum("tk,tkd->td", w.float(), y_k.float())
     return torch.einsum("tk,tkd->td", w, y_k).to(xt.dtype)
 
 
@@ -136,8 +155,8 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         y = _moe_block(p, xt, cfg)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], xt, cfg.mlp_act)
-    return y.reshape(B, S, d).to(x.dtype)
+        y = y + mlp_partial(p["shared"], ctx.copy_to_model(xt), cfg.mlp_act)
+    return ctx.reduce_from_model(y).reshape(B, S, d).to(x.dtype)
 
 
 def moe_aux_loss(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -17,6 +17,14 @@ the encoder's output (whisper, :func:`encode`) or patch embeddings
 parameters and caches are nested dicts, tuples and lists of tensors;
 ``None`` (a cross block's cache) passes through :func:`tree_map`,
 :func:`tree_leaves` and :func:`param_count` as through a JAX pytree.
+
+Under a mesh whose model axis is above 1 (:mod:`repro_torch.distributed.ctx`)
+the parameters are this rank's shards (:func:`init_params` with ``mesh``,
+or ``sharding.shard_tree`` of whole ones): the embedding is looked up
+vocab-parallel, and ``lm_head`` (or ``embed.T`` when tied) gives this
+rank's block of the vocabulary, gathered over the ranks before the
+softcap, the loss and the argmax. Each block's collectives are in its
+module.
 """
 
 from __future__ import annotations
@@ -30,12 +38,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import ctx, sharding
+from repro_torch.launch.mesh import tp_size
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig, Stage
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
-                                       mlp_apply, mlp_init, rms_norm, softcap)
+                                       embed_lookup, mlp_apply, mlp_init,
+                                       rms_norm, softcap)
 
 #: block kinds with a self-attention KV cache (k, v)
 GQA_KINDS = ("attn", "attn_local", "moe", "decoder", "shared_attn")
@@ -206,11 +217,23 @@ def stage_apply(sp, stage: Stage, x, cfg: ModelConfig, *, positions,
 
 
 # -------------------------------------------------------------- model init
-def init_params(gen: torch.Generator, cfg: ModelConfig, tp: int = 1, *,
-                device: DeviceLike = "cuda") -> Dict[str, Any]:
+def init_params(gen: torch.Generator, cfg: ModelConfig, tp: int = 1,
+                mesh=None, *, device: DeviceLike = "cuda") -> Dict[str, Any]:
     """Random weights from ``gen``, which must live on ``device``; with
     ``device="meta"`` and a :class:`~repro_torch.models.layers.MetaGenerator`,
-    their shapes and dtypes without storage."""
+    their shapes and dtypes without storage. With a ``mesh`` whose model
+    axis is ``tp`` (above 1) they are this rank's shards by
+    ``sharding.param_specs``, cut from the whole weights that ``gen``
+    draws (so every rank draws the same numbers) and copied, the whole
+    ones freed."""
+    if mesh is not None:
+        if tp_size(mesh) != tp:
+            raise ValueError(f"tp {tp} is not the mesh's model axis, "
+                             f"{tp_size(mesh)}")
+        whole = init_params(gen, cfg, tp, device=device)
+        specs = sharding.param_specs(whole, cfg, tp)
+        return tree_map(lambda t: t.clone(),
+                        sharding.shard_tree(whole, specs, mesh))
     dev = torch.device("meta") if str(device) == "meta" else resolve(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, weights asked on {dev}")
@@ -236,8 +259,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, tp: int = 1, *,
 
 
 # ----------------------------------------------------------------- forward
+def _check_shards(params, cfg: ModelConfig) -> None:
+    """Under a model axis above 1 the parameters must be this rank's
+    shards: the vocabulary split over the ranks."""
+    tp = ctx.model_axis_size()
+    if params["embed"].shape[0] * tp != padded_vocab(cfg):
+        raise ValueError(
+            f"embed holds {params['embed'].shape[0]} of {padded_vocab(cfg)} "
+            f"rows under a model axis of {tp}: give this rank's shards "
+            f"(init_params(..., mesh=), convert.model_params_from_arrays"
+            f"(..., mesh=) or sharding.shard_tree)")
+
+
 def _embed(params, tokens, cfg: ModelConfig):
-    x = params["embed"][tokens]
+    _check_shards(params, cfg)
+    x = embed_lookup(params["embed"], tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -247,7 +283,8 @@ def _embed(params, tokens, cfg: ModelConfig):
 def _head(params, x, cfg: ModelConfig):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return softcap((x @ head).float(), cfg.final_softcap)
+    logits = (ctx.copy_to_model(x) @ head).float()
+    return softcap(ctx.gather_from_model(logits, -1), cfg.final_softcap)
 
 
 def _on(params, t):

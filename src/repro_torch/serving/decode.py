@@ -13,14 +13,23 @@ With a ``mesh`` (``launch.mesh.make_test_mesh``) each step activates it
 (:mod:`repro_torch.distributed.ctx`) and lays the work out as
 ``distributed.sharding`` says:
 
+* the weights are this rank's shards by ``param_specs`` (tensor parallel
+  over 'model': ``transformer.init_params(..., mesh=)`` or
+  ``convert.model_params_from_arrays(..., mesh=)``), the layers joining
+  their products with the collectives of ``distributed.ctx``;
+
 * the batch over the data axes when it divides them, else replicated:
   a step takes the global tokens and positions, runs on this rank's rows
   and all-gathers the logits over the data axes, so every rank returns the
   global (B, 1, V);
-* the decode cache's sequence over 'model' (:func:`init_cache`: each rank
-  holds S / tp slots). A step writes a token's k/v only on the rank that
-  holds its slot (``models.attention.cache_write``), and the attention is
-  :func:`sharded_decode_attention` (flash-decoding across ranks):
+* the decode cache by ``cache_specs`` (:func:`init_cache`,
+  :func:`shard_cache`): the self-attention and MLA caches' sequence over
+  'model' (each rank holds S / tp slots of every KV head), Mamba's conv_x
+  by channels and its SSM state by heads when they divide (conv_bc
+  whole). A step gathers the new k/v over heads and writes them only on
+  the rank that holds the slot (``models.attention.cache_write``), gathers
+  the query heads, and the attention is :func:`sharded_decode_attention`
+  (flash-decoding across ranks):
 
     1. every model rank computes the unnormalised (acc, m, l) of its slice
        (K6 in its partials mode on the card);
@@ -28,12 +37,11 @@ With a ``mesh`` (``launch.mesh.make_test_mesh``) each step activates it
        m* = max m;  l* = sum l e^(m - m*);  o = sum acc e^(m - m*) / l*.
 
   The cache bandwidth, the decode bottleneck, is split tp ways; q and o
-  cross ranks (B x Hq x hd per layer).
+  cross ranks (B x Hq x hd per layer), and each rank keeps its own heads
+  of o for its rows of wo.
 
-What a rank holds whole in this slice: the weights, which the JAX
-package shards by ``param_specs``, and Mamba's conv and SSM states, which
-``cache_specs`` shards by heads. The results are the reference's; the
-bytes per rank are not (ROADMAP queue 1).
+A rank's bytes are then the reference's per device: ``sharding.local_bytes``
+of its weights and cache equals ``sharding.reckoned_bytes`` of the specs.
 """
 
 from __future__ import annotations
@@ -44,8 +52,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, sharding
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import tp_size
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
 
@@ -74,75 +83,32 @@ def sharded_decode_attention(q: torch.Tensor, k: torch.Tensor,
     return o.to(q.dtype)
 
 
-def _walk(cache, cfg: ModelConfig, fn):
-    """``fn(tensor, sequence_sharded)`` over a cache tree: True for the
-    self-attention k/v and MLA caches, False for Mamba's states."""
-    out = []
-    for s, sc in zip(cfg.stages, cache):
-        unit = []
-        for kind, c in zip(s.unit, sc):
-            if c is None:
-                unit.append(None)
-            elif kind in tr.MLA_KINDS:
-                unit.append(fn(c, True))
-            elif kind == "mamba":
-                unit.append(tuple(fn(t, False) for t in c))
-            else:
-                unit.append(tuple(fn(t, True) for t in c))
-        out.append(tuple(unit))
-    return tuple(out)
-
-
-def _layout(mesh, batch: int):
-    """(rows, sequence slices, this rank's slice) of a cache on ``mesh``."""
-    with ctx.activate(mesh):
-        return ctx.dp_rows(batch), ctx.model_axis_size(), ctx.model_rank()
-
-
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                tp: int = 1, *, mesh=None, device: DeviceLike = "cuda"):
     """``transformer.init_cache`` (``mesh`` None), or this rank's part of
-    it on ``mesh``: its rows of the batch (when it divides the data axes)
-    and, for self-attention and MLA caches, its 1/tp of the slots, tp the
-    model axis. Mamba states are held whole over 'model'. A cache whose
-    slots (``max_seq``, or a sliding window's ring) do not divide by tp is
-    refused, as the JAX package's ``device_put`` refuses a sharding that
-    does not divide."""
+    it on ``mesh`` by ``cache_specs``: its rows of the batch (when it
+    divides the data axes), 1/tp of the self-attention and MLA slots,
+    1/tp of Mamba's conv_x channels and, when the heads divide, of its SSM
+    state's heads, tp the model axis (the heads are padded at that tp, as
+    the weights are). A cache whose slots (``max_seq``, or a sliding
+    window's ring) do not divide by tp is refused, as the JAX package's
+    ``device_put`` refuses a sharding that does not divide."""
     if mesh is None:
         return tr.init_cache(cfg, batch, max_seq, dtype, tp, device=device)
     dev = resolve(device)
-    full = tr.init_cache(cfg, batch, max_seq, dtype, tp, device="meta")
-    rows, n_seq, _ = _layout(mesh, batch)
-    n_rows = rows.stop - rows.start
-
-    def local(t, seq):
-        shape = list(t.shape)
-        shape[1] = n_rows
-        if seq:
-            if shape[2] % n_seq:
-                raise ValueError(
-                    f"a cache of {shape[2]} slots does not divide over "
-                    f"{n_seq} model ranks")
-            shape[2] //= n_seq
-        return torch.zeros(shape, dtype=t.dtype, device=dev)
-
-    return _walk(full, cfg, local)
+    full = tr.init_cache(cfg, batch, max_seq, dtype, tp_size(mesh),
+                         device="meta")
+    return tr.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                             device=dev),
+                       shard_cache(full, cfg, mesh))
 
 
 def shard_cache(cache, cfg: ModelConfig, mesh):
-    """This rank's part of a global cache (views): what :func:`init_cache`
-    allocates on ``mesh``, taken from ``cache``."""
+    """This rank's part of a global cache (views) by ``cache_specs``:
+    what :func:`init_cache` allocates on ``mesh``, taken from ``cache``."""
     B = tr.tree_leaves(cache)[0].shape[1]
-    rows, n_seq, r = _layout(mesh, B)
-
-    def local(t, seq):
-        t = t[:, rows]
-        if seq:
-            n = t.shape[2] // n_seq
-            t = t[:, :, r * n:(r + 1) * n]
-        return t
-
-    return _walk(cache, cfg, local)
+    return sharding.shard_tree(cache, sharding.cache_specs(cfg, mesh, B),
+                               mesh)
 
 
 def _rows_of(x, rows: slice, dev: torch.device):

@@ -18,6 +18,16 @@ ships bytes would send. Without one the group has size 1
 and the mean is the identity, exactly as ``psum(.) / n`` is on a 1x1
 mesh. The quantisation error is not lost: it is carried into the next
 step. The residual is written into ``err``'s tensors in place.
+
+Under tensor parallelism (``specs``, the parameters' ``param_specs``, and
+a mesh whose model axis is above 1) the gradients are this rank's shards.
+The reference runs ``compressed_mean`` under ``shard_map`` with ``P()`` in
+and out (``repro/training/grad_compression.py:74-77``): it quantises each
+whole leaf in 256-value blocks of the leaf's own flattening and keeps
+``err`` whole. A rank's column shard flattens into other blocks with other
+absmax scales, so each sharded leaf is gathered over 'model' first, K3
+runs on the whole leaf with the whole ``err``, and the rank keeps its
+shard of the mean.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.distributed import ctx
+from repro_torch.distributed.sharding import leaves, shard_leaf, spec_dim
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.transformer import tree_leaves, tree_map
@@ -63,18 +74,32 @@ def group_sum(leaves: Sequence[torch.Tensor], mesh,
 
 
 def compressed_mean(grads, err: Optional[Any] = None, mesh=None,
-                    dp_axes: Optional[Sequence[str]] = None,
+                    dp_axes: Optional[Sequence[str]] = None, specs=None,
                     ) -> Tuple[Any, Any]:
     """Mean of ``grads`` over the data-parallel group with int8 error
     feedback: over ``dp_axes`` of ``mesh`` (default its 'pod' and 'data'
     axes), or a group of one without a mesh. ``err`` (None means zeros)
-    is a float32 tree shaped like ``grads``; its tensors receive the new
-    residual in place. Returns (float32 gradients, err)."""
+    is a float32 tree shaped like the whole ``grads``; its tensors receive
+    the new residual in place. With ``specs`` the gradients are this
+    rank's tensor-parallel shards (see the module docstring). Returns
+    (float32 gradients, err)."""
+    g_leaves = tree_leaves(grads)
+    dims = [None] * len(g_leaves)
+    if specs is not None and mesh is not None \
+            and axis_sizes(mesh)["model"] > 1:
+        spec_list = leaves(specs)
+        dims = [spec_dim(sp, "model") for sp in spec_list]
+        group = mesh.get_group("model")
+        whole = [g if d is None else ctx.all_gather(g.float(), d, group)
+                 for g, d in zip(g_leaves, dims)]
+    else:
+        spec_list, whole = [None] * len(g_leaves), g_leaves
     if err is None:
-        err = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
-                                             device=g.device), grads)
+        it = iter([torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+                   for g in whole])
+        err = tree_map(lambda _: next(it), grads)
     out = []
-    for g, e in zip(tree_leaves(grads), tree_leaves(err)):
+    for g, e in zip(whole, tree_leaves(err)):
         deq, new_e = _quant_leaf(g, e)
         e.copy_(new_e)
         out.append(deq)
@@ -86,5 +111,7 @@ def compressed_mean(grads, err: Optional[Any] = None, mesh=None,
         n = torch.tensor(float(math.prod(sizes[a] for a in dp_axes)),
                          device=out[0].device)
         out = [t / n for t in group_sum(out, mesh, dp_axes)]
+    out = [t if d is None else shard_leaf(t, sp, mesh).contiguous()
+           for t, d, sp in zip(out, dims, spec_list)]
     it = iter(out)
     return tree_map(lambda _: next(it), grads), err

@@ -5,8 +5,8 @@ Port of ``repro.training.train_step``. PyTorch runs eagerly, so there is
 no jit and no donation; instead the optimizer state and the parameters
 are updated in place (:mod:`repro_torch.training.optimizer`).
 
-With a ``mesh`` the step is data-parallel: every rank holds the whole
-state and takes its rows of the global batch (``batch_specs``: its block
+With a ``mesh`` the step is data-parallel: every rank takes its rows of
+the global batch (``batch_specs``: its block
 of rows when the batch divides the data axes, all of them otherwise). Its
 gradient is of its tokens' share of the global mean: each rank's mean
 weighted by its count of loss tokens over the global count, so ranks that
@@ -18,8 +18,20 @@ reference, and the reported loss is the global one. Only then, with
 it at ``repro/training/train_step.py:83-86``: the reference quantises the
 already-reduced gradient, so its psum runs over identical values. That is
 a quirk of the reference, kept: quantising each rank's local gradient
-would give a different result. A mesh whose model axis is above 1 is
-refused: tensor-parallel weights are ROADMAP queue 1.
+would give a different result.
+
+With a model axis above 1 the step is also tensor-parallel: the weights
+are this rank's shards (``sharding.param_specs``), the layers join their
+products with ``distributed.ctx``'s collectives, and every replicated leaf
+used on the rank's shards (q_norm and k_norm, replicated wk/wv, in_bc and
+conv_bc, the MoE router) meets the ranks' partial gradients at a
+``ctx.copy_to_model``, so its gradient is the whole one on every rank.
+The compressed mean gathers each sharded leaf over 'model' before K3
+(``grad_compression``). With a data axis above 1 the optimizer state may
+be ZeRO-1's (``init_train_state(..., mesh=)``,
+``convert.train_state_from_arrays(..., mesh=)``): each rank updates its
+slice over 'data' and all-gathers the new parameters
+(``optimizer.apply_updates``).
 
 JAX compresses the gradient mean only ``if tcfg.compressed_grads and mesh
 is not None``. Without a mesh, the port's ``compressed_grads=True`` runs
@@ -47,6 +59,7 @@ import torch.distributed as dist
 
 from repro_torch.device import DeviceLike
 from repro_torch.distributed import ctx
+from repro_torch.distributed.sharding import param_specs
 from repro_torch.launch.mesh import tp_size
 from repro_torch.models import transformer as tr
 from repro_torch.models.config import ModelConfig
@@ -63,12 +76,18 @@ class TrainConfig:
 
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
-                     tcfg: TrainConfig, tp: int = 1, *,
+                     tcfg: TrainConfig, tp: int = 1, mesh=None, *,
                      device: DeviceLike = "cuda") -> Dict[str, Any]:
     """{'params': compute-dtype params, 'opt': AdamWState}; random weights
-    from ``gen``, which must live on ``device``."""
-    params = tr.init_params(gen, cfg, tp, device=device)
-    return {"params": params, "opt": opt.init_state(params, tcfg.adamw)}
+    from ``gen``, which must live on ``device``. With a ``mesh`` (its
+    model axis ``tp``): this rank's shards of the weights and ZeRO-1
+    slices of the optimizer state."""
+    if mesh is None:
+        params = tr.init_params(gen, cfg, tp, device=device)
+        return {"params": params, "opt": opt.init_state(params, tcfg.adamw)}
+    params = tr.init_params(gen, cfg, tp, mesh, device=device)
+    return {"params": params, "opt": opt.init_state(
+        params, tcfg.adamw, param_specs(params, cfg, tp), mesh)}
 
 
 def _loss(params, batch, cfg: ModelConfig, remat: bool = False):
@@ -165,24 +184,22 @@ def train_step(state, batch, cfg: ModelConfig, tcfg: TrainConfig,
                mesh=None) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
     """state: {'params', 'opt'}; batch: {'tokens', 'labels'} (numpy or
     tensors), with 'context' (vision) or 'frames' (whisper): the global
-    batch, on every rank when ``mesh`` is given (data-parallel, see the
-    module docstring). Returns (state, {'loss', 'step'}); the parameters
+    batch, on every rank when ``mesh`` is given (data- and tensor-parallel,
+    see the module docstring). Returns (state, {'loss', 'step'}); the parameters
     and the optimizer's tensors are updated in place."""
     params = state["params"]
     batch = _on_device(batch, tr.tree_leaves(params)[0].device)
     err = state["opt"].err
-    if mesh is not None and tp_size(mesh) > 1:
-        raise NotImplementedError(
-            "train_step on a mesh whose model axis is above 1 needs "
-            "tensor-parallel weights (param_specs), which are not "
-            "ported yet (ROADMAP.md queue 1)")
+    specs = None if mesh is None else param_specs(params, cfg,
+                                                  tp_size(mesh))
     with ctx.activate(mesh):
         loss, grads = _grads(params, batch, cfg, tcfg)
         if tcfg.compressed_grads:
-            grads, err = compressed_mean(grads, err, mesh)
+            grads, err = compressed_mean(grads, err, mesh, specs=specs)
     new_opt = opt.apply_updates(
         state["opt"]._replace(err=err), grads, tcfg.adamw, params,
-        compute_dtype=tr.tree_leaves(params)[0].dtype)
+        compute_dtype=tr.tree_leaves(params)[0].dtype, specs=specs,
+        mesh=mesh)
     return {"params": params, "opt": new_opt}, {"loss": loss,
                                                 "step": new_opt.step}
 

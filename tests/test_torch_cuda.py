@@ -724,6 +724,118 @@ def test_ssd_kernel_matches_plain(card, b, s, h, p, g, n, chunk, skip, dtype):
     _assert_close(st, st_p, 1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,Dv,causal,window,softcap", [
+    (1, 40, 40, 4, 2, 320, 288, True, None, None),     # D, Dv above 256
+    (2, 33, 70, 4, 4, 272, 256, True, 20, 30.0),       # window, softcap
+    (1, 24, 24, 2, 1, 128, 300, False, None, None),    # only Dv wide
+])
+def test_wide_flash_route_matches_plain(card, B, Sq, Sk, Hq, Hkv, D, Dv,
+                                        causal, window, softcap, dtype):
+    """K5 above D or Dv 256 takes the wide route (attention_wide.cu),
+    within K5's tolerance of the plain version."""
+    q, k, v = _randn(31, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv),
+                     dtype=dtype, device=card)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert dict(ops.launch_counts) == {"flash_attention": 1}
+    assert dict(ops.route_counts) == {"flash_attention.wide": 1}
+    assert out.dtype == dtype and out.shape == (B, Sq, Hq, Dv)
+    _assert_close(out, tfa.flash_attention_plain(q, k, v, **kw),
+                  ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,Dv,latent,window,softcap,lens", [
+    (3, 150, 8, 2, 640, 576, False, None, None, [150, 1, 0]),
+    (2, 97, 16, 1, 640, 576, True, None, None, [97, 40]),   # v inside k
+    (2, 120, 4, 4, 700, 320, False, 30, 20.0, [120, 77]),  # window, cap
+])
+def test_wide_decode_route_matches_plain(card, B, S, Hq, Hkv, D, Dv, latent,
+                                         window, softcap, lens, dtype):
+    """K6 above D 576 or Dv 512 takes the wide route, v read inside k for
+    a latent cache: within K6's tolerance of the plain version, 0 where no
+    key is visible, the same bits twice."""
+    if latent:
+        q, cache = _randn(32, (B, Hq, D), (B, S, D), dtype=dtype,
+                          device=card)
+        k = cache[:, :, None, :]
+        v = k[..., :Dv]
+    else:
+        q, k, v = _randn(32, (B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, Dv),
+                         dtype=dtype, device=card)
+    kv_len = torch.as_tensor(lens, dtype=torch.int32, device=card)
+    kw = dict(window=window, softcap=softcap)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, kv_len, **kw)
+    again = ops.decode_attention(q, k, v, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert dict(ops.route_counts) == {"decode_attention.wide": 2}
+    assert torch.equal(out, again)
+    _assert_close(out, tda.decode_attention_plain(q, k, v, kv_len, **kw),
+                  ATTN_TOL[dtype])
+    assert not out[kv_len == 0].float().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset,window", [(100, None), (100, 150), (0, 60)])
+def test_wide_decode_partials_route_matches_plain(card, offset, window,
+                                                  dtype):
+    """K6's partials mode on the wide route: a slice of 100 keys of a
+    latent cache of 640 columns (v its first 576) at global offset, the
+    window measured from the global length; (acc, m, l) against the plain
+    version, rows without a visible key exact."""
+    B, Hq, D, Dv, n = 4, 16, 640, 576, 100
+    q, cache = _randn(33, (B, Hq, D), (B, n, D), dtype=dtype, device=card)
+    ks = cache[:, :, None, :]
+    vs = ks[..., :Dv]
+    lens = torch.as_tensor([200, offset + 37, 5, offset + 100],
+                           dtype=torch.int32, device=card)
+    local = torch.clamp(lens - offset, 0, n).to(torch.int32)
+    kw = dict(offset=offset, global_len=lens, window=window)
+    ops.reset_launch_counts()
+    acc, m, l = ops.decode_attention_partials(q, ks, vs, local, **kw)
+    torch.cuda.synchronize()
+    assert dict(ops.route_counts) == {"decode_attention.partials_wide": 1}
+    acc_p, m_p, l_p = tda.decode_attention_partials_plain(q, ks, vs, local,
+                                                          **kw)
+    seen = l_p > 0
+    assert torch.equal(seen, l > 0)
+    assert torch.equal(m[~seen], m_p[~seen]) and not acc[~seen].any()
+    _assert_close(m[seen], m_p[seen], 1e-5)
+    _assert_close(l[seen], l_p[seen], 1e-4)
+    _assert_close(acc[seen] / l[seen][:, None],
+                  acc_p[seen] / l_p[seen][:, None], ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wide"),
+                                         (torch.float32, "f32")])
+@pytest.mark.parametrize("s,chunk", [(150, 64), (70, 32)])
+def test_wide_ssd_state_matches_plain(card, s, chunk, dtype, route):
+    """K7 at n 320: bfloat16 takes the CUDA-core kernel reading bfloat16
+    (the wide route: float32 arithmetic, y in bfloat16, the state in
+    float32), float32 its own route; both within K7's tolerance."""
+    b, h, p, g, n = 2, 4, 64, 1, 320
+    rng = np.random.default_rng(34)
+    x, B, C = _randn(34, (b, s, h, p), (b, s, g, n), (b, s, g, n),
+                     dtype=dtype, device=card)
+    B, C = B * 0.3, C * 0.3
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    dt = f32(np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.5)
+    A = f32(-np.exp(rng.standard_normal(h) * 0.3))
+    D = f32(np.ones(h))
+    ops.reset_launch_counts()
+    y, st = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert dict(ops.route_counts) == {f"ssd_scan.{route}": 1}
+    y_p, st_p = tssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    _assert_close(y, y_p, SSD_TOL[dtype])
+    _assert_close(st, st_p, 1e-4)
+
+
 def test_zamba2_serving_on_card_matches_cpu(card):
     """The smoke-size zamba2 in float32: the card's prefill logits and
     greedy tokens equal the CPU's (plain versions), and each kernel ran."""

@@ -82,7 +82,8 @@ mesh = make_test_mesh(data=2, model=4)
 out = {{}}
 for arch, r in ref.items():
     cfg = get_config(arch, smoke=True)
-    params = convert.model_params_from_arrays(r["params"], cfg, device="cpu")
+    params = convert.model_params_from_arrays(r["params"], cfg, device="cpu",
+                                              mesh=mesh)
     cache = decode.init_cache(cfg, {B}, {S}, tp=4, mesh=mesh, device="cpu")
     step = decode.make_decode_step(cfg, mesh)
     ctx.reduced_on.clear()
@@ -108,10 +109,11 @@ def _load(path):
 
 def test_sharded_decode_matches_the_reference(tmp_path):
     """Data 2 x model 4: each rank holds one row and 8 of the 32 slots of
-    every cache; four decode steps of yi-9b (GQA) and deepseek-v2-lite
-    (MLA's latent cache, MoE routed per data group) give the reference's
-    logits, sharded and unsharded, within 2e-3 on every rank, and each
-    rank's cache is its slice of the reference's cache."""
+    every cache, and its shards of the weights (``param_specs``); four
+    decode steps of yi-9b (GQA) and deepseek-v2-lite (MLA's latent cache,
+    MoE routed per data group) give the reference's logits, sharded and
+    unsharded, within 2e-3 on every rank, and each rank's cache is its
+    slice of the reference's cache."""
     run_jax(JAX_DECODE.format(archs=ARCHS, B=B, S=S, STEPS=STEPS,
                               tmp=tmp_path))
     run_ranks(PORT_DECODE.format(B=B, S=S, STEPS=STEPS), 8, tmp_path)

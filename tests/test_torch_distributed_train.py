@@ -180,14 +180,12 @@ for name, mesh in (("one", None), ("dp", make_test_mesh(data=WORLD))):
 np.testing.assert_allclose(l2, l1, rtol=1e-5)
 worst = max(float(np.abs(a - b).max()) for a, b in zip(p1, p2))
 assert worst < 1e-5, worst
-try:
-    ts.train_step(state, {"tokens": np.zeros((2, 4), np.int64),
-                          "labels": np.zeros((2, 4), np.int64)}, cfg, tcfg,
-                  make_test_mesh(data=1, model=WORLD))
-except NotImplementedError as e:
-    assert "queue 1" in str(e)
-else:
-    raise AssertionError("tensor-parallel training was not refused")
+# the same loop tensor-parallel: each rank its shards of the same weights
+mesh = make_test_mesh(data=1, model=WORLD)
+state = ts.init_train_state(torch.Generator().manual_seed(0), cfg, tcfg,
+                            WORLD, mesh, device="cpu")
+res = lt.train(cfg, tcfg, state, loader, 3, mesh=mesh)
+np.testing.assert_allclose(res.losses, l1, rtol=1e-4)
 print("OK", l2)
 """
 
@@ -196,23 +194,25 @@ def test_launcher_loop_is_data_parallel_over_two_ranks(tmp_path):
     """``launch.train.train`` (the launcher's loop) with a data-2 mesh over
     the tiered loader's batches: the losses and weights of three zamba2
     (smoke) steps equal the one-device loop's (rtol 1e-5), only rank 0
-    prints the mesh run's progress (each rank prints its own one-device
-    run's), and a mesh whose model axis is 2 is refused with ROADMAP's
-    queue named."""
+    prints a mesh run's progress (each rank prints its own one-device
+    run's), and over a mesh whose model axis is 2 (tensor-parallel
+    weights) the loop's losses are the one-device loop's within rtol
+    1e-4."""
     outs = run_ranks(LAUNCHER, 2, tmp_path)
     assert all("OK" in o for o in outs)
-    assert outs[0].count("step 3 loss") == 2
+    assert outs[0].count("step 3 loss") == 3
     assert outs[1].count("step 3 loss") == 1
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--model-mesh", "2"], NotImplementedError, "queue 1"),
+    (["--model-mesh", "2"], ValueError, "torchrun --nproc-per-node 2"),
     (["--data-mesh", "0"], ValueError, "production 16 x 16"),
 ])
 def test_train_cli_refuses_what_one_card_cannot_run(argv, err, match,
                                                     monkeypatch):
-    """Tensor-parallel training and the production mesh are refused before
-    any process group starts."""
+    """A mesh of two ranks outside torchrun (one process cannot be two
+    tensor-parallel ranks) and the production mesh are refused before any
+    process group starts."""
     monkeypatch.setattr(sys, "argv", ["train", "--arch", ARCH, "--smoke",
                                       "--device", "cpu", *argv])
     with pytest.raises(err, match=match):
@@ -229,7 +229,7 @@ def test_serve_cli_refuses_the_production_mesh(monkeypatch):
 
 SERVE = """
 from repro_torch.configs.registry import get_config
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, sharding
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch.serve import serve
 from repro_torch.models import transformer as tr
@@ -247,7 +247,9 @@ cache = decode.init_cache(cfg, 4, 16, mesh=mesh, device="cpu")
 kv = [c for st, sc in zip(cfg.stages, cache)
       for kind, c in zip(st.unit, sc) if kind == "shared_attn"]
 assert kv and all(t.shape[2] == 16 // WORLD for c in kv for t in c)
-sharded = serve(decode.make_decode_step(cfg, mesh), params, cache, prompts, 6)
+mine = sharding.shard_tree(params, sharding.param_specs(params, cfg, WORLD),
+                           mesh)
+sharded = serve(decode.make_decode_step(cfg, mesh), mine, cache, prompts, 6)
 assert torch.equal(sharded.tokens, one.tokens)
 err = float((sharded.prompt_logits - one.prompt_logits).abs().max())
 assert err < 1e-4, err
@@ -258,8 +260,8 @@ print("OK", err)
 
 def test_serve_loop_over_a_sequence_sharded_cache(tmp_path):
     """The serve loop of ``launch.serve`` with ``--model-mesh 2``'s layout
-    (each rank 8 of the 16 slots of the shared attention block's cache):
-    the same greedy tokens as one device, and the prompt's last logits
-    within 1e-4."""
+    (each rank its shards of the weights and 8 of the 16 slots of the
+    shared attention block's cache): the same greedy tokens as one device,
+    and the prompt's last logits within 1e-4."""
     outs = run_ranks(SERVE, 2, tmp_path)
     assert all("OK" in o for o in outs)

@@ -414,7 +414,10 @@ def test_train_launcher_resume_without_checkpoint_starts_at_zero():
 
 @pytest.mark.parametrize("flag", [["--model-mesh", "2"]])
 def test_train_launcher_refuses_what_is_not_ported(flag, monkeypatch):
+    """Tensor-parallel training is ported; what one process cannot run,
+    two model ranks outside torchrun, is refused before any process group
+    starts, naming the command that starts them."""
     monkeypatch.setattr(sys, "argv", ["train", "--smoke", "--device", "cpu",
                                       *flag])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tlaunch.main()
