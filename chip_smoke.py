@@ -87,8 +87,7 @@ non-zero (with no result line):
             a RandomForest predictor (phase main's measured sample ratios;
             each codec's median decompression speed): K2 must launch
             (counts zeroed before, read after), cuda and cpu identical
-            with the same predicted R and D (rel 1e-5) over the first two
-            batches (the cpu replay reduced from three), some scheme past
+            with the same predicted R and D (rel 1e-5), some scheme past
             "none"; seconds per batch split into partitioner,
             re-prediction and solve. Phase main's SVR predicts a ratio of
             1 (its floor) for every partition, whose sizes lie far beyond
@@ -102,7 +101,7 @@ non-zero (with no result line):
             shared-capacity fleet and one whose shared cap binds (T 256),
             ``FleetEngine.solve`` and ``reoptimize`` at T 128 against a
             per-tenant ``PlacementEngine`` loop, and T 1,024 at mean N
-            80 (reduced from 200: the host finish grows as N squared):
+            120 (reduced from 200: the host finish grows as N squared):
             identical plans on cuda and cpu (at T 1,024 the scan's
             cells) and, uncoupled, to the per-tenant solves; the scan's
             device time (torch.profiler, outside the timed run), its
@@ -176,29 +175,24 @@ non-zero (with no result line):
             all-gathers of a tensor-parallel step, ``_tp_collectives``,
             every tensor on cuda). Rank 0 runs the same prefill and loop
             unsharded on the whole weights (fed the sharded run's
-            tokens): greedy picks equal except at near-ties; the first 8
-            steps again in float32 (weights cast), sharded within 1e-3 of
-            unsharded, and every step unsharded in float32, to which the
-            sharded bf16 logits (prefill and loop) are held: no
-            farther from the unsharded float32 answer than 0.15 or 1.5
-            times the unsharded bf16 logits (``TOL_BF16_NOISE``). Both
-            ranks' tokens equal; ms a step sharded and unsharded. Then
-            at the serve phase's cache length: a cache of 544 slots
-            filled at random from a seed, each rank given its 272 by
-            ``serving.decode.shard_cache``, 4 steps from position 512
-            sharded and (rank 0) unsharded on the same cache and seeded
-            tokens, in bf16 (against the float32 answer, as above) and
-            float32 (1e-3), counts zeroed before each; the phase's
-            seconds. The K6 entry of the
-            kernel JSON line carries the partials rows under "partials",
-            each with the launches at its shape in this phase: zamba2's
-            272-key slice those of the full-length steps, deepseek's
-            latent slice 0 (no mesh path here decodes deepseek).
+            tokens): bf16 logits (prefill and loop) within 0.15
+            normwise, as in phases serve and zoo, and greedy picks equal
+            except at near-ties; the first 8 steps
+            again in float32 (weights cast), within 1e-3. Both ranks'
+            tokens equal; ms a step sharded and unsharded; the phase's
+            seconds. The K6 entry of the kernel JSON line carries the
+            partials rows under "partials", each with the launches at its
+            shape: zamba2's 272-key slice those of phase 13's bf16 decode
+            steps, deepseek's latent slice 0 (no path here decodes
+            deepseek's latent cache at 2,048 of 4,096).
 13. tp     runs after phase 12, before 11: two ranks share the card
             again (gloo), each cutting its shards by ``param_specs`` from
             the same seeded zamba2-2.7b (full width and depth, bf16):
             each rank's weight bytes, ``torch.cuda.memory_allocated`` for
-            them (within 1%) and the reckoning from the specs (equal);
+            them (within 1%) and the reckoning from the specs (equal),
+            and the peak ``torch.cuda.max_memory_allocated`` while they
+            were drawn (each block cut as it is drawn: at most three of
+            the largest block above the shards);
             prefill B 4 x 512 (K5 9, K7 54 launches, every collective
             counted); 4 decode steps from position 512 on the serve
             phase's 544-slot cache (272 a rank, filled at random) in bf16
@@ -206,7 +200,8 @@ non-zero (with no result line):
             the step's all-reduces and all-gathers exactly, all on cuda);
             one float32 train step at model 2 cut to one repeat unit (7
             blocks, batch 4 x 512; the trained shards gathered); rank 0
-            runs each on the whole weights: bf16 logits within 0.15,
+            runs each on the whole weights: bf16 logits within 0.15
+            normwise with greedy picks equal except at near-ties,
             float32 within 1e-3, the loss within rel 2e-4 and the
             parameters within 5e-3. Then deepseek-v2-lite-16b at full
             width cut to 2 layers (reduced): MLA with the query heads
@@ -1450,16 +1445,13 @@ FORECAST_FIT_MONTH = 15
 # times each factor (three of the four batches the first design had: each
 # batch re-renders every partition's values on the host, ~15 s a device)
 TPCH_STREAM_RHO = (3.0, 0.3)
-# batches of the TPC-H stream the cpu replays to hold the card's to
-# (reduced from all three: each re-renders every partition on the host)
-TPCH_CPU_BATCHES = 2
 FLEET_T = (8, 64, 256)               # bench_fleet's fleets, mean N 24
 FLEET_MEAN_N = 24
 ENGINE_T = 128
-# the scale point: T 1,024 at mean N 80, reduced from 200, where the host
+# the scale point: T 1,024 at mean N 120, reduced from 200, where the host
 # finish (the lockstep 1-swap search, N squared) took 105.5 s on the host
-# of an NVIDIA H100 80GB HBM3 (700.00 W) machine, and 43.3 s at mean N 120
-SCALE_T, SCALE_MEAN_N = 1_024, 80
+# of an NVIDIA H100 80GB HBM3 (700.00 W) machine
+SCALE_T, SCALE_MEAN_N = 1_024, 120
 
 
 def _same_stream(a, b, what):
@@ -1697,8 +1689,6 @@ def phase_stream(torch, parts, rows, forest, smi_line):
         [(f, r * (mult if i % 2 else 1.0)) for i, (f, r) in enumerate(fams)]
         for mult in TPCH_STREAM_RHO]
     runs = {}
-    say("stream", f"reduced: the TPC-H stream's cpu replay {len(tb)} -> "
-        f"{TPCH_CPU_BATCHES} batches (host string rendering)")
     for dev in (CARD, "cpu"):
         # phase main's billing window (the paper's 5.5 months) and schemes
         cfg = E.ScopeConfig(device=dev)
@@ -1706,13 +1696,10 @@ def phase_stream(torch, parts, rows, forest, smi_line):
                                 device=dev)
         if dev == CARD:
             ops.reset_launch_counts()
-        runs[dev] = _stream_run(torch, E, stream, table, cfg, fsizes,
-                                tb if dev == CARD else tb[:TPCH_CPU_BATCHES],
-                                rd)
+        runs[dev] = _stream_run(torch, E, stream, table, cfg, fsizes, tb, rd)
         if dev == CARD:
             launches = dict(ops.launch_counts)
-    rel = _same_stream(runs[CARD][0][:TPCH_CPU_BATCHES], runs["cpu"][0],
-                       "TPC-H stream")
+    rel = _same_stream(runs[CARD][0], runs["cpu"][0], "TPC-H stream")
     say("stream", f"launches in the compressed TPC-H stream (cuda run): "
         f"{launches}")
     check(launches.get("entropy_features", 0) > 0,
@@ -1720,10 +1707,9 @@ def phase_stream(torch, parts, rows, forest, smi_line):
     # the predicted ratios and decompression times, K2's features on the
     # card against the plain version's on the CPU (the kernel tolerance)
     last = runs[CARD][0][-1][1].plan
-    both = runs[CARD][0][TPCH_CPU_BATCHES - 1][1].plan.problem
     ref = runs["cpu"][0][-1][1].plan.problem
-    check(np.allclose(both.R, ref.R, rtol=1e-5, atol=0)
-          and np.allclose(both.D, ref.D, rtol=1e-5, atol=1e-12),
+    check(np.allclose(last.problem.R, ref.R, rtol=1e-5, atol=0)
+          and np.allclose(last.problem.D, ref.D, rtol=1e-5, atol=1e-12),
           "TPC-H stream: the re-predicted R or D differ between cuda and cpu")
     schemes = last.problem.schemes
     used = np.bincount(last.assignment.scheme, minlength=len(schemes))
@@ -1744,8 +1730,7 @@ def phase_stream(torch, parts, rows, forest, smi_line):
         f"{[r.compacted for r, _ in runs[CARD][0]]}, steady "
         f"{[r.steady_cents for r, _ in runs[CARD][0]]} cents; schemes of "
         f"the last plan {dict(zip(schemes, used.tolist()))}; cuda and cpu "
-        f"identical over the first {TPCH_CPU_BATCHES} batches, cents rel "
-        f"{rel:.3e} {card}")
+        f"identical, cents rel {rel:.3e} {card}")
     for dev in (CARD, "cpu"):
         say("stream", f"TPC-H stream on {dev}, seconds per batch: "
             + "; ".join(f"batch {i}: " + ", ".join(
@@ -2426,17 +2411,12 @@ def phase_daemon(torch, smi_line):
 # round in other places give logits up to ~7% apart (7.2e-2 between prefill
 # and decode in the first full run), so the bf16 checks catch gross faults
 # only. The float32 checks, where only the order of sums differs, are tight.
+# The bf16 checks are normwise (max |a - b| / max |b|): elementwise, against
+# 1 + |b|, a tensor-parallel run and the unsharded one part by about 0.3 at
+# zamba2's full depth however the ranks' products are rounded, as far as the
+# unsharded bf16 run lies from its float32 answer (tools/tp_bf16_gap.py).
 TOL_BF16 = 0.15
 TOL_F32 = 1e-3
-# a tensor-parallel bf16 run sums its row-parallel products in another
-# order than the unsharded run, so the two differ by bf16's own rounding
-# noise, which exceeds TOL_BF16 over zamba2's 63 blocks (on an H100 the
-# unsharded bf16 prefill of 32 tokens is 0.32 (relative) off its float32
-# answer, the sharded one 0.29, and they part by 0.23; PERF.md). So a
-# sharded bf16 result is held to the unsharded float32 answer: no farther
-# from it than TOL_BF16_NOISE times the unsharded bf16 result is (or
-# TOL_BF16). The float32 runs are held to each other at TOL_F32.
-TOL_BF16_NOISE = 1.5
 N_DECODE_F32 = 64           # prompt tokens decoded in float32 for the check
 N_PROFILED = 4              # decode steps under torch.profiler
 
@@ -2462,23 +2442,18 @@ def _near_ties(got, ref):
     return out
 
 
-def _bf16_noise(got, one, ref32):
-    """(max |got - one|, got's and one's largest |x - ref32| / (1 +
-    |ref32|), whether got's is within TOL_BF16 or TOL_BF16_NOISE times
-    one's): a sharded bf16 result ``got`` against the unsharded bf16
-    result ``one`` and the unsharded float32 answer ``ref32``, for a
-    rank to report or the parent to check."""
-    ref = ref32.float()
-    rel = lambda a: float(((a.float() - ref).abs() / (1 + ref.abs())).max())
-    e_got, e_one = rel(got), rel(one)
-    return (float((got.float() - one.float()).abs().max()), e_got, e_one,
-            e_got <= max(TOL_BF16, TOL_BF16_NOISE * e_one))
+def _gap(got, want):
+    """(normwise error, max |got - want|, max |got - want| / (1 + |want|))
+    of logits ``got`` against ``want``: TOL_BF16 bounds the first, as in
+    phases serve and zoo, TOL_F32 the last."""
+    d = (got.float() - want.float()).abs()
+    return (float(d.max() / want.float().abs().max().clamp_min(1e-30)),
+            float(d.max()), float((d / (1 + want.float().abs())).max()))
 
 
-def _noise_line(n) -> str:
-    return (f"{n[0]:.3e} from the unsharded bf16 run; {n[1]:.3e} from the "
-            f"unsharded float32 answer (relative), the unsharded bf16 run "
-            f"{n[2]:.3e} (bar: within {TOL_BF16} or {TOL_BF16_NOISE}x it)")
+def _gap_line(g) -> str:
+    return (f"normwise err {g[0]:.3e} (max abs diff {g[1]:.3e}, "
+            f"elementwise relative {g[2]:.3e})")
 
 
 def _check_ties(ties, what):
@@ -2708,9 +2683,7 @@ def phase_serve(torch, recorded):
 
 # -------------------------------------------------------------- mesh phase
 MESH_PROMPT, MESH_NEW = 8, 8         # the two-rank serve loop: 15 steps
-MESH_F32_STEPS = 8                   # of them replayed sharded in float32
-
-MESH_FULL_AT, MESH_FULL_STEPS = 512, 4   # steps on a full-length cache
+MESH_F32_STEPS = 8                   # of them replayed in float32
 MESH_TIMEOUT = 300                   # seconds the two ranks may take
 
 
@@ -2924,68 +2897,18 @@ def _mesh_rank(rank, out_dir, port):
     # the sharded step and (rank 0) the unsharded one
     cfg32 = cfg.scaled(dtype="float32")
     f32 = lambda tree: tr.tree_map(lambda t: t.float(), tree)
-    p32, mine32 = f32(params) if rank == 0 else None, f32(mine)
-    if rank == 0:
-        out["prefill32"] = decode.make_prefill_step(cfg32)(
-            p32, prompts).float().cpu()
-    steps32 = {"sharded": (decode.make_decode_step(cfg32, mesh), mine32,
+    steps32 = {"sharded": (decode.make_decode_step(cfg32, mesh), f32(mine),
                            decode.init_cache(cfg32, B, max_seq, mesh=mesh,
                                              device=dev))}
     if rank == 0:
-        steps32["unsharded"] = (decode.make_decode_step(cfg32), p32,
+        steps32["unsharded"] = (decode.make_decode_step(cfg32), f32(params),
                                 decode.init_cache(cfg32, B, max_seq,
                                                   device=dev))
     for name, (step, p, cache) in steps32.items():
-        # rank 0's unsharded replay covers every step: the float32 answer
-        # the sharded bf16 loop is held to
-        n = MESH_F32_STEPS if name == "sharded" else len(fed)
         lg = [step(p, cache, tokens, pos)[0].cpu()
-              for tokens, pos, _ in fed[:n]]
+              for tokens, pos, _ in fed[:MESH_F32_STEPS]]
         out[f"f32_{name}"] = torch.stack(lg)
     del steps32
-    # the serve phase's cache length: one global cache of SERVE_PROMPT +
-    # SERVE_STEPS slots filled at random from a seed (the same on both
-    # ranks), each rank's half taken by shard_cache; MESH_FULL_STEPS steps
-    # from position MESH_FULL_AT, fed seeded tokens, sharded and (rank 0)
-    # unsharded from a copy of the same cache, in bf16 and in float32
-    g = torch.Generator(device=dev).manual_seed(SEED + 6)
-    full = decode.init_cache(cfg, B, SERVE_PROMPT + SERVE_STEPS, device=dev)
-    for t in tr.tree_leaves(full):
-        t.copy_(torch.randn(t.shape, generator=g, device=dev))
-    toks = torch.randint(0, cfg.vocab_size, (MESH_FULL_STEPS, B, 1),
-                         generator=g, device=dev)
-    for name, c, p, pm in (("bf16", cfg, params, mine),
-                           ("f32", cfg32, p32, mine32)):
-        glob = tr.tree_map(lambda t: t.to(pm["embed"].dtype, copy=True),
-                           full)
-        local = tr.tree_map(lambda t: t.clone(),
-                            decode.shard_cache(glob, c, mesh))
-        runs = {"sharded": (decode.make_decode_step(c, mesh), local, pm)}
-        if rank == 0:
-            runs["unsharded"] = (decode.make_decode_step(c), glob, p)
-        for how, (step, cache, p) in runs.items():
-            ops.reset_launch_counts()
-            ctx.reduced_on.clear()
-            lg = []
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(MESH_FULL_STEPS):
-                at = torch.full((B,), MESH_FULL_AT + i, dtype=torch.int32,
-                                device=dev)
-                lg.append(step(p, cache, toks[i], at)[0].float().cpu())
-            torch.cuda.synchronize()
-            key = f"full_{name}_{how}"
-            out[key] = torch.stack(lg)
-            out[key + "_ms"] = 1e3 * (time.perf_counter() - t0) \
-                / MESH_FULL_STEPS
-            out[key + "_counts"] = (dict(ops.route_counts),
-                                    dict(ctx.reduced_on))
-        out["full_slots"] = [cc[0].shape[2] for st, sc in zip(cfg.stages,
-                                                              local)
-                             for kind, cc in zip(st.unit, sc)
-                             if kind == "shared_attn"]
-        del glob, local, runs
-    del p32, mine32, full
     if rank == 0:
         pre1 = decode.make_prefill_step(cfg)(params, prompts)
         cache1 = decode.init_cache(cfg, B, max_seq, device=dev)
@@ -3062,12 +2985,14 @@ def phase_mesh(torch, smi_line):
     check(torch.equal(got[0]["tokens"], got[1]["tokens"]),
           "the two ranks generated different tokens")
     r0 = got[0]
-    n_pre = _bf16_noise(r0["prefill"], r0["prefill1"], r0["prefill32"])
-    n_loop = _bf16_noise(r0["logits"], r0["logits1"], r0["f32_unsharded"])
-    check(n_pre[3] and n_loop[3], f"mesh bf16 logits beyond the unsharded "
-          f"run's noise: prefill {n_pre}, loop {n_loop}")
-    e_32 = _allclose(torch, r0["f32_sharded"],
-                     r0["f32_unsharded"][:MESH_F32_STEPS], TOL_F32)
+    g_pre = _gap(r0["prefill"], r0["prefill1"])
+    g_loop = _gap(r0["logits"], r0["logits1"])
+    g_32 = _gap(r0["f32_sharded"], r0["f32_unsharded"])
+    check(g_pre[0] <= TOL_BF16 and g_loop[0] <= TOL_BF16,
+          f"mesh bf16 logits against the unsharded run: prefill "
+          f"{_gap_line(g_pre)}, loop {_gap_line(g_loop)}, beyond {TOL_BF16}")
+    check(g_32[2] <= TOL_F32, f"mesh float32 logits against the unsharded "
+          f"run: {_gap_line(g_32)}, beyond {TOL_F32}")
     check(torch.equal(got[0]["f32_sharded"], got[1]["f32_sharded"]),
           "the two ranks' float32 logits differ")
     ties = _near_ties(r0["logits"], r0["logits1"])
@@ -3084,56 +3009,15 @@ def phase_mesh(torch, smi_line):
         f"all-gathers a rank ({per_step} a step), every tensor on cuda; the "
         f"prefill through the mesh launched {r0['prefill_launches']}")
     say("mesh", f"against the same weights unsharded (rank 0, the loop fed "
-        f"the sharded run's tokens), bf16: prefill logits "
-        f"{_noise_line(n_pre)}; every step's logits {_noise_line(n_loop)}; "
+        f"the sharded run's tokens), bf16: prefill logits {_gap_line(g_pre)}"
+        f", every step's logits {_gap_line(g_loop)} (tolerance {TOL_BF16}); "
         f"{len(ties)} greedy picks differ, each at a near-tie; in float32 "
-        f"(the weights cast) {MESH_F32_STEPS} steps "
-        f"{e_32:.3e} (tolerance {TOL_F32}: only the order of float32 sums "
-        f"differs); the two ranks' tokens identical; {r0['step_ms']:.2f} "
-        f"ms a step sharded, {r0['unsharded_step_ms']:.2f} unsharded; "
-        f"prefill through the mesh {1e3 * r0['prefill_s']:.1f} ms")
-    # the full-length steps: a rank's slice is the first row's shape
-    S_full = SERVE_PROMPT + SERVE_STEPS
-    n_calls = n_attn * MESH_FULL_STEPS
-    for r, o in enumerate(got):
-        check(o["full_slots"] and all(n == S_full // 2
-                                      for n in o["full_slots"]),
-              f"rank {r}: full-length cache slots {o['full_slots']}, want "
-              f"{S_full // 2} a rank")
-        for name in ("bf16", "f32"):
-            routes, reduced = o[f"full_{name}_sharded_counts"]
-            check(routes == {"decode_attention.partials": n_calls}
-                  and reduced == {"cuda": per_step * MESH_FULL_STEPS},
-                  f"rank {r}, {name} at full length: routes {routes}, "
-                  f"reduced {reduced}; want {n_calls} partials launches and "
-                  f"{per_step * MESH_FULL_STEPS} collectives on cuda")
-            check(torch.equal(o[f"full_{name}_sharded"],
-                              got[0][f"full_{name}_sharded"]),
-                  f"the two ranks' {name} logits differ at full length")
-    n_full = _bf16_noise(r0["full_bf16_sharded"], r0["full_bf16_unsharded"],
-                         r0["full_f32_unsharded"])
-    check(n_full[3], f"full-length bf16 logits beyond the unsharded run's "
-          f"noise: {n_full}")
-    e_full32 = _allclose(torch, r0["full_f32_sharded"],
-                         r0["full_f32_unsharded"], TOL_F32)
-    check(bool(r0["full_bf16_sharded"].isfinite().all()),
-          "full-length mesh logits not finite")
-    say("mesh", f"at the serve phase's cache length: a cache of {S_full} "
-        f"slots filled at random from a seed, {r0['full_slots'][0]} a rank "
-        f"(serving.decode.shard_cache), {MESH_FULL_STEPS} steps from "
-        f"position {MESH_FULL_AT} fed seeded tokens, sharded against "
-        f"unsharded (rank 0) on the same cache: bf16 logits "
-        f"{_noise_line(n_full)}; {e_full32:.3e} in float32 (tolerance "
-        f"{TOL_F32}); K6 launched {n_calls} times a rank in each, all in its "
-        f"partials mode over a slice of {r0['full_slots'][0]} keys, "
-        f"{per_step * MESH_FULL_STEPS} collectives a rank on cuda; "
-        f"{r0['full_bf16_sharded_ms']:.2f} ms a step sharded, "
-        f"{r0['full_bf16_unsharded_ms']:.2f} unsharded (bf16), "
-        f"{r0['full_f32_sharded_ms']:.2f} and "
-        f"{r0['full_f32_unsharded_ms']:.2f} in float32")
-    zamba_row, latent_row = rows
-    zamba_row["launches"] = n_calls
-    latent_row["launches"] = 0         # no mesh path here decodes deepseek
+        f"(the weights cast) {MESH_F32_STEPS} steps {_gap_line(g_32)} "
+        f"(tolerance {TOL_F32}, elementwise: only the order of float32 sums "
+        f"differs); "
+        f"the two ranks' tokens identical; {r0['step_ms']:.2f} ms a step "
+        f"sharded, {r0['unsharded_step_ms']:.2f} unsharded; prefill through "
+        f"the mesh {1e3 * r0['prefill_s']:.1f} ms")
     say("mesh", f"phase mesh took {time.perf_counter() - t_phase:.1f} s "
         f"| {smi_line}")
     return rows
@@ -3147,11 +3031,21 @@ TOL_LOSS_TP = 2e-4                # train step sharded vs whole, relative
 TOL_PARAM_TP = 5e-3               # ... parameters, max abs
 
 
-def _within(got, want, tol):
-    """(max |got - want|, whether |got - want| <= tol (1 + |want|) holds
-    everywhere), for a rank to report rather than raise."""
-    d = (got.float() - want.float()).abs()
-    return float(d.max()), bool((d <= tol * (1 + want.float().abs())).all())
+def _largest_block(tr, cfg) -> int:
+    """Bytes of the largest piece ``init_params`` draws whole before it
+    cuts a rank's shards from it: a block of a stage, the shared block or a
+    leaf outside the blocks (reckoned on the meta device)."""
+    from repro_torch.distributed.sharding import local_bytes
+    from repro_torch.models.layers import MetaGenerator
+    meta = tr.init_params(MetaGenerator(), cfg, 2, device="meta")
+    stages = list(zip(cfg.stages, meta["stages"]))
+    if cfg.encoder_stages is not None:
+        stages += zip(cfg.encoder_stages, meta["encoder"]["stages"])
+    pieces = [local_bytes(meta[k]) for k in ("embed", "lm_head", "shared")
+              if k in meta]
+    pieces += [local_bytes(entry) // st.repeats for st, sp in stages
+               for entry in sp]
+    return max(pieces)
 
 
 def _tp_rank(rank, out_dir, port):
@@ -3203,13 +3097,22 @@ def _tp_rank(rank, out_dir, port):
                      "reduced": dict(ctx.reduced_on),
                      "collectives": dict(ctx.collectives)}
 
+    def init(c):
+        """This rank's shards of ``c``'s seeded weights, with the bytes
+        they take, the peak allocated while they were drawn and the
+        largest whole block a rank may hold while drawing."""
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        a0 = torch.cuda.memory_allocated(dev)
+        p = tr.init_params(gen(SEED), c, 2, mesh, device=dev)
+        sync()
+        return p, {"alloc": torch.cuda.memory_allocated(dev) - a0,
+                   "peak": torch.cuda.max_memory_allocated(dev) - a0,
+                   "block": _largest_block(tr, c)}
+
     # zamba2-2.7b: this rank's shards, and (rank 0) the whole weights
     cfg = get_config(ARCH)
-    sync()
-    a0 = torch.cuda.memory_allocated(dev)
-    mine = tr.init_params(gen(SEED), cfg, 2, mesh, device=dev)
-    sync()
-    out["weights_alloc"] = torch.cuda.memory_allocated(dev) - a0
+    mine, out["init"] = init(cfg)
     out["bytes"] = rank_bytes(cfg, mesh, mine)
     whole = tr.init_params(gen(SEED), cfg, device=dev) if one else None
     cfg32 = cfg.scaled(dtype="float32")
@@ -3226,8 +3129,8 @@ def _tp_rank(rank, out_dir, port):
         pre1, c1 = counted(lambda: decode.make_prefill_step(cfg)(whole,
                                                                  prompts))
         out["prefill1_ms"] = c1["ms"]
-        out["prefill_noise"] = _bf16_noise(
-            pre, pre1, decode.make_prefill_step(cfg32)(w32, prompts))
+        out["prefill_gap"] = _gap(pre, pre1)
+        out["prefill_ties"] = _near_ties(pre, pre1)
         del pre1
     del pre
     # four steps on the serve phase's 544-slot cache (272 slots a rank),
@@ -3276,9 +3179,9 @@ def _tp_rank(rank, out_dir, port):
                                                 .all())
         del glob, local, pm, pw
     if one:
-        out["decode_bf16_noise"] = _bf16_noise(*logits["bf16"],
-                                               logits["f32"][1])
-        out["decode_f32_err"] = _within(*logits["f32"], TOL_F32)
+        out["decode_bf16_gap"] = _gap(*logits["bf16"])
+        out["decode_bf16_ties"] = _near_ties(*logits["bf16"])
+        out["decode_f32_gap"] = _gap(*logits["f32"])
     del full, logits, w32
     torch.cuda.empty_cache()
     # one train step at model 2, float32, cut to one repeat unit (7
@@ -3318,11 +3221,7 @@ def _tp_rank(rank, out_dir, port):
     # gathered, expert-parallel MoE; the sharded runs' routing recorded and
     # replayed in rank 0's runs on the whole weights
     dcfg = _zoo_cfg("deepseek-v2-lite-16b", TP_DEEPSEEK_KEEP)
-    sync()
-    a0 = torch.cuda.memory_allocated(dev)
-    dm = tr.init_params(gen(SEED), dcfg, 2, mesh, device=dev)
-    sync()
-    out["ds_weights_alloc"] = torch.cuda.memory_allocated(dev) - a0
+    dm, out["ds_init"] = init(dcfg)
     out["ds_bytes"] = rank_bytes(dcfg, mesh, dm)
     dw = tr.init_params(gen(SEED), dcfg, device=dev) if one else None
     route = moe_mod.route
@@ -3332,16 +3231,13 @@ def _tp_rank(rank, out_dir, port):
     moe_mod.route = _route_recorder(moe_mod, seen)
     dpre, out["ds_prefill"] = counted(lambda: decode.make_prefill_step(
         dcfg, mesh)(dm, dprompts))
-    dcfg32 = dcfg.scaled(dtype="float32")
-    dw32 = f32(dw)
     if one:
         moe_mod.route = _route_replay([(None, i) for _, i in seen])
         dpre1, c1 = counted(lambda: decode.make_prefill_step(dcfg)(dw,
                                                                    dprompts))
-        moe_mod.route = _route_replay([(None, i) for _, i in seen])
         out["ds_prefill1_ms"] = c1["ms"]
-        out["ds_prefill_noise"] = _bf16_noise(
-            dpre, dpre1, decode.make_prefill_step(dcfg32)(dw32, dprompts))
+        out["ds_prefill_gap"] = _gap(dpre, dpre1)
+        out["ds_prefill_ties"] = _near_ties(dpre, dpre1)
         del dpre1
     del dpre
     g = gen(SEED + 10)
@@ -3363,18 +3259,15 @@ def _tp_rank(rank, out_dir, port):
         lg.append(l)
         counts.append(cnt)
     out["ds_decode"] = counts
-    if one:                 # bf16, then float32, on the whole weights
-        runs = []
-        for c, p, cache in ((dcfg, dw, dfull), (dcfg32, dw32, tr.tree_map(
-                lambda t: t.float(), dfull))):
-            moe_mod.route = _route_replay([(None, i) for _, i in seen])
-            dstep1 = decode.make_decode_step(c)
-            runs.append(torch.stack([dstep1(
-                p, cache, dtoks[i], torch.full((B,), TP_AT + i,
-                                               dtype=torch.int32,
-                                               device=dev))[0].float()
-                for i in range(TP_STEPS)]))
-        out["ds_decode_noise"] = _bf16_noise(torch.stack(lg), *runs)
+    if one:                 # the same steps on the whole weights
+        moe_mod.route = _route_replay([(None, i) for _, i in seen])
+        dstep1 = decode.make_decode_step(dcfg)
+        lg1 = [dstep1(dw, dfull, dtoks[i],
+                      torch.full((B,), TP_AT + i, dtype=torch.int32,
+                                 device=dev))[0].float()
+               for i in range(TP_STEPS)]
+        out["ds_decode_gap"] = _gap(torch.stack(lg), torch.stack(lg1))
+        out["ds_decode_ties"] = _near_ties(torch.stack(lg), torch.stack(lg1))
     moe_mod.route = route
     out["rank_s"] = time.perf_counter() - t_rank
     torch.save(out, os.path.join(out_dir, f"tp{rank}.pt"))
@@ -3420,13 +3313,19 @@ def phase_tp(torch, smi_line):
     for r, o in enumerate(got):
         check(o["backend"] == "gloo" and o["device"] == "cuda:0",
               f"tp rank {r}: {o['backend']} on {o['device']}")
-        for what, b, alloc in (("zamba2", o["bytes"], o["weights_alloc"]),
-                               ("deepseek", o["ds_bytes"],
-                                o["ds_weights_alloc"])):
+        for what, b, m in (("zamba2", o["bytes"], o["init"]),
+                           ("deepseek", o["ds_bytes"], o["ds_init"])):
             check(b["params"] == b["params_reckoned"]
-                  and abs(alloc - b["params"]) <= 0.01 * b["params"],
+                  and abs(m["alloc"] - b["params"]) <= 0.01 * b["params"],
                   f"tp rank {r}, {what}: {b['params']:,} bytes of shards, "
-                  f"{alloc:,} allocated, reckoned {b['params_reckoned']:,}")
+                  f"{m['alloc']:,} allocated, reckoned "
+                  f"{b['params_reckoned']:,}")
+            # drawing a block whole, its largest leaf in float32 and the
+            # cut shard beside it: at most three blocks above the shards
+            check(m["peak"] <= b["params"] + 3 * m["block"],
+                  f"tp rank {r}, {what}: peak {m['peak']:,} bytes while "
+                  f"drawing {b['params']:,} of shards, above them by more "
+                  f"than three of its largest block ({m['block']:,})")
         check(o["slots"] and all(n == (SERVE_PROMPT + SERVE_STEPS) // 2
                                  for n in o["slots"]),
               f"tp rank {r}: cache slots {o['slots']}")
@@ -3460,15 +3359,17 @@ def phase_tp(torch, smi_line):
         check(o["train_loss"] == got[0]["train_loss"],
               "the two tp ranks report different losses")
     r0 = got[0]
-    for key, what in (("prefill_noise", "zamba2 prefill"),
-                      ("decode_bf16_noise", "zamba2 decode, bf16"),
-                      ("ds_prefill_noise", "deepseek prefill"),
-                      ("ds_decode_noise", "deepseek decode")):
-        check(r0[key][3], f"tp {what}: beyond the unsharded bf16 run's "
-              f"noise: {r0[key]}")
-    err, ok = r0["decode_f32_err"]
-    check(ok, f"tp zamba2 decode, float32: max abs err {err:.3e} beyond "
-          f"{TOL_F32}")
+    for key, what in (("prefill", "zamba2 prefill"),
+                      ("decode_bf16", "zamba2 decode, bf16"),
+                      ("ds_prefill", "deepseek prefill"),
+                      ("ds_decode", "deepseek decode")):
+        check(r0[key + "_gap"][0] <= TOL_BF16, f"tp {what} against the "
+              f"unsharded run: {_gap_line(r0[key + '_gap'])}, beyond "
+              f"{TOL_BF16}")
+        _check_ties(r0[key + "_ties"], f"tp {what}")
+    check(r0["decode_f32_gap"][2] <= TOL_F32, f"tp zamba2 decode, float32, "
+          f"against the unsharded run: {_gap_line(r0['decode_f32_gap'])}, "
+          f"beyond {TOL_F32}")
     check(r0["decode_bf16_finite"] and r0["decode_f32_finite"],
           "tp decode logits not finite")
     loss_rel = abs(r0["train_loss"] - r0["train_loss1"]) / abs(
@@ -3480,9 +3381,12 @@ def phase_tp(torch, smi_line):
     say("tp", f"{cfg.name} at full width and depth over two ranks on one "
         f"card (launch_mesh(1, 2), gloo, both on cuda:0), bf16, seed "
         f"{SEED}: each rank holds {gb(b['params'])} of weights "
-        f"(torch.cuda.memory_allocated {gb(r0['weights_alloc'])} and "
-        f"{gb(got[1]['weights_alloc'])}; reckoned from param_specs "
+        f"(torch.cuda.memory_allocated {gb(r0['init']['alloc'])} and "
+        f"{gb(got[1]['init']['alloc'])}; reckoned from param_specs "
         f"{gb(b['params_reckoned'])}) against {gb(r0['whole_bytes'])} whole; "
+        f"peak while drawing them {gb(r0['init']['peak'])} and "
+        f"{gb(got[1]['init']['peak'])} (torch.cuda.max_memory_allocated; "
+        f"the largest block drawn whole {gb(r0['init']['block'])}); "
         f"its cache on the serve phase's {SERVE_PROMPT + SERVE_STEPS} slots "
         f"{gb(r0['cache_bytes'][0])} of {gb(r0['cache_bytes'][1])} (bf16)")
     say("tp", f"prefill B {SERVE_BATCH} x {SERVE_PROMPT}: K5 "
@@ -3490,12 +3394,16 @@ def phase_tp(torch, smi_line):
         f"{r0['prefill']['launches']['ssd_scan']} launches a rank, "
         f"{r0['prefill']['collectives']} a rank, every tensor on cuda; "
         f"{r0['prefill']['ms']:.1f} ms sharded, {r0['prefill1_ms']:.1f} "
-        f"unsharded; bf16 logits {_noise_line(r0['prefill_noise'])}")
+        f"unsharded; bf16 logits against the unsharded run's "
+        f"{_gap_line(r0['prefill_gap'])} (tolerance {TOL_BF16}, normwise), "
+        f"{len(r0['prefill_ties'])} greedy picks differ, each at a near-tie")
     for name in ("bf16", "f32"):
         cs = r0[f"decode_{name}"]
-        err = (_noise_line(r0["decode_bf16_noise"]) if name == "bf16" else
-               f"max abs diff {r0['decode_f32_err'][0]:.3e} from the "
-               f"unsharded step (tolerance {TOL_F32})")
+        err = (f"{_gap_line(r0[f'decode_{name}_gap'])} from the unsharded "
+               + (f"step (tolerance {TOL_BF16}, normwise; "
+                  f"{len(r0['decode_bf16_ties'])} greedy picks differ, each "
+                  f"at a near-tie)" if name == "bf16" else
+                  f"step (tolerance {TOL_F32}, elementwise)"))
         say("tp", f"decode, {name}, {TP_STEPS} steps from position {TP_AT} "
             f"on {r0['slots'][0]} of {2 * r0['slots'][0]} slots a rank: "
             f"per step K6 partials {cs[0]['routes']}, "
@@ -3516,16 +3424,22 @@ def phase_tp(torch, smi_line):
     say("tp", f"deepseek-v2-lite-16b at full width, reduced: "
         f"{n_mla} of 27 layers ({TP_DEEPSEEK_KEEP} repeat a stage): each "
         f"rank holds {gb(db['params'])} (allocated "
-        f"{gb(r0['ds_weights_alloc'])}, reckoned "
-        f"{gb(db['params_reckoned'])}); prefill B {SERVE_BATCH} x "
+        f"{gb(r0['ds_init']['alloc'])}, reckoned "
+        f"{gb(db['params_reckoned'])}, peak while drawing "
+        f"{gb(r0['ds_init']['peak'])}); prefill B {SERVE_BATCH} x "
         f"{SERVE_PROMPT} {r0['ds_prefill']['collectives']} a rank, logits "
-        f"{_noise_line(r0['ds_prefill_noise'])}; {TP_STEPS} decode steps, "
-        f"per step {r0['ds_decode'][0]['routes']} and "
+        f"{_gap_line(r0['ds_prefill_gap'])}; {TP_STEPS} decode steps, per "
+        f"step {r0['ds_decode'][0]['routes']} and "
         f"{r0['ds_decode'][0]['collectives']}, logits "
-        f"{_noise_line(r0['ds_decode_noise'])} (the sharded run's routing "
-        f"replayed in the unsharded runs)")
+        f"{_gap_line(r0['ds_decode_gap'])} from the unsharded runs "
+        f"(tolerance {TOL_BF16}, normwise; greedy picks differing "
+        f"{len(r0['ds_prefill_ties'])} and {len(r0['ds_decode_ties'])}, "
+        f"each at a near-tie; the sharded run's routing replayed in them)")
     say("tp", f"phase tp took {time.perf_counter() - t_phase:.1f} s (ranks "
         f"{got[0]['rank_s']:.1f} and {got[1]['rank_s']:.1f} s) | {smi_line}")
+    # K6's partials at a rank's 272 of the 544 slots: the bf16 steps
+    return sum(c["routes"].get("decode_attention.partials", 0)
+               for c in r0["decode_bf16"])
 
 
 # --------------------------------------------------------------- zoo phase
@@ -5088,7 +5002,11 @@ def main() -> int:
     served = {}
     serve_launches = phase_serve(torch, served)
     partials = phase_mesh(torch, smi_line)
-    phase_tp(torch, smi_line)
+    zamba_row, latent_row = partials
+    # K6's partials at each row's shape: zamba2's slice of 272 keys in
+    # phase tp's bf16 steps; no path here decodes the latent 2,048 of 4,096
+    zamba_row["launches"] = phase_tp(torch, smi_line)
+    latent_row["launches"] = 0
     zoo = phase_zoo(torch, smi_line)
     trained = phase_train(torch, smi_line)
     kernels = phase_kernels(torch, recorded, launches)

@@ -122,45 +122,31 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` for a row-parallel ``w``: this rank's share of the
-    product. Under a model axis above 1 a 16-bit product is taken in
-    float32, so the ranks' shares are summed before the one rounding the
-    unsharded product makes (a share rounded to bfloat16 first would add a
-    second rounding at every row-parallel product)."""
-    if ctx.model_axis_size() > 1 and x.dtype in (torch.bfloat16,
-                                                 torch.float16):
-        return x.float() @ w.float()
-    return x @ w
-
-
 def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with ``w`` row-parallel: the ranks' shares summed over the
-    model axis, in ``x``'s dtype."""
-    return ctx.reduce_from_model(partial_matmul(x, w)).to(x.dtype)
+    """``x @ w`` with ``w`` row-parallel: each rank's product over its rows
+    of ``w``, in ``x``'s dtype, summed over the model axis."""
+    return ctx.reduce_from_model(x @ w)
 
 
 def mlp_partial(p: Dict[str, torch.Tensor], x: torch.Tensor,
                 act: str) -> torch.Tensor:
     """The MLP on this rank's ``d_ff`` columns: under tensor parallelism
-    its share of the output (:func:`partial_matmul`), which the ranks sum
-    (``x`` is the input after ``ctx.copy_to_model``); the whole output on
-    one rank."""
+    its share of the output, which the ranks sum (``x`` is the input after
+    ``ctx.copy_to_model``); the whole output on one rank."""
     if act == "swiglu":
         h = F.silu(x @ p["gate"]) * (x @ p["up"])
     elif act == "geglu":
         h = gelu(x @ p["gate"]) * (x @ p["up"])
     else:
         h = gelu(x @ p["up"])
-    return partial_matmul(h, p["down"])
+    return h @ p["down"]
 
 
 def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
               act: str) -> torch.Tensor:
     """``gate``/``up`` column-parallel, ``down`` row-parallel and summed
     over the model axis."""
-    return ctx.reduce_from_model(mlp_partial(p, ctx.copy_to_model(x),
-                                             act)).to(x.dtype)
+    return ctx.reduce_from_model(mlp_partial(p, ctx.copy_to_model(x), act))
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

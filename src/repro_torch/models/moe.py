@@ -123,8 +123,6 @@ def _moe_block(p: Params, xt: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     flat_idx = local.clamp(0, El - 1) * C + c_idx            # (T, k)
     y_k = ye.reshape(El * C, d)[flat_idx.reshape(-1)].reshape(T, k, d)
     w = (gates * (kept & mine)).to(y_k.dtype)
-    if ctx.model_axis_size() > 1:       # a share, summed in float32
-        return torch.einsum("tk,tkd->td", w.float(), y_k.float())
     return torch.einsum("tk,tkd->td", w, y_k).to(xt.dtype)
 
 

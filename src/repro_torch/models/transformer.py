@@ -163,10 +163,15 @@ def block_apply(p, kind: str, x, cfg: ModelConfig, *, positions,
     raise ValueError(kind)
 
 
+def _whole(tree):
+    return tree
+
+
 # ------------------------------------------------------------------- stages
 def stage_init(gen: torch.Generator, stage: Stage, cfg: ModelConfig,
-               tp: int):
-    """Each unit entry's blocks drawn repeat by repeat and copied into
+               tp: int, keep=_whole):
+    """Each unit entry's blocks drawn repeat by repeat, passed through
+    ``keep`` (this rank's shards under tensor parallelism) and copied into
     tensors stacked on the repeats axis, allocated at the first repeat:
     the stage never exists twice (eight of llama4-scout's MoE blocks hold
     35 GB in bfloat16)."""
@@ -177,7 +182,7 @@ def stage_init(gen: torch.Generator, stage: Stage, cfg: ModelConfig,
             continue
         stacked = None
         for r in range(stage.repeats):
-            layer = block_init(gen, kind, cfg, tp)
+            layer = keep(block_init(gen, kind, cfg, tp))
             if stacked is None:
                 stacked = tree_map(lambda t: t.new_empty(
                     (stage.repeats,) + tuple(t.shape)), layer)
@@ -222,35 +227,35 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, tp: int = 1,
     """Random weights from ``gen``, which must live on ``device``; with
     ``device="meta"`` and a :class:`~repro_torch.models.layers.MetaGenerator`,
     their shapes and dtypes without storage. With a ``mesh`` whose model
-    axis is ``tp`` (above 1) they are this rank's shards by
-    ``sharding.param_specs``, cut from the whole weights that ``gen``
-    draws (so every rank draws the same numbers) and copied, the whole
-    ones freed."""
+    axis is ``tp`` they are this rank's shards by ``sharding.param_specs``:
+    every rank draws the same numbers in the same order, and each block
+    (and each leaf outside the blocks) is cut to this rank's shards as soon
+    as it is drawn, so a rank holds at most one whole block beside its
+    shards."""
+    keep = _whole
     if mesh is not None:
         if tp_size(mesh) != tp:
             raise ValueError(f"tp {tp} is not the mesh's model axis, "
                              f"{tp_size(mesh)}")
-        whole = init_params(gen, cfg, tp, device=device)
-        specs = sharding.param_specs(whole, cfg, tp)
-        return tree_map(lambda t: t.clone(),
-                        sharding.shard_tree(whole, specs, mesh))
+        keep = lambda tree: tree_map(lambda t: t.clone(), sharding.shard_tree(
+            tree, sharding.param_specs(tree, cfg, tp), mesh))
     dev = torch.device("meta") if str(device) == "meta" else resolve(device)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, weights asked on {dev}")
     dt = dtype_of(cfg.dtype)
     V = padded_vocab(cfg)
-    params: Dict[str, Any] = {
+    params: Dict[str, Any] = keep({
         "embed": embed_init(gen, V, cfg.d_model, dt),
-        "final_norm": torch.ones(cfg.d_model, dtype=dt, device=gen.device),
-        "stages": tuple(stage_init(gen, s, cfg, tp) for s in cfg.stages),
-    }
+        "final_norm": torch.ones(cfg.d_model, dtype=dt, device=gen.device)})
+    params["stages"] = tuple(stage_init(gen, s, cfg, tp, keep)
+                             for s in cfg.stages)
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, cfg.d_model, V, dt)
+        params.update(keep({"lm_head": dense_init(gen, cfg.d_model, V, dt)}))
     if any("shared_attn" in s.unit for s in cfg.stages):
-        params["shared"] = block_init(gen, "attn", cfg, tp)
+        params["shared"] = keep(block_init(gen, "attn", cfg, tp))
     if cfg.encoder_stages is not None:
         params["encoder"] = {
-            "stages": tuple(stage_init(gen, s, cfg, tp)
+            "stages": tuple(stage_init(gen, s, cfg, tp, keep)
                             for s in cfg.encoder_stages),
             "final_norm": torch.ones(cfg.d_model, dtype=dt,
                                      device=gen.device),

@@ -116,8 +116,21 @@ for (arch, data, model), r in ref.items():
         lg, cache = step(params, cache, toks[:, i:i + 1],
                          np.full(({B},), i, np.int32), cx)
         logits.append(lg.numpy())
+    # init_params on the mesh: each block cut as it is drawn, the same
+    # numbers as the whole draw's shards, each leaf in storage of its own
+    gen = lambda: torch.Generator().manual_seed(3)
+    whole = tr.init_params(gen(), cfg, model, device="cpu")
+    cut = sharding.shard_tree(whole, sharding.param_specs(whole, cfg, model),
+                              mesh)
+    drawn = tr.init_params(gen(), cfg, model, mesh, device="cpu")
+    a, b = tr.tree_leaves(drawn), tr.tree_leaves(cut)
+    init_same = len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+        and x.untyped_storage().nbytes() == x.numel() * x.element_size()
+        for x, y in zip(a, b))
+    del whole, cut, drawn, a, b
     out[(arch, data, model)] = dict(
-        forward=fwd.numpy(), decode=np.stack(logits),
+        init_same=init_same, forward=fwd.numpy(), decode=np.stack(logits),
         reduced=dict(ctx.reduced_on), bytes=rank_bytes(cfg, mesh, params),
         cache_bytes=sharding.local_bytes(cache),
         cache_reckoned=sharding.reckoned_bytes(
@@ -180,3 +193,14 @@ def test_rank_bytes_are_the_specs_and_the_references_shards(results, case):
         assert b["params"] == b["params_reckoned"]
         assert b["params"] == ref[case]["shard_bytes"]
         assert got["cache_bytes"] == got["cache_reckoned"]
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_init_params_on_a_mesh_draws_each_ranks_shards(results, case):
+    """``init_params(..., mesh=)``, which cuts each block to the rank's
+    shards as it is drawn, gives every rank the same tensors as the
+    shards of the whole seeded draw, each in storage of its own (no view
+    keeps a whole leaf alive)."""
+    _, port = results
+    for got in port[case]:
+        assert got["init_same"]
