@@ -6,8 +6,10 @@ with its async migrator under injected faults, zamba2-2.7b serving, the
 model zoo's MLA, MoE, cross-attention and encoder models serving
 (deepseek-v2-lite-16b at full size), zamba2-2.7b served and trained by
 two ranks that share the card, tensor parallel with its decode cache
-sharded over them, and zamba2-2.7b training with SCOPe-managed
-checkpoints.
+sharded over them, zamba2-2.7b training with SCOPe-managed
+checkpoints, and the placement system over two ranks (G-PART's overlap
+matrix in row slabs, the fleet's tenant axis, restore onto a mesh) with
+one cell of the production-mesh dry run.
 
     python3 chip_smoke.py            # from the root of a checkout
 
@@ -63,7 +65,7 @@ non-zero (with no result line):
             partitions of real payloads at a 0.5 c/GB interconnect
             mirrored into the store: metered egress equals the plan's. (4)
             On the card only: a capacitated cross-provider solve and a
-            ``reoptimize`` at N 16,000 (the host's 1-swap local search grows
+            ``reoptimize`` at N 8,000 (the host's 1-swap local search grows
             as N squared: N 100,000 would take tens of minutes), then a
             greedy cross-provider solve and ``reoptimize`` at N 100,000;
             seconds per stage, the dual ascent's device time
@@ -86,9 +88,11 @@ non-zero (with no result line):
             re-predicted by ``compredict_rd_fn`` with device features and
             a RandomForest predictor (phase main's measured sample ratios;
             each codec's median decompression speed): K2 must launch
-            (counts zeroed before, read after), cuda and cpu identical
+            (counts zeroed before, read after), the cpu replaying the
+            first batch (reduced: each batch re-renders every partition's
+            values on the host), identical to the cuda run's first batch
             with the same predicted R and D (rel 1e-5), some scheme past
-            "none"; seconds per batch split into partitioner,
+            "none" at the last; seconds per batch split into partitioner,
             re-prediction and solve. Phase main's SVR predicts a ratio of
             1 (its floor) for every partition, whose sizes lie far beyond
             its samples, so no scheme could beat "none" under it. (3)
@@ -101,9 +105,10 @@ non-zero (with no result line):
             shared-capacity fleet and one whose shared cap binds (T 256),
             ``FleetEngine.solve`` and ``reoptimize`` at T 128 against a
             per-tenant ``PlacementEngine`` loop, and T 1,024 at mean N
-            120 (reduced from 200: the host finish grows as N squared):
+            80 (reduced from 200: the host finish grows as N squared):
             identical plans on cuda and cpu (at T 1,024 the scan's
-            cells) and, uncoupled, to the per-tenant solves; the scan's
+            cells) and, uncoupled at T 8 and 64, to the per-tenant
+            solves (reduced: no loop at T 256); the scan's
             device time (torch.profiler, outside the timed run), its
             operations on the card, the host finish, peak device memory.
             The T 1,024 solve must launch the ``usage_sum`` kernel once
@@ -250,7 +255,7 @@ non-zero (with no result line):
             (rel 1e-4 and normwise 1e-3). After the five steps, a
             checkpoint step: a cut of the trained state (the first repeat
             unit's leaves of the parameters and of AdamW's state up to
-            750 MB; the full state's bytes printed beside it) saved
+            375 MB; the full state's bytes printed beside it) saved
             through ``CheckpointManager(device="cuda")`` and restored onto
             the card bit for bit, every shard's sha256 checked (shards by
             (tier, codec), metered cents, save and restore seconds); the
@@ -260,7 +265,31 @@ non-zero (with no result line):
             and ten under GCS's (older checkpoints move cooler, identically
             on cuda and cpu). Last, ``repro_torch.launch.train --smoke
             --ckpt-every 2 --steps 4`` on the card exits 0 with a
-            ``ckpt bill:`` line. Runs after phase 6, before 5.
+            ``ckpt bill:`` line. Runs after phase 6, before 14.
+14. placement_mesh  runs after phase 7, before 5: the placement system
+            over two ranks that share the card (gloo, spawned as phase
+            mesh's). (1) G-PART's overlap matrix in row slabs over 'data'
+            of a 2 x 1 mesh (``g_part(mesh=)``: each rank K1's rectangular
+            sweep of its slab against every row, one launch, then one
+            all-gather), on phase main's 217 families over 1,732 files and
+            on phase kernels' 4,076 rows over 18,114 files: bit-identical
+            to the unsharded matrix on the card, G-PART's partitions
+            identical. (2) Phase stream's T 256 fleet whose shared cap
+            binds, less its last tenant (T 255: rank 1 holds one dummy),
+            through ``capacitated_assign_batch(mesh=)``: usage_sum launched
+            once a step on each rank, one float64 all-reduce of the shared
+            rows a step and one all-gather of the cells, all on cuda; the
+            cells equal to the unsharded scan's at every step, the plans
+            identical. (3) Phase train's checkpoint cut restored onto
+            'model' of a 1 x 2 mesh (``restore(mesh=, shardings=)`` by
+            ``param_specs`` and ZeRO-1's specs): each rank's pieces equal
+            the slices of the unsharded restore, its device bytes (no more
+            than its pieces: no whole sharded leaf on the card). (4) One
+            dry-run cell (``repro_torch.launch.dryrun``, zamba2-2.7b
+            decode_32k on pod16x16) in a subprocess on the host meanwhile:
+            the rank's bytes and the three roofline terms. K1's row in the
+            kernel JSON line carries the slabs' launches as
+            ``mesh_launches``.
 5. kernels  each kernel against its plain version on the card, at the
             shapes the main and serve paths gave it (recorded during phases
             3 and 6) plus edge cases, K5 and K7 through both routes
@@ -942,7 +971,10 @@ def phase_kernels(torch, recorded, launches):
 # ------------------------------------------------------------- reopt phase
 MC_SCHEMES = ("none", "lz4", "zstd")     # labels: R and D are synthetic
 MC_N = 2_000                  # bench_reoptimize's largest N
-SCALE_N_CAP = 16_000          # capacitated cross-provider solve (PERF.md)
+# capacitated cross-provider solve, reduced from 16,000 (its host local
+# search grows as N squared: 41.6 s at 16,000 on a slow host of an NVIDIA
+# H100 80GB HBM3, 700.00 W machine, where the script outgrew its limit)
+SCALE_N_CAP = 8_000
 SCALE_N = 100_000             # greedy cross-provider solve and reoptimize
 KNAPSACK_N = 100_000
 MONTHS_HELD = 0.25
@@ -1448,10 +1480,17 @@ TPCH_STREAM_RHO = (3.0, 0.3)
 FLEET_T = (8, 64, 256)               # bench_fleet's fleets, mean N 24
 FLEET_MEAN_N = 24
 ENGINE_T = 128
-# the scale point: T 1,024 at mean N 120, reduced from 200, where the host
-# finish (the lockstep 1-swap search, N squared) took 105.5 s on the host
-# of an NVIDIA H100 80GB HBM3 (700.00 W) machine
-SCALE_T, SCALE_MEAN_N = 1_024, 120
+# the scale point: T 1,024 at mean N 80, reduced from 200 (and from 120:
+# 54.3 s of host finish on a slow host), where the host finish (the
+# lockstep 1-swap search, N squared) took 105.5 s on the host of an NVIDIA
+# H100 80GB HBM3 (700.00 W) machine
+SCALE_T, SCALE_MEAN_N = 1_024, 80
+# the fleets whose batch is also held to a per-tenant loop (the loop at
+# T 256 took 17.3 s on a slow host)
+FLEET_LOOP_T = 64
+# batches of the TPC-H stream the cpu replays: the first (each batch
+# re-renders every partition's values on the host, 20-45 s a batch)
+TPCH_CPU_BATCHES = 1
 
 
 def _same_stream(a, b, what):
@@ -1696,21 +1735,26 @@ def phase_stream(torch, parts, rows, forest, smi_line):
                                 device=dev)
         if dev == CARD:
             ops.reset_launch_counts()
-        runs[dev] = _stream_run(torch, E, stream, table, cfg, fsizes, tb, rd)
+        runs[dev] = _stream_run(torch, E, stream, table, cfg, fsizes,
+                                tb if dev == CARD else tb[:TPCH_CPU_BATCHES],
+                                rd)
         if dev == CARD:
             launches = dict(ops.launch_counts)
-    rel = _same_stream(runs[CARD][0], runs["cpu"][0], "TPC-H stream")
+    k = TPCH_CPU_BATCHES
+    rel = _same_stream(runs[CARD][0][:k], runs["cpu"][0], "TPC-H stream")
     say("stream", f"launches in the compressed TPC-H stream (cuda run): "
         f"{launches}")
     check(launches.get("entropy_features", 0) > 0,
           "kernel entropy_features was not launched by the stream path")
     # the predicted ratios and decompression times, K2's features on the
-    # card against the plain version's on the CPU (the kernel tolerance)
-    last = runs[CARD][0][-1][1].plan
+    # card against the plain version's on the CPU (the kernel tolerance),
+    # at the cpu's last batch
+    got = runs[CARD][0][k - 1][1].plan.problem
     ref = runs["cpu"][0][-1][1].plan.problem
-    check(np.allclose(last.problem.R, ref.R, rtol=1e-5, atol=0)
-          and np.allclose(last.problem.D, ref.D, rtol=1e-5, atol=1e-12),
+    check(np.allclose(got.R, ref.R, rtol=1e-5, atol=0)
+          and np.allclose(got.D, ref.D, rtol=1e-5, atol=1e-12),
           "TPC-H stream: the re-predicted R or D differ between cuda and cpu")
+    last = runs[CARD][0][-1][1].plan
     schemes = last.problem.schemes
     used = np.bincount(last.assignment.scheme, minlength=len(schemes))
     check(used[1:].sum() > 0, "TPC-H stream: no partition compressed")
@@ -1729,8 +1773,9 @@ def phase_stream(torch, parts, rows, forest, smi_line):
         f"{[r.n_moved for r, _ in runs[CARD][0]]}, compacted "
         f"{[r.compacted for r, _ in runs[CARD][0]]}, steady "
         f"{[r.steady_cents for r, _ in runs[CARD][0]]} cents; schemes of "
-        f"the last plan {dict(zip(schemes, used.tolist()))}; cuda and cpu "
-        f"identical, cents rel {rel:.3e} {card}")
+        f"the last plan {dict(zip(schemes, used.tolist()))}; the cpu "
+        f"replaying the first {k} batch(es) (reduced) identical to cuda, "
+        f"cents rel {rel:.3e} {card}")
     for dev in (CARD, "cpu"):
         say("stream", f"TPC-H stream on {dev}, seconds per batch: "
             + "; ".join(f"batch {i}: " + ", ".join(
@@ -1810,25 +1855,30 @@ def phase_stream(torch, parts, rows, forest, smi_line):
         peak = torch.cuda.max_memory_allocated()
         fc_, tc_, _, _ = _fleet_solve(torch, optassign, cols, "cpu")
         _same_fleet(fk, fc_, f"fleet T {T}")
-        t0 = time.perf_counter()
-        singles = [optassign.capacitated_assign(c, f, s, cap, device=CARD)
-                   for c, f, s, cap in fleet]
-        torch.cuda.synchronize()
-        t_loop = time.perf_counter() - t0
-        check(all(np.array_equal(a.tier, b.tier)
-                  and np.array_equal(a.scheme, b.scheme) and a.cost == b.cost
-                  for a, b in zip(singles, fk.assignments)),
-              f"fleet T {T}: the batch differs from the per-tenant solves")
+        loop = "per-tenant loop not run (reduced)"
+        if T <= FLEET_LOOP_T:
+            t0 = time.perf_counter()
+            singles = [optassign.capacitated_assign(c, f, s, cap,
+                                                    device=CARD)
+                       for c, f, s, cap in fleet]
+            torch.cuda.synchronize()
+            loop = (f"per-tenant loop on cuda {time.perf_counter() - t0:.3f}"
+                    f" s, identical to the batch")
+            check(all(np.array_equal(a.tier, b.tier)
+                      and np.array_equal(a.scheme, b.scheme)
+                      and a.cost == b.cost
+                      for a, b in zip(singles, fk.assignments)),
+                  f"fleet T {T}: the batch differs from the per-tenant "
+                  f"solves")
         dev_ms, n_ops = _scan_numbers(torch, optassign, args)
         n_max = max(c.shape[0] for c in cols[0])
         say("stream", f"fleet T {T} (bench_fleet's recipe, seed {T}, mean N "
             f"{FLEET_MEAN_N}, N_max {n_max}): feasible {fk.feasible}, "
             f"{fk.cost!r} cents; batch {tk:.3f} s on cuda (scan {sk:.3f} s, "
-            f"host finish {tk - sk:.3f} s), {tc_:.3f} s on cpu; per-tenant "
-            f"loop on cuda {t_loop:.3f} s; scan device time {dev_ms}, "
-            f"{n_ops:.0f} operations on the card per scan; peak device "
-            f"memory {peak / 1e6:.2f} MB; identical to cpu and to the "
-            f"per-tenant solves {card}")
+            f"host finish {tk - sk:.3f} s), {tc_:.3f} s on cpu; {loop}; "
+            f"scan device time {dev_ms}, {n_ops:.0f} operations on the card "
+            f"per scan; peak device memory {peak / 1e6:.2f} MB; identical "
+            f"to cpu {card}")
 
     # the shared-capacity fleets at the largest T: the benchmark's (each
     # tenant's partition 0 pinned to tier 0, the pool at 1.15x the pinned
@@ -3442,6 +3492,352 @@ def phase_tp(torch, smi_line):
                for c in r0["decode_bf16"])
 
 
+# --------------------------------------------------- placement_mesh phase
+PM_TIMEOUT = 240                 # seconds the two placement ranks may take
+PM_FLEET_T = 255                 # phase stream's binding T 256 fleet, less
+                                 # its last tenant: no rank count divides it
+PM_ALLOC_SLACK = 1 << 20         # bytes the caching allocator may add to
+                                 # an allocation (it keeps a block whole
+                                 # when less than 1 MiB would be left)
+
+
+def _placement_rank(rank, out_dir, port):
+    """One of two ranks sharing the card over gloo: G-PART's overlap matrix
+    in row slabs (K1's rectangular sweep) and the fleet's tenant axis over
+    'data' of a 2 x 1 mesh, then phase train's checkpoint cut restored onto
+    'model' of a 1 x 2 mesh; rank 0 also runs each unsharded."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    sys.path.insert(0, str(ROOT / "src"))
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import manager as cm
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import datapart as dp
+    from repro_torch.core import optassign
+    from repro_torch.core.engine import ScopeConfig
+    from repro_torch.distributed import ctx, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import overlap as ov
+    from repro_torch.launch.mesh import launch_mesh, make_test_mesh
+    from repro_torch.storage.store import TieredStore
+    from repro_torch.training.optimizer import zero1_tree_specs
+    t_rank = time.perf_counter()
+    m12, dev = launch_mesh(1, 2, CARD)
+    m21 = make_test_mesh(2, 1, device_type=dev.type)
+    with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    out = {"backend": dist.get_backend(), "device": str(dev), "k1": {}}
+    sync = torch.cuda.synchronize
+
+    # 1. K1's row slabs and G-PART over 'data'
+    scfg = ScopeConfig(device=CARD)
+    for tag, parts in inp["graphs"].items():
+        idx = dp.PartitionIndex.from_partitions(parts)
+        codes, sizes, _ = idx.padded_codes()
+        med = float(np.median([p.span for p in parts]))
+        kw = dict(s_thresh=scfg.s_thresh_mult * med, rho_c=scfg.rho_c,
+                  rho_c_abs=scfg.rho_c_abs, backend="device", device=dev)
+        ops.reset_launch_counts()
+        ctx.collectives.clear()
+        sync()
+        t0 = time.perf_counter()
+        w = idx.overlap_matrix(dev, mesh=m21)
+        sync()
+        rec = {"n": idx.n, "F": len(sizes), "ms": 1e3 * (time.perf_counter()
+                                                          - t0),
+               "launches": dict(ops.launch_counts),
+               "collectives": dict(ctx.collectives),
+               "plans": (ov.plan(-(-idx.n // 2), idx.n, codes.shape[1],
+                                 codes.shape[1], len(sizes)).kind,
+                         ov.plan(idx.n, idx.n, codes.shape[1],
+                                 codes.shape[1], len(sizes)).kind)}
+        merged = dp.g_part(parts, mesh=m21, **kw)
+        rec["parts"] = canon(merged)
+        if rank == 0:
+            sync()
+            t0 = time.perf_counter()
+            w1 = idx.overlap_matrix(dev)
+            sync()
+            rec.update(ms1=1e3 * (time.perf_counter() - t0),
+                       equal=bool(np.array_equal(w, w1)) and w.shape == w1.shape,
+                       edges=int((np.triu(w1, 1) > 0).sum()),
+                       parts1=canon(dp.g_part(parts, **kw)))
+        out["k1"][tag] = rec
+
+    # 2. the fleet's tenant axis over 'data'
+    cols, kw = inp["fleet"]
+    seen = []
+    run = optassign._run_fleet_scan
+
+    def keep(*a):
+        cells = run(*a)
+        seen.append(cells)
+        return cells
+    optassign._run_fleet_scan = keep
+    try:
+        ops.reset_launch_counts()
+        ctx.collectives.clear()
+        ctx.reduced_on.clear()
+        sync()
+        t0 = time.perf_counter()
+        fl = optassign.capacitated_assign_batch(*cols, mesh=m21, device=dev,
+                                                **kw)
+        sync()
+        out["fleet"] = dict(s=time.perf_counter() - t0,
+                            launches=dict(ops.launch_counts),
+                            collectives=dict(ctx.collectives),
+                            reduced=dict(ctx.reduced_on),
+                            plans=[(a.tier, a.scheme, a.cost, a.feasible)
+                                   for a in fl.assignments],
+                            cost=fl.cost, feasible=fl.feasible,
+                            shared=fl.shared_use_gb)
+        if rank == 0:
+            sync()
+            t0 = time.perf_counter()
+            fl1 = optassign.capacitated_assign_batch(*cols, device=dev, **kw)
+            sync()
+            out["fleet"].update(
+                s1=time.perf_counter() - t0,
+                plans1=[(a.tier, a.scheme, a.cost, a.feasible)
+                        for a in fl1.assignments], cost1=fl1.cost,
+                cells_equal=bool(np.array_equal(seen[0], seen[1])),
+                steps=seen[0].shape[0], T=seen[0].shape[1])
+    finally:
+        optassign._run_fleet_scan = run
+
+    # 3. phase train's checkpoint cut restored onto 'model'
+    store = TieredStore()
+    store._objs = inp["ckpt"]["objs"]
+    like = inp["ckpt"]["like"]
+    cfg = get_config(ARCH)
+    # each leaf's param_specs rule, by its name's last part (the cut's
+    # keys are _named_leaves paths), padded to the leaf's rank
+    p_specs = {n: sharding.param_specs({n.rsplit("/", 1)[-1]: t}, cfg, 2)
+               .popitem()[1] for n, t in like["params"].items()}
+    z = zero1_tree_specs(p_specs, like["params"], m12)
+    opt = like["opt"]
+    specs = {"params": p_specs,
+             "opt": opt._replace(step=sharding.Spec(), master=z, m=z, v=z,
+                                 err=None if opt.err is None else p_specs)}
+    mgr = cm.CheckpointManager(store, device=dev)
+    sync()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    mine, step = mgr.restore(like, device=dev, mesh=m12, shardings=specs)
+    sync()
+    t_restore = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated(dev) - base
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    whole, _ = mgr.restore(like, device="cpu")
+    bad, largest, sharded, gap = [], 0, 0, float("inf")
+    for (p, a), (_, w), (_, s) in zip(cm._leaf_paths(mine),
+                                      cm._leaf_paths(whole),
+                                      cm._leaf_paths(specs)):
+        if a.device != dev or not torch.equal(
+                _bits(torch, a.cpu()),
+                _bits(torch, sharding.shard_leaf(w, s, m12))):
+            bad.append(p)
+        if any(e is not None for e in s):
+            sharded += 1
+            nb = w.numel() * w.element_size()
+            largest = max(largest, nb)
+            # what a whole leaf would hold on the card beyond its piece
+            gap = min(gap, nb - a.numel() * a.element_size())
+    out["restore"] = dict(step=step, bad=bad, s=t_restore, held=held,
+                          peak=peak, bytes=sharding.local_bytes(mine),
+                          whole=sharding.local_bytes(whole),
+                          largest=largest, sharded=sharded, gap=gap,
+                          leaves=len(cm._leaf_paths(mine)))
+    out["rank_s"] = time.perf_counter() - t_rank
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _placement_fleet():
+    """Phase stream's T 256 fleet whose shared cap binds (the most used
+    tier at 70% of its greedy use, the tenants' own caps lifted), less its
+    last tenant: (columns, solver keywords)."""
+    from repro_torch.core import optassign
+    fleet = _bench_fleet(PM_FLEET_T + 1, FLEET_MEAN_N, PM_FLEET_T + 1)
+    fleet = fleet[:PM_FLEET_T]
+    L = fleet[0][0].shape[1]
+    use = np.zeros(L)
+    for c, f, s, _ in fleet:
+        cell = np.where(f, c, optassign.BIG).reshape(c.shape[0], -1).argmin(1)
+        use += optassign._chosen_usage(s, cell // 3, cell % 3)
+    scap = np.full(L, np.inf)
+    scap[use.argmax()] = 0.7 * use.max()
+    cols = [[x[i] for x in fleet] for i in range(3)]
+    cols.append([np.full(L, np.inf)] * len(fleet))
+    return cols, dict(shared_tier_groups=np.arange(L),
+                      shared_capacity_gb=scap)
+
+
+def phase_placement_mesh(torch, parts, ckpt, smi_line):
+    """The placement system over two ranks that share the card (gloo): K1's
+    row slabs for G-PART's candidate graph, the fleet scan's tenant axis,
+    phase train's checkpoint cut restored onto 'model'; each held to the
+    unsharded run. Then one dry-run cell in a subprocess on the host."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from repro_torch.core import datapart as dp
+    t_phase = time.perf_counter()
+    card = f"| {smi_line}"
+    out_dir = tempfile.mkdtemp(dir=str(ROOT / "build"))
+    # the dry run's cell runs on the host meanwhile (meta tensors)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--shape", "decode_32k", "--multi-pod", "single", "--out",
+         out_dir], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        big = gpart_instance(dp, 4096, 4096 * 20)
+        inputs = {"graphs": {"main": parts, "4096x81920": big},
+                  "fleet": _placement_fleet(), "ckpt": ckpt}
+        with open(os.path.join(out_dir, "inputs.pkl"), "wb") as f:
+            pickle.dump(inputs, f)
+        torch.cuda.empty_cache()
+        pc = mp.start_processes(_placement_rank,
+                                args=(out_dir, _free_port()), nprocs=2,
+                                join=False, start_method="spawn")
+        deadline = time.perf_counter() + PM_TIMEOUT
+        try:
+            while not pc.join(timeout=1):
+                check(time.perf_counter() < deadline,
+                      f"the two placement ranks outlasted {PM_TIMEOUT} s")
+        finally:
+            for p in pc.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        got = []
+        for r in (0, 1):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                got.append(pickle.load(f))
+        dry_out, _ = dry.communicate(timeout=PM_TIMEOUT)
+        check(dry.returncode == 0, f"the dry run exited {dry.returncode}: "
+              f"{dry_out[-2000:]}")
+        with open(os.path.join(out_dir,
+                               f"{ARCH}__decode_32k__pod16x16.json")) as f:
+            cell = json.load(f)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    for r, o in enumerate(got):
+        check(o["backend"] == "gloo" and o["device"] == "cuda:0",
+              f"rank {r}: {o['backend']} on {o['device']}, want gloo on "
+              f"cuda:0")
+    # K1's slabs
+    k1_launches = 0
+    for tag, rec in got[0]["k1"].items():
+        other = got[1]["k1"][tag]
+        check(rec["equal"], f"K1 {tag}: the slabs' matrix is not the "
+              f"unsharded matrix's bits")
+        check(rec["parts"] == rec["parts1"] == other["parts"],
+              f"K1 {tag}: G-PART's partitions over the mesh differ")
+        for r, x in enumerate((rec, other)):
+            check(x["launches"] == {"overlap": 1}
+                  and x["collectives"] == {"all_gather": 1},
+                  f"K1 {tag}, rank {r}: launches {x['launches']}, "
+                  f"collectives {x['collectives']}")
+        k1_launches += rec["launches"]["overlap"]
+        say("placement_mesh", f"K1 {tag}: {rec['n']} rows over {rec['F']:,} "
+            f"files, a slab of {-(-rec['n'] // 2)} rows a rank against all "
+            f"{rec['n']} (plan {rec['plans'][0]}; the whole matrix's "
+            f"{rec['plans'][1]}), one launch and one all-gather a rank: "
+            f"bit-identical to the unsharded matrix on the card "
+            f"({rec['edges']:,} edges); G-PART's {len(rec['parts'])} "
+            f"partitions identical on both ranks and unsharded; "
+            f"{rec['ms']:.2f} ms sharded (gather included), "
+            f"{rec['ms1']:.2f} unsharded {card}")
+    check(got[0]["k1"]["main"]["n"] == 217,
+          f"phase main's graph has {got[0]['k1']['main']['n']} rows, want 217")
+    # the fleet
+    f0, f1 = got[0]["fleet"], got[1]["fleet"]
+    check(f0["cells_equal"] and f0["T"] == PM_FLEET_T,
+          f"fleet T {PM_FLEET_T}: the sharded scan's cells differ from the "
+          f"unsharded scan's")
+    same = lambda a, b: all(
+        np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+        and x[2] == y[2] and x[3] == y[3] for x, y in zip(a, b))
+    check(same(f0["plans"], f0["plans1"]) and same(f0["plans"], f1["plans"])
+          and f0["cost"] == f0["cost1"] == f1["cost"] and f0["feasible"],
+          f"fleet T {PM_FLEET_T}: the plans over the mesh differ from the "
+          f"unsharded plans (or between the ranks), or are infeasible")
+    steps = f0["steps"]
+    for r, f in enumerate((f0, f1)):
+        check(f["launches"] == {"usage_sum": steps}
+              and f["collectives"] == {"all_reduce": steps, "all_gather": 1}
+              and f["reduced"] == {"cuda": steps + 1},
+              f"fleet, rank {r}: launches {f['launches']}, collectives "
+              f"{f['collectives']} on {f['reduced']}; want usage_sum and "
+              f"one all-reduce a step, one all-gather, all on cuda")
+    scap = _placement_fleet()[1]["shared_capacity_gb"]
+    fin = np.isfinite(scap)
+    say("placement_mesh", f"fleet T {PM_FLEET_T} (phase stream's binding "
+        f"T 256 fleet less its last tenant, mean N {FLEET_MEAN_N}): "
+        f"{-(-PM_FLEET_T // 2)} tenants a rank (one dummy pads rank 1), "
+        f"{steps} scan steps, each rank's usage_sum launched once a step "
+        f"and the shared rows' float64 sums all-reduced once a step (cells "
+        f"gathered once), all on cuda; the cells identical to the "
+        f"unsharded scan's at every step and the plans identical (shared "
+        f"cap {scap[fin].tolist()} GB, use "
+        f"{np.asarray(f0['shared'])[fin].tolist()} GB, {f0['cost']!r} "
+        f"cents); {f0['s']:.3f} s over the mesh, {f0['s1']:.3f} s "
+        f"unsharded {card}")
+    # the restore
+    rs = [o["restore"] for o in got]
+    for r, x in enumerate(rs):
+        check(x["step"] == 1 and not x["bad"],
+              f"restore, rank {r}: step {x['step']}, pieces that are not "
+              f"the unsharded restore's slices: {x['bad'][:5]}")
+        check(x["held"] <= x["bytes"] + PM_ALLOC_SLACK * x["leaves"]
+              and x["peak"] - x["held"] < x["gap"]
+              and x["bytes"] < x["whole"],
+              f"restore, rank {r}: {x['held']:,} bytes held and {x['peak']:,}"
+              f" at the peak for {x['bytes']:,} of pieces ({x['whole']:,} "
+              f"whole; a whole sharded leaf would add at least "
+              f"{x['gap']:,})")
+    say("placement_mesh", f"phase train's checkpoint cut ({rs[0]['leaves']} "
+        f"leaves, {rs[0]['whole']:,} bytes) restored onto 'model' of a 1 x 2 "
+        f"mesh: {rs[0]['sharded']} leaves sharded by param_specs (ZeRO-1 "
+        f"specs for AdamW's state: data 1), each rank's pieces equal to the "
+        f"slices of the unsharded restore; device bytes a rank "
+        f"{[x['bytes'] for x in rs]} (memory_allocated "
+        f"{[x['held'] for x in rs]}, peak {[x['peak'] for x in rs]}: the "
+        f"peak never above what is held, where a whole sharded leaf would "
+        f"add at least {rs[0]['gap']:,} bytes, the largest "
+        f"{rs[0]['largest']:,} whole); {[round(x['s'], 2) for x in rs]} s "
+        f"{card}")
+    roof = cell["roofline"]
+    check(cell["status"] == "ok" and cell["chips"] == 256,
+          f"dry run: {cell.get('status')} {cell.get('error', '')}")
+    say("placement_mesh", f"dry run (on the host, under this torch): "
+        f"{ARCH} decode_32k on pod16x16 as rank 0 of a fake group of 256: "
+        f"rank bytes {cell['rank_bytes']}; terms for an H100 (989 TFLOP/s "
+        f"bf16, 3.35 TB/s, NVLink 450 GB/s a direction): compute "
+        f"{roof['compute_s']:.6f} s, memory {roof['memory_s']:.6f} s, "
+        f"collective {roof['collective_s']:.6f} s, {roof['dominant']} "
+        f"dominant; {cell['run_s']} s")
+    say("placement_mesh", f"phase placement_mesh took "
+        f"{time.perf_counter() - t_phase:.1f} s (ranks "
+        f"{got[0]['rank_s']:.1f} and {got[1]['rank_s']:.1f} s) {card}")
+    return k1_launches
+
+
 # --------------------------------------------------------------- zoo phase
 #: the four configs served after zamba2, one after another, each at full
 #: width: (arch, repeats kept per stage or None for full depth, prefill
@@ -4436,7 +4832,7 @@ def _one_unit(tr, params, cfg, torch):
 # ~0.02 GB/s on the host of an NVIDIA H100 80GB HBM3 machine, so the
 # whole unit would take minutes to save where the save and restore
 # together should take under a minute
-CKPT_CUT_BYTES = 750_000_000
+CKPT_CUT_BYTES = 375_000_000
 CKPT_SMALL_BYTES = 4 << 20        # the later saves: 4 MiB of trained bf16
 CKPT_GCS_SAVES = 10               # saves under GCS prices (lifecycle moves)
 
@@ -4472,6 +4868,17 @@ def _ckpt_cut(state, limit):
             "opt": AdamWState(step=opt.step, master=cut["master"],
                               m=cut["m"], v=cut["v"], err=cut.get("err"))}
     return tree, total, len(cut["params"])
+
+
+def _meta_tree(tree):
+    """``tree`` (dicts and NamedTuples of tensors) as meta tensors."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _meta_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return tree._make(_meta_tree(v) for v in tree)
+    return tree.to("meta")
 
 
 def _lifecycle_tiers(mgr):
@@ -4535,6 +4942,10 @@ def _train_checkpoint(torch, tr, state, smi_line):
            or b.device.type != torch.device(CARD).type
            or not torch.equal(_bits(torch, a), _bits(torch, b))]
     check(not bad, f"restored leaves differ: {bad[:5]}")
+    # the cut's objects and shapes, for phase placement_mesh's restore
+    ckpt = {"objs": {k: dataclasses.replace(o) for k, o in store._objs.items()
+                     if k.startswith("ckpt/1/")},
+            "like": _meta_tree(cut)}
     say("train", f"checkpoint restore onto cuda: {len(pairs)} leaves "
         f"bit-identical to the trained state, each of the {len(shards)} "
         f"shards' sha256 verified; {t_restore:.2f} s "
@@ -4590,6 +5001,7 @@ def _train_checkpoint(torch, tr, state, smi_line):
         f"{CKPT_GCS_SAVES} saves under GCS's prices, mean tier oldest first "
         f"{g}: older checkpoints moved cooler, identically on cuda and cpu "
         f"{card}")
+    return ckpt
 
 
 def _train_launcher(smi_line):
@@ -4690,7 +5102,7 @@ def phase_train(torch, smi_line):
         f"{res.tokens * len(steady) / sum(steady):.1f} tokens/s; peak device "
         f"memory {peak:.3f} GB")
     t0 = time.perf_counter()
-    _train_checkpoint(torch, tr, state, smi_line)
+    ckpt = _train_checkpoint(torch, tr, state, smi_line)
     say("train", f"checkpoint step took {time.perf_counter() - t0:.1f} s")
 
     batches = loader.batches(epoch=0)
@@ -4789,7 +5201,8 @@ def phase_train(torch, smi_line):
     out = {"launches": {k: sum(c.get(k, 0) for c, _ in per_step)
                         for k in want},
            "per_step": want, "step_s": sum(steady) / len(steady),
-           "k3_s": k3_s, "largest": k3["largest"], "shard": shard}
+           "k3_s": k3_s, "largest": k3["largest"], "shard": shard,
+           "ckpt": ckpt}
     # float32, one repeat unit: the loss and gradients through the kernels
     # against the same with the plain versions swapped in
     cut, p32 = _one_unit(tr, state["params"], cfg, torch)
@@ -5009,12 +5422,15 @@ def main() -> int:
     latent_row["launches"] = 0
     zoo = phase_zoo(torch, smi_line)
     trained = phase_train(torch, smi_line)
+    slabs = phase_placement_mesh(torch, parts, trained.pop("ckpt"), smi_line)
     kernels = phase_kernels(torch, recorded, launches)
     kernels += phase_model_kernels(torch, served, serve_launches)
     kernels += phase_train_kernels(torch, trained)
     kernels += phase_wide_kernels(torch)
     zoo_rows = phase_zoo_kernels(torch, zoo)
     for row in kernels:                 # K5 and K6 at the zoo's shapes
+        if row["name"] == "overlap":    # K1's row slabs over two ranks
+            row["mesh_launches"] = slabs
         if row["name"] in zoo_rows:
             row["zoo"] = zoo_rows[row["name"]]
         if row["name"] == "decode_attention":

@@ -26,8 +26,8 @@ manifests. ``save`` copies every leaf to host bytes before it returns, so
 a caller may update the tensors in place while the write runs. The greedy
 argmin runs on ``device`` (default ``"cuda"``); sampling, compression and
 the store are host code. ``restore`` rebuilds the tree on the device it is
-given; re-sharding onto a mesh is not ported yet (ROADMAP queue 1 item
-8c).
+given, or, with a mesh and a tree of ``sharding.Spec``, each rank's pieces
+of it (the elastic restore onto any topology).
 """
 
 from __future__ import annotations
@@ -46,6 +46,7 @@ from repro_torch.core.costs import (CostTable, Weights, cost_tensor,
                                     latency_feasible)
 from repro_torch.core.optassign import greedy_assign
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed.sharding import Spec, shard_leaf
 from repro_torch.storage.codecs import (available_schemes, codec_by_name,
                                         measure)
 from repro_torch.storage.store import TieredStore
@@ -75,7 +76,7 @@ def _flatten(tree, path: str, out: List[Tuple[str, Any]]) -> None:
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
         for name, v in zip(tree._fields, tree):
             _flatten(v, f"{path}.{name}", out)
-    elif isinstance(tree, (tuple, list)):
+    elif isinstance(tree, (tuple, list)) and not isinstance(tree, Spec):
         for i, v in enumerate(tree):
             _flatten(v, f"{path}[{i}]", out)
     else:
@@ -258,11 +259,21 @@ class CheckpointManager:
                 device: DeviceLike = "cuda", mesh=None, shardings=None):
         """Rebuild ``like``'s tree from checkpoint ``step`` (default: the
         latest) as tensors of each leaf's saved dtype on ``device``.
-        Every shard's sha256 is checked. Returns ``(tree, step)``."""
-        if mesh is not None or shardings is not None:
-            raise NotImplementedError(
-                "mesh=/shardings=: the port restores onto one device; "
-                "re-sharding is not ported yet (ROADMAP queue 1 item 8c)")
+        Every shard's sha256 is checked. Returns ``(tree, step)``.
+
+        With a ``mesh`` (a DeviceMesh) and ``shardings``, a tree of
+        :class:`~repro_torch.distributed.sharding.Spec` shaped like
+        ``like`` (``param_specs``, ``zero1_specs``, ...), each leaf is this
+        rank's piece of it (``sharding.shard_leaf``): a local tensor, as
+        the tensor-parallel layers take them. Leaves are rebuilt one at a
+        time on the host and narrowed there before they are copied, so
+        the device never holds a whole sharded leaf. A spec that does not
+        divide its leaf raises ``ValueError``, as does one of ``mesh`` and
+        ``shardings`` without the other."""
+        if (mesh is None) != (shardings is None):
+            raise ValueError("mesh and shardings go together: give both to "
+                             "restore each rank's pieces, or neither")
+        specs = dict(_leaf_paths(shardings)) if mesh is not None else {}
         dev = resolve(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -273,19 +284,24 @@ class CheckpointManager:
                 self.store.get(f"{self.prefix}/{step}/MANIFEST").decode())
             with self._lock:
                 self._manifests[step] = man
-        buffers: Dict[str, bytearray] = {}
+        by_leaf: Dict[str, List[dict]] = {}
         for m in man["shards"]:
-            blob = self.store.get(m["key"])
-            if hashlib.sha256(blob).hexdigest() != m["sha256"]:
-                raise IOError(f"corrupt shard {m['key']}")
-            buffers.setdefault(m["leaf_path"], bytearray()).extend(blob)
+            by_leaf.setdefault(m["leaf_path"], []).append(m)
         leaves: Dict[str, torch.Tensor] = {}
-        for path, shape, dt in man["leaves"]:
+        for path, shape, dt in man["leaves"]:       # the shards' order
+            buf = bytearray()
+            for m in by_leaf[path]:
+                blob = self.store.get(m["key"])
+                if hashlib.sha256(blob).hexdigest() != m["sha256"]:
+                    raise IOError(f"corrupt shard {m['key']}")
+                buf.extend(blob)
             dtype = getattr(torch, dt)
-            buf = buffers[path]
             t = (torch.frombuffer(buf, dtype=dtype) if len(buf)
-                 else torch.empty(0, dtype=dtype))
-            leaves[path] = t.reshape(shape).to(dev)
+                 else torch.empty(0, dtype=dtype)).reshape(shape)
+            if path in specs:
+                t = shard_leaf(t, specs[path], mesh)
+            leaves[path] = t.to(dev, copy=True)
+            del buf, t
         return _rebuild(like, "", leaves), step
 
     def delete(self, step: int) -> None:

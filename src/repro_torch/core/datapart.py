@@ -1,9 +1,9 @@
 """DATAPART — access-pattern-aware data partitioning (paper §VI).
 
-Port of ``repro.core.datapart``, all but the sharded overlap matrix (which
-waits for ``distributed/``). Only the dense overlap sweep
+Port of ``repro.core.datapart``. Only the dense overlap sweep
 (``PartitionIndex.overlap_matrix``) runs on the device, through
-:mod:`repro_torch.kernels.ops`.
+:mod:`repro_torch.kernels.ops`; over a mesh its row slabs are spread over
+the ranks of the mesh's first dimension (:func:`_overlap_matrix_sharded`).
 
 * Initial partitions = query families (the file sets each distinct query
   touches), built from access logs.
@@ -34,6 +34,7 @@ from typing import (Dict, FrozenSet, Iterable, List, Optional, Sequence,
 import numpy as np
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import ctx
 from repro_torch.kernels import ops
 
 
@@ -325,12 +326,18 @@ class PartitionIndex:
         return key // self.n, key % self.n
 
     # ------------------------------------------------------- matrix sweeps
-    def overlap_matrix(self, device: DeviceLike = "cuda") -> np.ndarray:
+    def overlap_matrix(self, device: DeviceLike = "cuda", *,
+                       mesh=None) -> np.ndarray:
         """(N, N) float32 fractional-overlap matrix from
         :func:`repro_torch.kernels.ops.fractional_overlap_matrix` on
         ``device``: the CUDA kernel on the card, its plain version on the
-        CPU."""
+        CPU. With a ``mesh`` (a DeviceMesh), row slabs are spread over the
+        ranks of its first dimension (:func:`_overlap_matrix_sharded`);
+        every rank returns the whole matrix."""
         codes, sizes, spans = self.padded_codes()
+        if mesh is not None:
+            return _overlap_matrix_sharded(codes, sizes, spans, mesh,
+                                           device)[: self.n, : self.n]
         w = ops.fractional_overlap_matrix(codes, sizes, spans, device=device)
         return w.cpu().numpy()[: self.n, : self.n]
 
@@ -511,7 +518,7 @@ def g_part(parts: List[Partition], s_thresh: float, rho_c: float = 4.0,
            rho_c_abs: float = 10.0, *, backend: str = "numpy",
            sample: Optional[float] = None, sample_seed: int = 0,
            max_degree: Optional[int] = None, device: DeviceLike = "cuda",
-           ) -> List[Partition]:
+           mesh=None) -> List[Partition]:
     """Algorithm 1 on the array-native core.
 
     Candidate edges (pairs with positive overlap) come from ``backend``:
@@ -521,7 +528,8 @@ def g_part(parts: List[Partition], s_thresh: float, rho_c: float = 4.0,
       dense matrix;
     * ``'device'`` — the batched fractional-overlap matrix
       (``repro_torch.kernels.overlap``) on ``device``: one CUDA kernel
-      launch on the card, the plain tensor version on the CPU.
+      launch on the card, the plain tensor version on the CPU; ``mesh``
+      spreads its row slabs over the ranks of the mesh's first dimension.
 
     ``device`` is resolved first whatever the backend, so asking for the
     card where there is none raises.
@@ -547,7 +555,7 @@ def g_part(parts: List[Partition], s_thresh: float, rho_c: float = 4.0,
         pi, pj = index.candidate_pairs(sample=sample, seed=sample_seed,
                                        max_degree=max_degree)
     else:
-        w_mat = index.overlap_matrix(device=device)
+        w_mat = index.overlap_matrix(device=device, mesh=mesh)
         pi, pj = np.nonzero(np.triu(w_mat, 1) > 0.0)
     spans = index.span()
     inter = index.pair_overlap_spans(pi, pj)
@@ -701,3 +709,32 @@ def ordered_brute_force(parts: List[Partition],
         if cost <= c_thresh + 1e-9 and (best is None or space < best.space - 1e-12):
             best = OrderedSolution(groups, space, cost)
     return best
+
+
+# ---------------------------------------------------------- sharded matrix
+def _overlap_matrix_sharded(codes: np.ndarray, sizes: np.ndarray,
+                            spans: np.ndarray, mesh,
+                            device: DeviceLike = "cuda") -> np.ndarray:
+    """Row-slab-sharded overlap matrix, the counterpart of
+    ``repro/core/datapart.py``'s ``_overlap_matrix_sharded``: the code
+    rows are padded with -1 (spans with 0) to a multiple of the size of
+    ``mesh``'s first dimension; each of its ranks computes its slab of
+    rows against every row on ``device`` (K1's rectangular sweep on the
+    card), and the slabs are all-gathered over that dimension. A row's
+    entries are the same bits in a slab as in the whole matrix (K1 adds a
+    pair's shared sizes in ascending code order whatever the rows beside
+    it), so a mesh of one rank gives the unsharded call, bit for bit.
+    Returns the padded (N', N') float32 matrix on the host."""
+    group, n, r = ctx.first_axis(mesh)
+    N = codes.shape[0]
+    pad = (-N) % n
+    codes_p = np.pad(codes, ((0, pad), (0, 0)), constant_values=-1)
+    spans_p = np.pad(spans, (0, pad))
+    per = codes_p.shape[0] // n
+    rows = slice(r * per, (r + 1) * per)
+    slab = ops.fractional_overlap_matrix(
+        codes_p[rows], sizes, spans_p[rows], codes_b=codes_p,
+        spans_b=spans_p, device=device)
+    if n > 1:
+        slab = ctx.all_gather_rows(slab, group)
+    return slab.cpu().numpy()

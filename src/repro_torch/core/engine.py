@@ -43,6 +43,7 @@ from repro_torch.core.optassign import (Assignment, capacitated_assign,
 from repro_torch.core.stream import QueryFamilies, StreamingPartitioner
 from repro_torch.data.tables import Table
 from repro_torch.device import resolve
+from repro_torch.distributed import ctx
 from repro_torch.storage.codecs import available_schemes, codec_by_name, measure
 
 
@@ -423,11 +424,14 @@ class PartitionStage:
         cfg = self.cfg
         if cfg.use_partitioning:
             med = float(np.median([p.span for p in parts])) if parts else 0.0
+            # the active mesh (distributed.ctx) spreads the overlap
+            # matrix's row slabs, as the reference's engine passes ctx.mesh()
+            mesh = ctx.mesh() if cfg.partition_backend == "device" else None
             merged = datapart.g_part(parts, s_thresh=cfg.s_thresh_mult * med,
                                      rho_c=cfg.rho_c, rho_c_abs=cfg.rho_c_abs,
                                      backend=cfg.partition_backend,
                                      sample=cfg.partition_sample,
-                                     device=cfg.device)
+                                     device=cfg.device, mesh=mesh)
         else:
             # paper's non-partitioned baselines treat each DATASET (table) as
             # one partition: every access scans its whole table

@@ -1,11 +1,11 @@
 """Fleet-scale SCOPe: T tenants' placement problems in one device dispatch.
 
-Port of ``repro.core.fleet`` on one device. :class:`FleetEngine` batches
+Port of ``repro.core.fleet``. :class:`FleetEngine` batches
 the AssignStage of every tenant into a single
 :func:`~repro_torch.core.optassign.capacitated_assign_batch` dispatch —
 ragged problems padded to ``(T, N_max, L, K)``, one batched Lagrangian
-scan on ``cfg.device`` — then finishes billing / migration bookkeeping
-per tenant on host.
+scan on ``cfg.device``, its tenant axis optionally spread over a mesh —
+then finishes billing / migration bookkeeping per tenant on host.
 
 Parity contract (pinned by ``tests/test_torch_fleet.py``): with no
 *shared* fleet-wide capacity rows, every per-tenant result is
@@ -70,18 +70,16 @@ class FleetEngine:
     ``shared_tier_groups``/``shared_capacity_gb`` pass arbitrary shared
     rows straight to the solver. The solves run on ``cfg.device``
     (default ``"cuda"``; asking for the card where there is none raises
-    here). ``mesh`` must be None: a tenant axis sharded over a mesh is
-    not ported yet (ROADMAP queue 1 item 8c).
+    here). ``mesh`` (a DeviceMesh) spreads the capacitated scan's tenant
+    axis over the ranks of its first dimension; every rank gets the same
+    plans, those of one device.
     """
 
     def __init__(self, table, cfg, *, mesh=None,
                  shared_tier_groups: Optional[np.ndarray] = None,
                  shared_capacity_gb: Optional[np.ndarray] = None,
                  fleet_provider_capacity_gb: Optional[dict] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the port solves a fleet on one device; a sharded "
-                "tenant axis is not ported yet (ROADMAP queue 1 item 8c)")
+        self.mesh = mesh
         self.engine = PlacementEngine(table, cfg)
         self.table = table
         self.cfg = cfg
@@ -149,7 +147,7 @@ class FleetEngine:
             costs, feases, [i[2] for i in ins], caps,
             tier_groups=tg, group_capacity_gb=gcaps,
             shared_tier_groups=self.shared_tier_groups,
-            shared_capacity_gb=self.shared_capacity_gb,
+            shared_capacity_gb=self.shared_capacity_gb, mesh=self.mesh,
             device=self.cfg.device)
 
     # -------------------------------------------------------------- solve

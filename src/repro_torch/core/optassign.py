@@ -34,8 +34,10 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve
+from repro_torch.distributed import ctx
 from repro_torch.kernels import ops
 
 BIG = 1e18
@@ -219,10 +221,13 @@ def _fleet_scan(masked_b: np.ndarray, stored_b: np.ndarray,
                 cap_b: np.ndarray, group_of_tier: np.ndarray,
                 gcap_b: np.ndarray, sgroup_of_tier: np.ndarray,
                 scap: np.ndarray, step0_b: np.ndarray, sstep0: float,
-                iters: int, dev: torch.device) -> np.ndarray:
+                iters: int, dev: torch.device, group=None) -> np.ndarray:
     """Batched dual ascent over a padded tenant batch (T, N, L, K) on
     ``dev``; one candidate per tenant per step. Returns the
     (iters, T, N) int32 flat cell indices, copied to the host once.
+    With a process ``group`` the batch is this rank's tenants of a fleet
+    spread over the group (:func:`_run_fleet_scan`): the shared rows sum
+    over every rank's tenants.
 
     Each tenant's body is :func:`_lagrangian_scan`'s: float32 costs,
     stored bytes and multipliers, ``step0 / (1 + it)`` with ``it`` a
@@ -254,9 +259,13 @@ def _fleet_scan(masked_b: np.ndarray, stored_b: np.ndarray,
     multipliers are the same on the card and on the CPU. Past that bound
     the float64 sums of two orders differ by at most about n * 2**-53 of
     the terms' total, and round to different float32 values only where
-    they straddle a float32 rounding boundary. With no finite group or
-    shared cap those multipliers stay exactly 0.0, and the lean body that
-    skips them gives the same bits.
+    they straddle a float32 rounding boundary. Over a ``group`` each rank
+    sums its tenants' terms in float64, and the ranks' float64 sums are
+    all-reduced (SUM, in float64) before the one rounding: still exact
+    under the same condition, with n the whole fleet's count, so a
+    sharded fleet takes the multipliers of one device. With no finite
+    group or shared cap those multipliers stay exactly 0.0, and the lean
+    body that skips them (and needs no collective) gives the same bits.
     """
     f32, f64 = torch.float32, torch.float64
     T, N, L, K = masked_b.shape
@@ -303,14 +312,50 @@ def _fleet_scan(masked_b: np.ndarray, stored_b: np.ndarray,
             use_g = torch.zeros((T, G), dtype=f32, device=dev)
             for l in range(L):                   # tier order, float32
                 use_g = use_g + torch.where(in_g[l], use[:, l:l + 1], zero)
-            use_s = torch.where(in_s, use.double().sum(0)[:, None],
-                                zero64).sum(0)
+            tot = use.double().sum(0)
+            if group is not None:
+                ctx.all_reduce(tot, dist.ReduceOp.SUM, group)
+            use_s = torch.where(in_s, tot[:, None], zero64).sum(0)
             lam_g = torch.clamp_min(lam_g + rate * torch.where(
                 fin_g, use_g - gcap_t, zero), 0.0)
             lam_s = torch.clamp_min(lam_s + sstep / its[it] * torch.where(
                 fin_s, use_s.float() - scap_t, zero), 0.0)
         cells[it] = idx
     return cells.cpu().numpy()
+
+
+def _run_fleet_scan(mesh, masked_b: np.ndarray, stored_b: np.ndarray,
+                    cap_b: np.ndarray, group_of_tier: np.ndarray,
+                    gcap_b: np.ndarray, sgroup_of_tier: np.ndarray,
+                    scap: np.ndarray, step0_b: np.ndarray, sstep0: float,
+                    iters: int, dev: torch.device) -> np.ndarray:
+    """:func:`_fleet_scan` on one device, or with its tenant axis spread
+    over the ranks of ``mesh``'s first dimension when it has more than
+    one, the counterpart of ``repro/core/optassign.py``'s
+    ``_run_fleet_scan``: the tenants are padded to a multiple of that
+    size with the reference's dummies (BIG cost, zero stored bytes,
+    unbounded caps: their duals never move and their usage is exactly
+    0.0), each rank scans its block, and the cells are all-gathered over
+    that dimension, so every rank returns the whole (iters, T, N)."""
+    if mesh is None or mesh.shape[0] == 1:
+        return _fleet_scan(masked_b, stored_b, cap_b, group_of_tier, gcap_b,
+                           sgroup_of_tier, scap, step0_b, sstep0, iters, dev)
+    group, n, r = ctx.first_axis(mesh)
+    T = masked_b.shape[0]
+    pad = (-T) % n
+    if pad:
+        more = lambda x, v: np.concatenate(
+            [x, np.full((pad,) + x.shape[1:], v)])
+        masked_b, stored_b = more(masked_b, BIG), more(stored_b, 0.0)
+        cap_b, gcap_b = more(cap_b, np.inf), more(gcap_b, np.inf)
+        step0_b = more(step0_b, 0.0)
+    per = (T + pad) // n
+    mine = slice(r * per, (r + 1) * per)
+    cells = _fleet_scan(masked_b[mine], stored_b[mine], cap_b[mine],
+                        group_of_tier, gcap_b[mine], sgroup_of_tier, scap,
+                        step0_b[mine], sstep0, iters, dev, group)
+    cells = ctx.all_gather(torch.as_tensor(cells, device=dev), 1, group)
+    return cells.cpu().numpy()[:, :T]
 
 
 def _lagrangian_scan(masked: np.ndarray, stored: np.ndarray, cap: np.ndarray,
@@ -960,13 +1005,12 @@ def capacitated_assign_batch(
     residual-cap round-robin polish (:func:`_fleet_polish`) enforce them
     exactly.
 
-    ``mesh`` must be None: the port runs the fleet on one device; a tenant
-    axis sharded over a mesh is not ported yet (ROADMAP queue 1 item 8c).
+    ``mesh`` (a DeviceMesh) spreads the scan's tenant axis over the ranks
+    of its first dimension (:func:`_run_fleet_scan`), each rank on
+    ``device``; the shared rows' usage is summed over all of them, exactly,
+    so the cells are those of one device. Every rank then runs the host
+    finish on the whole cells and returns the same result.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the port solves a fleet on one device; a sharded tenant "
-            "axis is not ported yet (ROADMAP queue 1 item 8c)")
     dev = resolve(device)
     if (shared_tier_groups is None) != (shared_capacity_gb is None):
         raise ValueError("shared_tier_groups and shared_capacity_gb must be "
@@ -1076,8 +1120,8 @@ def capacitated_assign_batch(
                       if fleet_cells.size else 0.0)
         else:
             sstep0 = 0.0
-        cells = _fleet_scan(masked_b, stored_b, cap_b, g_of_t, gcap_b, sg,
-                            scap, step0_b, sstep0, iters, dev)
+        cells = _run_fleet_scan(mesh, masked_b, stored_b, cap_b, g_of_t,
+                                gcap_b, sg, scap, step0_b, sstep0, iters, dev)
 
         if not has_shared:
             done.update(_batch_candidate_finish(

@@ -180,6 +180,14 @@ def axes_group(mesh, axes: Tuple[str, ...]):
     return made[axes]
 
 
+def first_axis(mesh):
+    """(process group, size, this rank's index) along ``mesh``'s first
+    dimension, over which the placement system spreads its rows and
+    tenants, as the reference's ``mesh.axis_names[0]``."""
+    name = mesh.mesh_dim_names[0]
+    return mesh.get_group(name), mesh.shape[0], mesh.get_local_rank(name)
+
+
 def dp_group():
     """The process group over this rank's data-parallel axes: the 'data'
     axis's group, or pod x data flattened."""

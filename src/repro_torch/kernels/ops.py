@@ -103,12 +103,16 @@ def weighted_entropy_features(codes, n_valid, n_rows, n_cols, lengths, *,
 
 def _on_card(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (the kernel runs), False for a CPU tensor (the
-    plain version runs); anything else raises."""
+    plain version runs) and for a meta tensor, which holds no data: there
+    the plain version only works out the shapes, as the dry run
+    (:mod:`repro_torch.launch.dryrun`) needs, and as the reference's CPU
+    dry run lowers its jnp versions. Anything else raises."""
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
-    raise ValueError(f"tensors must be on 'cuda' or 'cpu', got {t.device}")
+    raise ValueError(f"tensors must be on 'cuda', 'cpu' or 'meta', got "
+                     f"{t.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -11,9 +11,10 @@ Per-arch shape grid (assignment):
 whisper's decode uses its fixed 1500-frame encoder context as the cross
 input. Where JAX returns ``jax.ShapeDtypeStruct``s, :func:`input_specs`
 returns tensors on the ``meta`` device: each has the shape and dtype and
-no data. ``param_structs`` and ``train_state_structs`` wait for the port
-of ``launch/dryrun.py``; :func:`rank_bytes` reckons a rank's parameter
-and ZeRO-1 bytes from the specs on meta tensors, for the launchers.
+no data, and so do :func:`param_structs` and :func:`train_state_structs`
+(the whole weights and training state at ``tp``, for the dry run,
+``launch/dryrun.py``); :func:`rank_bytes` reckons a rank's parameter and
+ZeRO-1 bytes from the specs on meta tensors, for the launchers.
 """
 
 from __future__ import annotations
@@ -101,13 +102,25 @@ def input_specs(cfg: ModelConfig, shape_name: str,
     return out
 
 
+def param_structs(cfg: ModelConfig, tp: int = 16):
+    """The whole weights at ``tp`` as meta tensors."""
+    return tr.init_params(MetaGenerator(), cfg, tp, device="meta")
+
+
+def train_state_structs(cfg: ModelConfig, tcfg, tp: int = 16):
+    """The whole training state ({'params', 'opt'}) at ``tp`` as meta
+    tensors."""
+    from repro_torch.training import train_step as ts
+    return ts.init_train_state(MetaGenerator(), cfg, tcfg, tp, device="meta")
+
+
 def rank_bytes(cfg: ModelConfig, mesh, params, opt=None) -> Dict[str, int]:
     """This rank's bytes of ``params`` (and of the optimizer state
     ``opt``'s master weights and moments) beside the reckoning from the
     specs of the whole weights on the meta device: ``param_specs`` for the
     parameters, ``zero1_specs`` over 'data' for the float32 state."""
     tp = tp_size(mesh)
-    structs = tr.init_params(MetaGenerator(), cfg, tp, device="meta")
+    structs = param_structs(cfg, tp)
     specs = sharding.param_specs(structs, cfg, tp)
     out = {"params": sharding.local_bytes(params),
            "params_reckoned": sharding.reckoned_bytes(structs, specs, mesh)}

@@ -95,7 +95,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     ``device_put`` refuses a sharding that does not divide."""
     if mesh is None:
         return tr.init_cache(cfg, batch, max_seq, dtype, tp, device=device)
-    dev = resolve(device)
+    dev = torch.device("meta") if str(device) == "meta" else resolve(device)
     full = tr.init_cache(cfg, batch, max_seq, dtype, tp_size(mesh),
                          device="meta")
     return tr.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,

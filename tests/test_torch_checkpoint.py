@@ -266,7 +266,7 @@ def test_restore_refuses_what_it_cannot_do(det):
     with pytest.raises(FileNotFoundError):
         mgr.restore(tt, device="cpu")
     mgr.save(1, tt, blocking=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh and shardings go together"):
         mgr.restore(tt, device="cpu", mesh=object())
     key = mgr._manifests[1]["shards"][0]["key"]
     o = store._objs[key]

@@ -12,7 +12,8 @@ tenant, identical feasibility and cents within rel 1e-6:
   all-infeasible tenant;
 * ``FleetEngine.solve`` and ``reoptimize`` against the reference's
   ``FleetEngine``, uncoupled and with provider caps shared across the
-  fleet; provider-name validation; ``mesh`` other than None raises.
+  fleet; provider-name validation (the fleet over a mesh is
+  ``tests/test_torch_placement_mesh.py``'s).
 
 The batched dual ascent's cells are held against the reference's scan
 (its lean kernel, its chunks, shared caps, group rows). The port sums
@@ -574,16 +575,6 @@ def test_all_infeasible_tenant_reported_not_crashed():
     assert not got.feasible and got.cost == float("inf")
     assert not topt.capacitated_assign(cost, feas, stored, cap,
                                        device="cpu").feasible
-
-
-def test_mesh_other_than_none_raises():
-    fleet = _fleet(1, (3, 4))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        topt.capacitated_assign_batch(*_cols(fleet), mesh=object(),
-                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tfleet.FleetEngine(tcosts.azure_table(),
-                           teng.ScopeConfig(device="cpu"), mesh=object())
 
 
 # ------------------------------------------------------------ FleetEngine
