@@ -65,7 +65,7 @@ non-zero (with no result line):
             partitions of real payloads at a 0.5 c/GB interconnect
             mirrored into the store: metered egress equals the plan's. (4)
             On the card only: a capacitated cross-provider solve and a
-            ``reoptimize`` at N 8,000 (the host's 1-swap local search grows
+            ``reoptimize`` at N 16,000 (the host's 1-swap local search grows
             as N squared: N 100,000 would take tens of minutes), then a
             greedy cross-provider solve and ``reoptimize`` at N 100,000;
             seconds per stage, the dual ascent's device time
@@ -88,11 +88,9 @@ non-zero (with no result line):
             re-predicted by ``compredict_rd_fn`` with device features and
             a RandomForest predictor (phase main's measured sample ratios;
             each codec's median decompression speed): K2 must launch
-            (counts zeroed before, read after), the cpu replaying the
-            first batch (reduced: each batch re-renders every partition's
-            values on the host), identical to the cuda run's first batch
+            (counts zeroed before, read after), cuda and cpu identical
             with the same predicted R and D (rel 1e-5), some scheme past
-            "none" at the last; seconds per batch split into partitioner,
+            "none"; seconds per batch split into partitioner,
             re-prediction and solve. Phase main's SVR predicts a ratio of
             1 (its floor) for every partition, whose sizes lie far beyond
             its samples, so no scheme could beat "none" under it. (3)
@@ -105,10 +103,9 @@ non-zero (with no result line):
             shared-capacity fleet and one whose shared cap binds (T 256),
             ``FleetEngine.solve`` and ``reoptimize`` at T 128 against a
             per-tenant ``PlacementEngine`` loop, and T 1,024 at mean N
-            80 (reduced from 200: the host finish grows as N squared):
+            120 (reduced from 200: the host finish grows as N squared):
             identical plans on cuda and cpu (at T 1,024 the scan's
-            cells) and, uncoupled at T 8 and 64, to the per-tenant
-            solves (reduced: no loop at T 256); the scan's
+            cells) and, uncoupled, to the per-tenant solves; the scan's
             device time (torch.profiler, outside the timed run), its
             operations on the card, the host finish, peak device memory.
             The T 1,024 solve must launch the ``usage_sum`` kernel once
@@ -255,7 +252,7 @@ non-zero (with no result line):
             (rel 1e-4 and normwise 1e-3). After the five steps, a
             checkpoint step: a cut of the trained state (the first repeat
             unit's leaves of the parameters and of AdamW's state up to
-            375 MB; the full state's bytes printed beside it) saved
+            750 MB; the full state's bytes printed beside it) saved
             through ``CheckpointManager(device="cuda")`` and restored onto
             the card bit for bit, every shard's sha256 checked (shards by
             (tier, codec), metered cents, save and restore seconds); the
@@ -971,10 +968,7 @@ def phase_kernels(torch, recorded, launches):
 # ------------------------------------------------------------- reopt phase
 MC_SCHEMES = ("none", "lz4", "zstd")     # labels: R and D are synthetic
 MC_N = 2_000                  # bench_reoptimize's largest N
-# capacitated cross-provider solve, reduced from 16,000 (its host local
-# search grows as N squared: 41.6 s at 16,000 on a slow host of an NVIDIA
-# H100 80GB HBM3, 700.00 W machine, where the script outgrew its limit)
-SCALE_N_CAP = 8_000
+SCALE_N_CAP = 16_000          # capacitated cross-provider solve (PERF.md)
 SCALE_N = 100_000             # greedy cross-provider solve and reoptimize
 KNAPSACK_N = 100_000
 MONTHS_HELD = 0.25
@@ -1480,17 +1474,10 @@ TPCH_STREAM_RHO = (3.0, 0.3)
 FLEET_T = (8, 64, 256)               # bench_fleet's fleets, mean N 24
 FLEET_MEAN_N = 24
 ENGINE_T = 128
-# the scale point: T 1,024 at mean N 80, reduced from 200 (and from 120:
-# 54.3 s of host finish on a slow host), where the host finish (the
-# lockstep 1-swap search, N squared) took 105.5 s on the host of an NVIDIA
-# H100 80GB HBM3 (700.00 W) machine
-SCALE_T, SCALE_MEAN_N = 1_024, 80
-# the fleets whose batch is also held to a per-tenant loop (the loop at
-# T 256 took 17.3 s on a slow host)
-FLEET_LOOP_T = 64
-# batches of the TPC-H stream the cpu replays: the first (each batch
-# re-renders every partition's values on the host, 20-45 s a batch)
-TPCH_CPU_BATCHES = 1
+# the scale point: T 1,024 at mean N 120, reduced from 200, where the host
+# finish (the lockstep 1-swap search, N squared) took 105.5 s on the host
+# of an NVIDIA H100 80GB HBM3 (700.00 W) machine
+SCALE_T, SCALE_MEAN_N = 1_024, 120
 
 
 def _same_stream(a, b, what):
@@ -1735,26 +1722,21 @@ def phase_stream(torch, parts, rows, forest, smi_line):
                                 device=dev)
         if dev == CARD:
             ops.reset_launch_counts()
-        runs[dev] = _stream_run(torch, E, stream, table, cfg, fsizes,
-                                tb if dev == CARD else tb[:TPCH_CPU_BATCHES],
-                                rd)
+        runs[dev] = _stream_run(torch, E, stream, table, cfg, fsizes, tb, rd)
         if dev == CARD:
             launches = dict(ops.launch_counts)
-    k = TPCH_CPU_BATCHES
-    rel = _same_stream(runs[CARD][0][:k], runs["cpu"][0], "TPC-H stream")
+    rel = _same_stream(runs[CARD][0], runs["cpu"][0], "TPC-H stream")
     say("stream", f"launches in the compressed TPC-H stream (cuda run): "
         f"{launches}")
     check(launches.get("entropy_features", 0) > 0,
           "kernel entropy_features was not launched by the stream path")
     # the predicted ratios and decompression times, K2's features on the
-    # card against the plain version's on the CPU (the kernel tolerance),
-    # at the cpu's last batch
-    got = runs[CARD][0][k - 1][1].plan.problem
-    ref = runs["cpu"][0][-1][1].plan.problem
-    check(np.allclose(got.R, ref.R, rtol=1e-5, atol=0)
-          and np.allclose(got.D, ref.D, rtol=1e-5, atol=1e-12),
-          "TPC-H stream: the re-predicted R or D differ between cuda and cpu")
+    # card against the plain version's on the CPU (the kernel tolerance)
     last = runs[CARD][0][-1][1].plan
+    ref = runs["cpu"][0][-1][1].plan.problem
+    check(np.allclose(last.problem.R, ref.R, rtol=1e-5, atol=0)
+          and np.allclose(last.problem.D, ref.D, rtol=1e-5, atol=1e-12),
+          "TPC-H stream: the re-predicted R or D differ between cuda and cpu")
     schemes = last.problem.schemes
     used = np.bincount(last.assignment.scheme, minlength=len(schemes))
     check(used[1:].sum() > 0, "TPC-H stream: no partition compressed")
@@ -1773,9 +1755,8 @@ def phase_stream(torch, parts, rows, forest, smi_line):
         f"{[r.n_moved for r, _ in runs[CARD][0]]}, compacted "
         f"{[r.compacted for r, _ in runs[CARD][0]]}, steady "
         f"{[r.steady_cents for r, _ in runs[CARD][0]]} cents; schemes of "
-        f"the last plan {dict(zip(schemes, used.tolist()))}; the cpu "
-        f"replaying the first {k} batch(es) (reduced) identical to cuda, "
-        f"cents rel {rel:.3e} {card}")
+        f"the last plan {dict(zip(schemes, used.tolist()))}; cuda and cpu "
+        f"identical, cents rel {rel:.3e} {card}")
     for dev in (CARD, "cpu"):
         say("stream", f"TPC-H stream on {dev}, seconds per batch: "
             + "; ".join(f"batch {i}: " + ", ".join(
@@ -1855,30 +1836,25 @@ def phase_stream(torch, parts, rows, forest, smi_line):
         peak = torch.cuda.max_memory_allocated()
         fc_, tc_, _, _ = _fleet_solve(torch, optassign, cols, "cpu")
         _same_fleet(fk, fc_, f"fleet T {T}")
-        loop = "per-tenant loop not run (reduced)"
-        if T <= FLEET_LOOP_T:
-            t0 = time.perf_counter()
-            singles = [optassign.capacitated_assign(c, f, s, cap,
-                                                    device=CARD)
-                       for c, f, s, cap in fleet]
-            torch.cuda.synchronize()
-            loop = (f"per-tenant loop on cuda {time.perf_counter() - t0:.3f}"
-                    f" s, identical to the batch")
-            check(all(np.array_equal(a.tier, b.tier)
-                      and np.array_equal(a.scheme, b.scheme)
-                      and a.cost == b.cost
-                      for a, b in zip(singles, fk.assignments)),
-                  f"fleet T {T}: the batch differs from the per-tenant "
-                  f"solves")
+        t0 = time.perf_counter()
+        singles = [optassign.capacitated_assign(c, f, s, cap, device=CARD)
+                   for c, f, s, cap in fleet]
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        check(all(np.array_equal(a.tier, b.tier)
+                  and np.array_equal(a.scheme, b.scheme) and a.cost == b.cost
+                  for a, b in zip(singles, fk.assignments)),
+              f"fleet T {T}: the batch differs from the per-tenant solves")
         dev_ms, n_ops = _scan_numbers(torch, optassign, args)
         n_max = max(c.shape[0] for c in cols[0])
         say("stream", f"fleet T {T} (bench_fleet's recipe, seed {T}, mean N "
             f"{FLEET_MEAN_N}, N_max {n_max}): feasible {fk.feasible}, "
             f"{fk.cost!r} cents; batch {tk:.3f} s on cuda (scan {sk:.3f} s, "
-            f"host finish {tk - sk:.3f} s), {tc_:.3f} s on cpu; {loop}; "
-            f"scan device time {dev_ms}, {n_ops:.0f} operations on the card "
-            f"per scan; peak device memory {peak / 1e6:.2f} MB; identical "
-            f"to cpu {card}")
+            f"host finish {tk - sk:.3f} s), {tc_:.3f} s on cpu; per-tenant "
+            f"loop on cuda {t_loop:.3f} s; scan device time {dev_ms}, "
+            f"{n_ops:.0f} operations on the card per scan; peak device "
+            f"memory {peak / 1e6:.2f} MB; identical to cpu and to the "
+            f"per-tenant solves {card}")
 
     # the shared-capacity fleets at the largest T: the benchmark's (each
     # tenant's partition 0 pinned to tier 0, the pool at 1.15x the pinned
@@ -4832,7 +4808,7 @@ def _one_unit(tr, params, cfg, torch):
 # ~0.02 GB/s on the host of an NVIDIA H100 80GB HBM3 machine, so the
 # whole unit would take minutes to save where the save and restore
 # together should take under a minute
-CKPT_CUT_BYTES = 375_000_000
+CKPT_CUT_BYTES = 750_000_000
 CKPT_SMALL_BYTES = 4 << 20        # the later saves: 4 MiB of trained bf16
 CKPT_GCS_SAVES = 10               # saves under GCS prices (lifecycle moves)
 

@@ -721,9 +721,11 @@ def _overlap_matrix_sharded(codes: np.ndarray, sizes: np.ndarray,
     ``mesh``'s first dimension; each of its ranks computes its slab of
     rows against every row on ``device`` (K1's rectangular sweep on the
     card), and the slabs are all-gathered over that dimension. A row's
-    entries are the same bits in a slab as in the whole matrix (K1 adds a
+    entries are the same bits in a slab as in the whole matrix: K1 adds a
     pair's shared sizes in ascending code order whatever the rows beside
-    it), so a mesh of one rank gives the unsharded call, bit for bit.
+    it, and the plain version on the CPU sums them exactly before one
+    rounding, whatever the shape of its products or the number of
+    threads. So a mesh of one rank gives the unsharded call, bit for bit.
     Returns the padded (N', N') float32 matrix on the host."""
     group, n, r = ctx.first_axis(mesh)
     N = codes.shape[0]

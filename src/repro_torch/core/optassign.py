@@ -264,14 +264,19 @@ def _fleet_scan(masked_b: np.ndarray, stored_b: np.ndarray,
     all-reduced (SUM, in float64) before the one rounding: still exact
     under the same condition, with n the whole fleet's count, so a
     sharded fleet takes the multipliers of one device. With no finite
-    group or shared cap those multipliers stay exactly 0.0, and the lean
-    body that skips them (and needs no collective) gives the same bits.
+    shared cap the shared multipliers stay exactly 0.0 and are not
+    updated, so the all-reduce runs only where ``scap`` has a finite entry:
+    ``scap`` is the whole fleet's, so every rank makes the same choice,
+    whatever caps its own tenants carry. With no finite group cap on this
+    batch either, the group multipliers stay 0.0 too, and the lean body
+    that skips both gives the same bits.
     """
     f32, f64 = torch.float32, torch.float64
     T, N, L, K = masked_b.shape
     G = gcap_b.shape[1]
     S = scap.shape[0]
-    lean = not (np.isfinite(gcap_b).any() or np.isfinite(scap).any())
+    shared = bool(np.isfinite(scap).any())      # the same on every rank
+    lean = not (shared or np.isfinite(gcap_b).any())
     t32 = lambda x: torch.as_tensor(np.asarray(x, np.float64), dtype=f32,
                                     device=dev)
     m = t32(masked_b.reshape(T, N, L * K))
@@ -312,12 +317,13 @@ def _fleet_scan(masked_b: np.ndarray, stored_b: np.ndarray,
             use_g = torch.zeros((T, G), dtype=f32, device=dev)
             for l in range(L):                   # tier order, float32
                 use_g = use_g + torch.where(in_g[l], use[:, l:l + 1], zero)
+            lam_g = torch.clamp_min(lam_g + rate * torch.where(
+                fin_g, use_g - gcap_t, zero), 0.0)
+        if shared:
             tot = use.double().sum(0)
             if group is not None:
                 ctx.all_reduce(tot, dist.ReduceOp.SUM, group)
             use_s = torch.where(in_s, tot[:, None], zero64).sum(0)
-            lam_g = torch.clamp_min(lam_g + rate * torch.where(
-                fin_g, use_g - gcap_t, zero), 0.0)
             lam_s = torch.clamp_min(lam_s + sstep / its[it] * torch.where(
                 fin_s, use_s.float() - scap_t, zero), 0.0)
         cells[it] = idx

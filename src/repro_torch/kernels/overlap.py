@@ -25,8 +25,8 @@ matrix, never a read out of bounds.
   registers and in a hash set that rules out most rows of A at once,
   coalesced output);
 * :func:`fractional_overlap_matrix_plain` is the same function in tensor
-  ops (one-hot rows and one float32 matrix product), used for CPU tensors
-  and as the kernel's yardstick on the card;
+  ops (one-hot rows and matrix products; on the CPU exact integer sums),
+  used for CPU tensors and as the kernel's yardstick on the card;
 * :func:`fractional_overlap_matrix_ordered` is the kernel's summation in
   tensor ops: the sizes of the shared codes added in ascending code order
   in float32, so it gives the kernel's bits on either device
@@ -113,7 +113,18 @@ def fractional_overlap_matrix_plain(codes: torch.Tensor, sizes: torch.Tensor,
                                     spans_b: Optional[torch.Tensor] = None,
                                     ) -> torch.Tensor:
     """Tensor-op version: size-weighted one-hot rows of A times indicator
-    rows of B, in ``sizes.dtype``."""
+    rows of B, in ``sizes.dtype``.
+
+    On the CPU, with float32 sizes, each pair's sum is exact before one
+    rounding: BLAS (MKL) adds a row's terms in an order that follows the
+    shape of the call and the number of threads, so a float32 product
+    could give a row of a slab (``datapart._overlap_matrix_sharded``)
+    other bits than the same row of the whole matrix. Each size is an
+    integer times a power of two; the files are put in bands of exponents
+    narrow enough that a row's integers sum below 2**53, so each band's
+    float64 product is exact whatever its order, and the bands are added
+    in ascending order in float64 and rounded once to float32. A row's
+    bits then depend on its own codes and on B only."""
     if codes_b is None:
         codes_b, spans_b = codes, spans
     F = sizes.shape[0]
@@ -126,8 +137,25 @@ def fractional_overlap_matrix_plain(codes: torch.Tensor, sizes: torch.Tensor,
         return torch.zeros(c.shape[0], F, dtype=w.dtype,
                            device=w.device).scatter_add_(1, safe, vals)
 
-    inter = one_hot(codes, sizes) @ one_hot(codes_b, torch.ones_like(sizes)).T
-    return _finish(inter, spans, spans_b)
+    if codes.device.type != "cpu" or sizes.dtype != torch.float32:
+        inter = (one_hot(codes, sizes)
+                 @ one_hot(codes_b, torch.ones_like(sizes)).T)
+        return _finish(inter, spans, spans_b)
+    mant, ex = torch.frexp(sizes.double())
+    q = torch.ldexp(mant, torch.tensor(24))        # an integer below 2**24
+    ex = ex.long()
+    nz = q != 0
+    lo = int(ex[nz].min()) if bool(nz.any()) else 0
+    width = 30 - max(codes.shape[1], 1).bit_length()   # sum < 2**53
+    band = (ex - lo) // width
+    ind_b = one_hot(codes_b, torch.ones_like(q)).T
+    inter = torch.zeros(codes.shape[0], codes_b.shape[0], dtype=torch.float64)
+    for k in torch.unique(band[nz]).tolist():
+        base = lo + k * width
+        w = torch.where(band == k, torch.ldexp(q, ex - base), 0.0)
+        inter += torch.ldexp(one_hot(codes, w) @ ind_b,
+                             torch.tensor(base - 24))
+    return _finish(inter.float(), spans, spans_b)
 
 
 def _row_prefix(codes: torch.Tensor, n_files: int) -> torch.Tensor:

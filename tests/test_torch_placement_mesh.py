@@ -14,8 +14,9 @@ inputs made here and write their results beside them. Checks:
   ``tests/test_distributed.py`` holds that one), and ``g_part`` over the
   mesh gives the reference's partitions;
 * the sharded fleet scan's cells equal the unsharded scan's bit for bit
-  with binding group and shared caps and T padded to the ranks, and so do
-  the plans; on the uncoupled fleet of ROADMAP queue 3 the cells equal
+  with binding group and shared caps and T padded to the ranks, and with
+  finite group caps on the first rank's tenants only, and so do the
+  plans; on the uncoupled fleet of ROADMAP queue 3 the cells equal
   the reference's sharded scan at all 200 steps and the plans after the
   host finish are the reference's;
 * ``FleetEngine(mesh=)`` plans as ``FleetEngine()`` does;
@@ -47,13 +48,19 @@ from repro_torch.training import optimizer as topt_state
 
 #: mesh name -> (data, model): first dimensions of 4, 2 and 1 ranks
 MESHES = {"4": (4, 1), "2x2": (2, 2), "1x4": (1, 4)}
+#: the graphs also run through the reference ("wide" only holds the port's
+#: slabs to its whole matrix)
+REF_GRAPHS = ("random", "windows")
 RESTORE_MESH = "2x2"
 
 
 # ------------------------------------------------------------------ inputs
 def _graphs():
-    """Two G-PART instances: ``tests/test_distributed.py``'s recipe, and
-    contiguous windows over a shared file universe."""
+    """Three G-PART instances: ``tests/test_distributed.py``'s recipe,
+    contiguous windows over a shared file universe, and 217 partitions
+    over 1,732 files with sizes spread over decades, where one BLAS product
+    of every row would add some pairs' sizes in another order than a
+    slab's product does."""
     out = {}
     rng = np.random.default_rng(0)
     files = [f"t/{i}" for i in range(50)]
@@ -69,6 +76,13 @@ def _graphs():
     out["windows"] = ([(tuple(f"s{j}" for j in range(lo[k], lo[k] + w[k])),
                         float(rng.uniform(0.5, 8.0))) for k in range(39)],
                       sizes)
+    rng = np.random.default_rng(5)
+    files = [f"w{i}" for i in range(1732)]
+    sizes = {f: float(rng.lognormal(0, 3)) for f in files}
+    out["wide"] = ([(tuple(rng.choice(files, size=int(rng.integers(2, 40)),
+                                      replace=False)),
+                     float(rng.uniform(0.5, 8.0))) for _ in range(217)],
+                   sizes)
     return out
 
 
@@ -91,6 +105,18 @@ def _coupled_fleet():
                        tier_groups=np.array([0, 0, 1, 1]),
                        group_capacity_gb=[np.array([g, np.inf])
                                           for g in tot])
+
+
+def _grouped_fleet():
+    """T 5 with group rows whose caps are finite for the first two tenants
+    only and no shared cap: over 4 ranks (and 2) the ranks past the first
+    hold only tenants or dummies with unbounded group caps."""
+    fleet = _fleet(8, (12, 30, 17, 24, 6), binding=True)
+    tot = [0.4 * s[:, :2].max(2).sum() for _, _, s, _ in fleet]
+    return fleet, dict(tier_groups=np.array([0, 0, 1, 1]),
+                       group_capacity_gb=[
+                           np.array([g if t < 2 else np.inf, np.inf])
+                           for t, g in enumerate(tot)])
 
 
 def _uncoupled_fleet():
@@ -248,7 +274,8 @@ TMP = sys.argv[1]
 inp = pickle.load(open(TMP + "/inputs.pkl", "rb"))
 out = {"overlap": {}, "gpart": {}}
 m4 = make_test_mesh(data=4)
-for g, (qf, sizes) in inp["graphs"].items():
+for g in inp["ref_graphs"]:
+    qf, sizes = inp["graphs"][g]
     parts = dp.make_partitions(qf, sizes)
     idx = dp.PartitionIndex.from_partitions(parts)
     out["overlap"][g] = np.asarray(idx.overlap_matrix("ref", mesh=m4))
@@ -300,6 +327,7 @@ def runs(tmp_path_factory):
         s_thresh[g] = 2.5 * float(np.median([p.span for p in parts]))
     fleets = {}
     for name, (fleet, kw) in (("coupled", _coupled_fleet()),
+                              ("grouped", _grouped_fleet()),
                               ("uncoupled", _uncoupled_fleet())):
         fleets[name] = (_scan_args(fleet, **kw), _cols(fleet), kw)
     engines = _engine_fleets()
@@ -307,7 +335,8 @@ def runs(tmp_path_factory):
     host = lambda t: ttr.tree_map(lambda x: x.numpy(), t)
     like = {"params": host(tree["params"]),
             "opt": tree["opt"]._make(host(x) for x in tree["opt"])}
-    inputs = dict(meshes=MESHES, graphs=graphs, s_thresh=s_thresh,
+    inputs = dict(meshes=MESHES, graphs=graphs, ref_graphs=REF_GRAPHS,
+                  s_thresh=s_thresh,
                   fleets=fleets, engines=engines, objs=objs, like=like,
                   restore_mesh=RESTORE_MESH)
     with open(tmp / "inputs.pkl", "wb") as f:
@@ -332,7 +361,8 @@ def runs(tmp_path_factory):
     for c, (table, cfg, kw, probs) in engines.items():
         one["engine"][c] = tfleet.FleetEngine(table, cfg,
                                               **kw).solve(probs).fleet
-    return dict(graphs=graphs, ranks=ranks, ref=ref, one=one, tree=tree)
+    return dict(graphs=graphs, fleets=fleets, ranks=ranks, ref=ref, one=one,
+                tree=tree)
 
 
 def _identical(a, b):
@@ -348,10 +378,11 @@ def _identical(a, b):
 
 # ------------------------------------------------------------------ G-PART
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("graph", ["random", "windows"])
+@pytest.mark.parametrize("graph", ["random", "windows", "wide"])
 def test_sharded_overlap_matrix_is_the_unsharded_one(runs, graph, mesh):
-    """Bit for bit, at first dimensions of 4, 2 and 1 ranks (N 30 and 39:
-    neither divides by 4, 39 not by 2), and so are g_part's partitions."""
+    """Bit for bit, at first dimensions of 4, 2 and 1 ranks (N 30, 39 and
+    217: none divides by 4, 39 and 217 not by 2), and so are g_part's
+    partitions."""
     got = runs["ranks"][0]["overlap"][graph, mesh]
     want = runs["one"]["overlap"][graph]
     n = len(tdp.make_partitions(*runs["graphs"][graph]))
@@ -362,7 +393,7 @@ def test_sharded_overlap_matrix_is_the_unsharded_one(runs, graph, mesh):
         _canon(runs["one"]["gpart"][graph])
 
 
-@pytest.mark.parametrize("graph", ["random", "windows"])
+@pytest.mark.parametrize("graph", REF_GRAPHS)
 def test_sharded_overlap_matches_the_reference(runs, graph):
     """Within 1e-6 of the reference's matrix sharded over data 4, and
     g_part over the mesh gives the reference's partitions (its 'jnp'
@@ -374,7 +405,7 @@ def test_sharded_overlap_matches_the_reference(runs, graph):
         runs["ref"]["gpart"][graph]
 
 
-@pytest.mark.parametrize("graph", ["random", "windows"])
+@pytest.mark.parametrize("graph", ["random", "windows", "wide"])
 def test_partition_stage_reads_the_active_mesh(runs, graph):
     """Under ``ctx.activate(mesh)`` the engine's PartitionStage spreads the
     overlap matrix over the mesh (one all-gather of its slabs) and merges
@@ -398,6 +429,22 @@ def test_sharded_fleet_cells_and_plans_equal_one_device(runs, mesh):
     plan = runs["ranks"][0]["plans"]["coupled", mesh]
     _identical(plan, runs["one"]["plans"]["coupled"])
     assert plan.feasible and plan.shared_use_gb is not None
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_fleet_with_group_caps_on_some_ranks_equals_one_device(runs, mesh):
+    """Finite group caps on the first rank's tenants only and no shared
+    cap: every rank takes the same collectives (the ranks do not hang on
+    each other), and the cells and plans are the unsharded ones."""
+    args = runs["fleets"]["grouped"][0]
+    gcap, scap = args[4], args[6]
+    assert args[0].shape[0] == 5 and not np.isfinite(scap).any()
+    assert np.isfinite(gcap[:2]).any() and not np.isfinite(gcap[2:]).any()
+    np.testing.assert_array_equal(runs["ranks"][0]["cells"]["grouped", mesh],
+                                  runs["one"]["cells"]["grouped"])
+    plan = runs["ranks"][0]["plans"]["grouped", mesh]
+    _identical(plan, runs["one"]["plans"]["grouped"])
+    assert plan.feasible
 
 
 def test_uncoupled_fleet_equals_the_reference_over_a_mesh(runs):
