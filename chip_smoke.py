@@ -18,9 +18,9 @@ non-zero (with no result line):
 
 1. device   the card's name and count, and ``nvidia-smi``'s name and power
             limit; no card is a failure.
-2. build    all ten sources from ``src/repro_torch/kernels/csrc`` (the
-            seven TPU kernels, K6's partials mode, the wide attention
-            route and the fleet scan's usage sum), one
+2. build    all eleven sources from ``src/repro_torch/kernels/csrc`` (the
+            seven TPU kernels, K6's partials mode, the two wide attention
+            routes and the fleet scan's usage sum), one
             nvcc per source, all started together (``-Xptxas -v``
             register/shared-memory lines, build seconds); K6's split kernel
             at the serve loop's cache (registers, shared memory, stages,
@@ -39,6 +39,13 @@ non-zero (with no result line):
             capacitated cents within rel 1e-6; a second CUDA run of the
             capacitated plan identical to the first; the capacitated solver
             again with capacities that bind, on the card and on the CPU.
+            From phase 3 to the end of phase 9's TPC-H stream the host's
+            string renderings of numeric columns and K2's class encodings
+            are memoised by the columns' exact contents
+            (``shared_renderings``): a later run that builds the same
+            tables reuses them (the same arrays), so its stage seconds
+            leave that host work out; K1, K2 and the solvers run on each
+            device in every run.
 8. reopt    runs after phase 4, on its plans. (1) Phase main's greedy and
             capacitated plans drift (``benchmarks/bench_reoptimize.py``'s
             recipe, seed 0: 10% of partitions x20-100, 10% /20-100);
@@ -69,7 +76,13 @@ non-zero (with no result line):
             as N squared: N 100,000 would take tens of minutes), then a
             greedy cross-provider solve and ``reoptimize`` at N 100,000;
             seconds per stage, the dual ascent's device time
-            (torch.profiler), peak device memory. (5) ``MLP(hidden=(64,
+            (torch.profiler), peak device memory; the capacitated solve
+            must launch the ``usage_sum`` kernel once per dual-ascent step
+            (counts zeroed before, read after), and at its first step's
+            cells (T 1 x N 16,000, L 12) the kernel's sums equal the
+            host's ``np.add.at`` bit for bit, with its time and device
+            time, the plain version's, ``index_add_``'s and its bound.
+            (5) ``MLP(hidden=(64,
             64), epochs=500)`` on the 80 labelled samples of phase main
             (zlib-6 ratios), from one initial parameter set on cuda and
             cpu: predictions within rel 1e-4 of the largest (the bar of
@@ -324,16 +337,22 @@ non-zero (with no result line):
             histograms, entropy within rel 1e-5, identical bits on a second
             call), one CUDA launch a call and no host sync. Last, the
             wide routes (on no config's path: 0 launches): K5 at D 320 /
-            Dv 288 and K6 at D 640 / Dv 576 with v inside k (and its
-            partials mode) through ``attention_wide.cu``, K7 in bfloat16
-            at n 320 through its CUDA-core kernel, each in float32 and
-            bfloat16 against its plain version (K5/K6: 2e-5 and 2e-2; K7
-            1e-4 and 2e-2), timed in bfloat16 beside the plain version
-            and, for K5 and K6, ``scaled_dot_product_attention``.
+            Dv 288 (bfloat16 through ``attention_wide_tc.cu``'s tensor
+            cores, float32 through ``attention_wide.cu``; in bfloat16 also
+            at Sq 100 of Sk 612, window 70, softcap 30, one KV head, D 640,
+            Dv 300, which crosses every tile edge) and K6 at D 640 / Dv 576
+            with v inside k (and its partials mode) through
+            ``attention_wide.cu``, K7 in bfloat16 at n 320 through its
+            CUDA-core kernel, each in float32 and bfloat16 against its
+            plain version (K5/K6: 2e-5 and 2e-2; K7 1e-4 and 2e-2), timed
+            in bfloat16 beside the plain version and, for K5 and K6,
+            ``scaled_dot_product_attention``; K5's also beside
+            ``attention_wide.cu`` in bfloat16 and with its device time.
 
 The script takes no arguments: the sizes are fixed. The last three lines
-are the kernel JSON line (K1-K7, ``usage_sum`` and the three wide
-routes), the ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.
+are the kernel JSON line (K1-K7, ``usage_sum`` with its T 1 x N 16,000
+row of phase reopt under ``scale_solve``, and the three wide routes), the
+``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -372,6 +391,8 @@ SOURCES = {"overlap": ("src/repro_torch/kernels/csrc/overlap.cu",
                                 "src/repro/kernels/decode_attention.py:84"),
            "attention_wide": ("src/repro_torch/kernels/csrc/attention_wide.cu",
                               "src/repro/kernels/flash_attention.py:103"),
+           "attention_wide_tc": ("src/repro_torch/kernels/csrc/attention_wide_tc.cu",
+                                 "src/repro/kernels/flash_attention.py:103"),
            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:97"),
            "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",
@@ -492,6 +513,64 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
 
 def canon(parts):
     return sorted((tuple(sorted(p.files)), round(p.rho, 9)) for p in parts)
+
+
+def shared_renderings():
+    """Memoise the host work that serialisation and K2's dictionary
+    encoding do on a table's values, by the exact contents of its columns
+    (dtype, shape and bytes, checked equal on a hit): ``Table._col_str``
+    (a numeric column's string rendering) and ``encode_dtype_classes`` (the
+    sorted vocabulary of a batch of partition tables). The cuda and cpu
+    runs of a path build the same tables, so the later runs reuse the first
+    run's strings and codes (identical arrays) and their stage seconds
+    leave that host work out; every device-dependent step (K1, K2, the
+    solvers) still runs on both devices. Returns (counts, undo)."""
+    import hashlib
+    from repro_torch.core import compredict
+    from repro_torch.data.tables import Table
+    col_str, encode = Table._col_str, compredict.encode_dtype_classes
+    memo, counts = {}, {"made": 0, "reused": 0}
+
+    def key(arrays):
+        h = hashlib.blake2b(digest_size=16)
+        for a in arrays:
+            h.update(f"{a.dtype.str}{a.shape}".encode())
+            h.update(a.tobytes())
+        return h.digest()
+
+    def cached(kind, arrays, make):
+        raw = [np.ascontiguousarray(a) for a in arrays]
+        k = (kind, key(raw))
+        hit = memo.get(k)
+        if hit is not None and len(hit[0]) == len(raw) and all(
+                a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(hit[0], raw)):
+            counts["reused"] += 1
+            return hit[1]
+        counts["made"] += 1
+        out = make()
+        memo[k] = ([a.copy() for a in raw], out)
+        return out
+
+    def memo_col_str(self, v):
+        if v.dtype.kind not in "iuf":
+            return col_str(self, v)
+        return cached("col", [v], lambda: col_str(self, v))
+
+    def memo_encode(tables):
+        cols = [c for t in tables for c in t.columns.values()]
+        if any(c.dtype.kind == "O" for c in cols):
+            return encode(tables)
+        shapes = np.array([[t.num_rows, len(t.columns)] for t in tables])
+        return cached("encode", [shapes, *cols], lambda: encode(tables))
+    Table._col_str = memo_col_str
+    compredict.encode_dtype_classes = memo_encode
+
+    def undo():
+        Table._col_str = col_str
+        compredict.encode_dtype_classes = encode
+        memo.clear()
+    return counts, undo
 
 
 def gpart_instance(dp, n_fams: int, n_files: int, seed: int = 0):
@@ -1401,10 +1480,11 @@ def phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs,
         prob = _synthetic(E, tab, cfg, N, N)
         secs = {"solve": {}, "reoptimize": {}}
         scans = {"solve": [], "reoptimize": []}
-        t = {}
+        t, n_usage = {}, {}
         for step in ("solve", "reoptimize"):
             undo = _timed_stages(torch, e, optassign, secs[step], scans[step])
             try:
+                ops.reset_launch_counts()
                 t0 = time.perf_counter()
                 if step == "solve":
                     plan_s = e.solve(prob)
@@ -1413,6 +1493,7 @@ def phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs,
                                          months_held=MONTHS_HELD)
                 torch.cuda.synchronize()
                 t[step] = time.perf_counter() - t0
+                n_usage[step] = ops.launch_counts["usage_sum"]
             finally:
                 undo()
         check(plan_s.assignment.feasible and mig_s.plan.assignment.feasible,
@@ -1432,6 +1513,15 @@ def phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs,
                 f"device time {dual_txt}"
                 + (f"; {mig_s.n_moved:,} moves" if step == "reoptimize"
                    else "") + f" {card}")
+        if capped_run:
+            steps = sum(int(a[6]) for a in scans["solve"])
+            check(steps > 0 and n_usage["solve"] == steps,
+                  f"N {N:,} capped: {n_usage['solve']} usage_sum launches "
+                  f"in {steps} dual-ascent steps of the solve")
+            a = scans["solve"][0]
+            usage = _usage_row(torch, a[0][None], a[1][None],
+                               n_usage["solve"], card, "reopt",
+                               f"the capacitated scale solve (N {N:,})")
     say("reopt", f"peak device memory of the scale runs "
         f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB {card}")
 
@@ -1458,6 +1548,7 @@ def phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs,
         f"the card, {t['cpu']:.3f} s on the CPU; predictions rel {err:.3e} "
         f"(bar 1e-4), parameters {dp:.3e} apart {card}")
     say("reopt", f"phase reopt took {time.perf_counter() - t_phase:.1f} s")
+    return usage
 
 
 # ------------------------------------------------------------- stream phase
@@ -1658,9 +1749,11 @@ def _engine_problems(E, T, mean_n, table, cfg, seed=1, K=2):
     return probs
 
 
-def phase_stream(torch, parts, rows, forest, smi_line):
+def phase_stream(torch, parts, rows, forest, smi_line, renders):
     """Streaming placement, access forecasting and the multi-tenant fleet
-    solver (phase 9); ``forest`` re-predicts the TPC-H stream."""
+    solver (phase 9); ``forest`` re-predicts the TPC-H stream. ``renders``
+    is :func:`shared_renderings`'s (counts, undo): its memo ends with the
+    TPC-H stream, the last host work the cuda and cpu runs share."""
     from repro_torch.core import access_predict as ap
     from repro_torch.core import engine as E
     from repro_torch.core import forecast as fcm
@@ -1762,6 +1855,12 @@ def phase_stream(torch, parts, rows, forest, smi_line):
             + "; ".join(f"batch {i}: " + ", ".join(
                 f"{k} {v:.3f}" for k, v in s.items())
                 for i, s in enumerate(runs[dev][2])))
+    counts, undo = renders
+    undo()
+    say("stream", f"column renderings and class encodings in phases main "
+        f"to stream: {counts['made']:,} made, {counts['reused']:,} reused "
+        f"(the same arrays; the later runs' partition, compress and "
+        f"re-prediction seconds leave that host work out)")
 
     # 3. access forecasting
     n_ds, n_mo, seed = PREDICT_TRACE
@@ -1982,18 +2081,19 @@ def phase_stream(torch, parts, rows, forest, smi_line):
         f"{peak / 1e6:.2f} MB; the scan's cells identical on the cpu "
         f"({t_cpu_scan:.3f} s there), so the host finish gives the same "
         f"plans {card}")
-    usage = _usage_row(torch, args, n_usage, card)
+    usage = _usage_row(torch, args[0], args[1], n_usage, card, "stream",
+                       "the scale fleet")
     say("stream", f"phase stream took {time.perf_counter() - t_phase:.1f} s")
     return usage
 
 
-def _usage_row(torch, args, launches, card):
-    """The fleet scan's usage-sum kernel at the scale fleet's first step
-    (the cells of zero multipliers): bit for bit the host's float32 sums in
-    row order, its time, the plain version's, ``index_add_``'s (the same
-    sums in no fixed order) and its bound."""
+def _usage_row(torch, m, s, launches, card, phase, what):
+    """The fleet scan's usage-sum kernel at a scan's first step (the cells
+    of zero multipliers) of ``m``, ``s`` (T, N, L, K): bit for bit the
+    host's float32 sums in row order, its time (CUDA events and device
+    time), the plain version's, ``index_add_``'s (the same sums in no fixed
+    order) and its bound."""
     from repro_torch.kernels import usage_sum as us
-    m, s = args[0], args[1]
     T, N, L, K = m.shape
     dev = torch.device(CARD)
     idx = torch.as_tensor(m.reshape(T, N, L * K), dtype=torch.float32,
@@ -2004,9 +2104,11 @@ def _usage_row(torch, args, launches, card):
     got = us.usage_sum_kernel(idx, chosen, K, L)
     check(torch.equal(got, us.usage_sum_plain(idx, chosen, K, L))
           and torch.equal(got, us.usage_sum_kernel(idx, chosen, K, L)),
-          "usage_sum: the kernel's sums are not the host's float32 sums in "
-          "row order, or two calls differ")
+          f"usage_sum at {what}: the kernel's sums are not the host's float32 "
+          f"sums in row order, or two calls differ")
     ms = cuda_ms(lambda: us.usage_sum_kernel(idx, chosen, K, L), torch)
+    dev_ms, _ = device_ms(lambda: us.usage_sum_kernel(idx, chosen, K, L),
+                          torch)
     plain = cuda_ms(lambda: us.usage_sum_plain(idx, chosen, K, L), torch,
                     iters=5)
     flat = (torch.arange(T, device=dev)[:, None] * L + idx // K).reshape(-1)
@@ -2015,18 +2117,23 @@ def _usage_row(torch, args, launches, card):
     need = {"idx": 8 * T * N, "chosen": 4 * T * N, "use": 4 * T * L}
     n_ops = float(T * N)            # one addition per row
     b, by = bound_ms(float(sum(need.values())), n_ops)
-    say("stream", f"usage_sum at the scale fleet (T {T:,}, N_max {N}, L "
-        f"{L}, K {K}): sums identical to the host's float32 sums in row "
-        f"order and on a second call; {launches} launches in the solve (one "
-        f"per scan step); kernel {ms:.4f} ms, plain (host np.add.at, with "
-        f"the copies) {plain:.4f} ms, index_add_ (no fixed order) {lib:.4f} "
-        f"ms; bound {b:.5f} ms ({by}; {_counts(need)} bytes, {n_ops:.0f} "
-        f"ops) {card}")
+    rows = np.bincount((idx // K).cpu().numpy().ravel(), minlength=L)
+    route = "warp" if L <= 32 and N <= us.WARP_MAX_N else "block"
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    say(phase, f"usage_sum at {what} (T {T:,}, N_max {N:,}, L {L}, K {K}; "
+        f"the {route} route; rows a tier {rows.tolist()}): sums identical to "
+        f"the host's float32 sums in row order and on a second call; "
+        f"{launches} launches in the solve (one per scan step); kernel "
+        f"{ms:.4f} ms (device {dev_txt}), plain (host np.add.at, with the "
+        f"copies) {plain:.4f} ms, index_add_ (no fixed order) {lib:.4f} ms; "
+        f"bound {b:.5f} ms ({by}; {_counts(need)} bytes, {n_ops:.0f} ops) "
+        f"{card}")
     return {"name": "usage_sum", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/usage_sum.cu",
             "replaces": "src/repro/core/optassign.py:713", "launches": launches,
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b,
-            "bound_by": by, "library_ms": lib}
+            "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, "bound_ms": b, "bound_by": by,
+            "library_ms": lib, "shape": [T, N, L, K]}
 
 
 # ------------------------------------------------------------- daemon phase
@@ -4601,6 +4708,7 @@ def phase_wide_kernels(torch):
     version in bf16 and in float32, timed in bf16 beside the plain version
     and, for K5 and K6, scaled_dot_product_attention."""
     import torch.nn.functional as F
+    from repro_torch.kernels import attention_wide as aw
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
@@ -4620,7 +4728,8 @@ def phase_wide_kernels(torch):
               f"wide routes: {dict(ops.route_counts)}, want {route}")
         return res
 
-    # K5: B 2, S 512, 8 query heads on 2 KV heads of D 320, Dv 288, causal
+    # K5: B 2, S 512, 8 query heads on 2 KV heads of D 320, Dv 288, causal;
+    # bfloat16 takes attention_wide_tc.cu, float32 attention_wide.cu
     B, S, Hq, Hkv, D, Dv = 2, 512, 8, 2, 320, 288
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -4630,7 +4739,26 @@ def phase_wide_kernels(torch):
                         lambda: fa.flash_attention_kernel(q, k, v))
         errs[dt] = _allclose(torch, out, fa.flash_attention_plain(q, k, v),
                              tol[dt])
+    # every tile edge at once: Sq 100 of Sk 612 (queries at the end, ragged
+    # query and key tiles), a window of 70 across key tiles, softcap 30,
+    # one KV head, D 640 in five chunks, Dv 300 in slices of 112, 112, 76
+    kw = dict(window=70, softcap=30.0)
+    qe, ke, ve = rnd(1, 100, 4, 640, dtype=torch.bfloat16), \
+        rnd(1, 612, 1, 640, dtype=torch.bfloat16), \
+        rnd(1, 612, 1, 300, dtype=torch.bfloat16)
+    edge = _allclose(torch, one_route(
+        "flash_attention.wide", lambda: fa.flash_attention_kernel(
+            qe, ke, ve, **kw)), fa.flash_attention_plain(qe, ke, ve, **kw),
+        tol[torch.bfloat16])
     ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v), torch)
+    dev_ms, _ = device_ms(lambda: fa.flash_attention_kernel(q, k, v), torch)
+
+    def wide_kernel():              # the bf16 call on attention_wide.cu
+        o = torch.empty_like(out)
+        aw._launch(q, k, v, o, Sq=S, causal=True)
+        return o
+    _allclose(torch, wide_kernel(), out, tol[q.dtype])
+    before = cuda_ms(wide_kernel, torch)
     plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), torch,
                     iters=5)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -4643,19 +4771,24 @@ def phase_wide_kernels(torch):
             "o": out.numel() * el}
     n_ops = float(B * Hq * _flash_pairs(S, S, True, None) * (2 * D + 2 * Dv))
     b, by = bound_ms(float(sum(need.values())), n_ops, _rate(torch, q.dtype))
-    say("kernels", f"K5 wide route (attention_wide.cu) at q {tuple(q.shape)} "
-        f"k {tuple(k.shape)} v {tuple(v.shape)}, causal: max abs err "
-        f"{errs[torch.float32]:.3e} (float32), {errs[torch.bfloat16]:.3e} "
-        f"(bf16); bf16 kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"scaled_dot_product_attention {lib:.4f} ms; bound {b:.5f} ms ({by}; "
-        f"{_counts(need)} bytes, {n_ops:.0f} ops), {100 * b / ms:.2f}% of "
-        f"the bound reached; on no config's path")
+    dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+    say("kernels", f"K5 wide route at q {tuple(q.shape)} k {tuple(k.shape)} "
+        f"v {tuple(v.shape)}, causal: max abs err {errs[torch.float32]:.3e} "
+        f"(float32, attention_wide.cu), {errs[torch.bfloat16]:.3e} (bf16, "
+        f"attention_wide_tc.cu: {aw.tc_smem_bytes():,} bytes of shared "
+        f"memory a block), {edge:.3e} at q {tuple(qe.shape)} k "
+        f"{tuple(ke.shape)} v {tuple(ve.shape)} with {kw} (bf16); bf16 "
+        f"kernel {ms:.4f} ms (device {dev_txt}), attention_wide.cu in bf16 "
+        f"{before:.4f} ms, plain {plain:.4f} ms, "
+        f"scaled_dot_product_attention {lib:.4f} ms ({ms / lib:.3f} of it); "
+        f"bound {b:.5f} ms ({by}; {_counts(need)} bytes, {n_ops:.0f} ops), "
+        f"{100 * b / ms:.2f}% of the bound reached; on no config's path")
     rows.append({"name": "flash_attention.wide", "route": "cuda",
-                 "source": SOURCES["attention_wide"][0],
+                 "source": SOURCES["attention_wide_tc"][0],
                  "replaces": SOURCES["flash_attention"][1], "launches": 0,
                  "max_abs_err": errs[torch.bfloat16], "ms": ms,
-                 "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                 "library_ms": lib})
+                 "device_ms": dev_ms, "plain_ms": plain, "bound_ms": b,
+                 "bound_by": by, "library_ms": lib})
 
     # K6: B 4, a latent cache of 1,024 slots, 16 query heads of 640 on one
     # KV head, v its first 576 columns; and its partials mode on a slice
@@ -5382,11 +5515,14 @@ def main() -> int:
         f"(host-side string encoding time)")
     parts, rows, pred, total_gb, samples, forest = make_inputs()
     recorded = {}
+    renders = shared_renderings()
     table, cfgs, cuda_runs, launches = phase_main(
         torch, parts, rows, pred, total_gb, recorded)
     phase_cpu(torch, parts, rows, table, cfgs, cuda_runs)
-    phase_reopt(torch, rows, pred, samples, table, cfgs, cuda_runs, smi_line)
-    usage = phase_stream(torch, parts, rows, forest, smi_line)
+    usage_scale = phase_reopt(torch, rows, pred, samples, table, cfgs,
+                              cuda_runs, smi_line)
+    usage = phase_stream(torch, parts, rows, forest, smi_line, renders)
+    usage["scale_solve"] = usage_scale  # T 1 x N 16,000 in phase reopt
     phase_daemon(torch, smi_line)
     served = {}
     serve_launches = phase_serve(torch, served)

@@ -38,7 +38,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("overlap", "entropy_features", "flash_attention",
            "decode_attention", "decode_attention_partials", "attention_wide",
-           "ssd_scan", "quant_pack", "byte_entropy", "usage_sum")
+           "attention_wide_tc", "ssd_scan", "quant_pack", "byte_entropy",
+           "usage_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,15 +1,22 @@
-"""The wide route of K5 and K6: ``csrc/attention_wide.cu``.
+"""The wide route of K5 and K6: ``csrc/attention_wide_tc.cu`` and
+``csrc/attention_wide.cu``.
 
 The Pallas kernels take heads of any width; the port's prefill kernel
 (``csrc/flash_attention.cu``) takes D and Dv up to 256 and its decode
 kernel (``csrc/decode_attention.cu``) D up to 576 and Dv up to 512, within
 its shared memory. :func:`flash_attention_kernel` and
 :func:`decode_attention_kernel` (and its partials mode) send a call here
-only above those limits: a route chosen by shape between two hand-written
-kernels. This kernel is the simplest correct one (one block per query row
-and head, the online softmax in float32 over the visible keys, looping
-over D for the scores and over Dv for the output); no config's path
-reaches it.
+only above those limits: a route chosen by shape between hand-written
+kernels; no config's path reaches it.
+
+* K5 in bfloat16 launches ``attention_wide_tc.cu``: flash attention on the
+  tensor cores with D cut into chunks and Dv into slices of at most 128
+  columns, so it takes any width;
+* K5 in float32, K6 and K6's partials mode launch ``attention_wide.cu``'s
+  ``wide_kernel``, the simplest correct kernel (one block per query row
+  and head, the online softmax in float32 over the visible keys, looping
+  over D for the scores and over Dv for the output); for K5 it is the
+  float32 check route.
 
 The wrappers here take operands their callers have checked
 (``flash_attention.check_operands`` and ``decode_attention._check``).
@@ -43,6 +50,23 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _tc_lib() -> ctypes.CDLL:
+    lib = _build.load("attention_wide_tc")
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, o; B, Sq, Sk, Hq, Hkv, D, Dv, causal, window; softcap,
+        # scale; stream
+        lib.attention_wide_tc_launch.argtypes = [p] * 4 + [i] * 9 \
+            + [f, f, p]
+        lib.attention_wide_tc_launch.restype = ctypes.c_int
+        lib.attention_wide_tc_smem_bytes.argtypes = []
+        lib.attention_wide_tc_smem_bytes.restype = ctypes.c_longlong
+        lib.attention_wide_tc_error_string.argtypes = [ctypes.c_int]
+        lib.attention_wide_tc_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -64,14 +88,32 @@ def _launch(q, k, v, o, *, kv_len=None, glen=None, offset=0, acc=None,
                            f"{lib.attention_wide_error_string(rc).decode()}")
 
 
+def _launch_tc(q, k, v, o, *, causal, window, softcap):
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    lib = _tc_lib()
+    rc = lib.attention_wide_tc_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Sk,
+        Hq, Hkv, D, Dv, int(causal), int(window or 0), float(softcap or 0.0),
+        1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wide attention kernel launch failed: "
+                           f"{lib.attention_wide_tc_error_string(rc).decode()}")
+
+
 def prefill(q, k, v, *, causal, window, softcap) -> torch.Tensor:
-    """K5's function: (B, Sq, Hq, Dv) in q's dtype."""
+    """K5's function: (B, Sq, Hq, Dv) in q's dtype; bfloat16 on the tensor
+    cores (``attention_wide_tc.cu``), float32 on the CUDA cores."""
     B, Sq, Hq, _ = q.shape
     out = torch.empty((B, Sq, Hq, v.shape[-1]), dtype=q.dtype,
                       device=q.device)
     if out.numel():
-        _launch(q, k, v, out, Sq=Sq, causal=causal, window=window,
-                softcap=softcap)
+        if q.dtype == torch.bfloat16:
+            _launch_tc(q, k, v, out, causal=causal, window=window,
+                       softcap=softcap)
+        else:
+            _launch(q, k, v, out, Sq=Sq, causal=causal, window=window,
+                    softcap=softcap)
         _build.launch_counts["flash_attention"] += 1
         _build.route_counts["flash_attention.wide"] += 1
     return out
@@ -103,6 +145,12 @@ def partials(q, k, v, local_len, acc, m, l, *, offset, global_len, window,
 
 
 def smem_bytes(D: int, Dv: int) -> int:
-    """Shared memory one block takes at head widths D and Dv (CUDA build
-    needed)."""
+    """Shared memory one block of ``wide_kernel`` takes at head widths D and
+    Dv (CUDA build needed)."""
     return int(_lib().attention_wide_smem_bytes(D, Dv))
+
+
+def tc_smem_bytes() -> int:
+    """Shared memory one block of K5's bfloat16 wide route takes, the same
+    at every width (CUDA build needed)."""
+    return int(_tc_lib().attention_wide_tc_smem_bytes())

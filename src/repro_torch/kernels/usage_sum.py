@@ -11,8 +11,10 @@ package's scatter-add on the CPU (``repro/core/optassign.py``,
 reference's multipliers.
 
 * :func:`usage_sum_kernel` launches ``csrc/usage_sum.cu`` on CUDA tensors
-  (it raises for anything else): one thread per (tenant, tier) walks the
-  tenant's rows in order, staged through shared memory;
+  (it raises for anything else): each tile of a tenant's rows is compacted
+  by tier in shared memory, stably, and one thread per (tenant, tier)
+  walks only its tier's list, in order (a block a tenant above
+  :data:`WARP_MAX_N` rows or 32 tiers, else a warp a tenant);
 * :func:`usage_sum_plain` is ``np.add.at`` in float32 on the host, which
   adds in index order; the kernel gives the same bits.
 """
@@ -26,7 +28,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_TIERS = 128             # kThreads in csrc/usage_sum.cu
+MAX_TIERS = 128             # kMaxTiers in csrc/usage_sum.cu
+WARP_MAX_N = 1024           # kWarpMaxN: the most rows of the warp route
 
 
 def usage_sum_plain(idx: torch.Tensor, chosen: torch.Tensor, K: int,

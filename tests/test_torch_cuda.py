@@ -620,6 +620,58 @@ def test_usage_sum_kernel_is_the_cpus_float32_row_order_bit_for_bit(
     assert (want.numpy() != exact.astype(np.float32)).any() or N < 100
 
 
+def _usage_case(case):
+    """(idx, chosen, K, L) of a named usage-sum case, from numpy."""
+    T, N, L, K, tiers = {
+        "L 1": (3, 5_000, 1, 3, None),
+        "L 128": (2, 3_000, 128, 2, None),
+        "a tier with no rows": (5, 600, 6, 3, [0, 1, 3, 4, 5]),
+        "every row in one tier": (2, 9_000, 4, 3, [3]),
+        "N 1": (7, 1, 4, 3, None),
+        "N 4,097": (3, 4_097, 12, 3, None),
+        "T 0": (0, 50, 4, 3, None),
+        "T 2,048 x N 30": (2_048, 30, 4, 3, None),
+        "the warp route's widest": (9, 1_024, 32, 2, None),
+        "past it: N 1,025": (4, 1_025, 32, 2, None),
+        "past it: 33 tiers": (4, 300, 33, 2, None),
+    }[case]
+    rng = np.random.default_rng(len(case))
+    tier = rng.choice(np.arange(L) if tiers is None else np.array(tiers),
+                      (T, N))
+    idx = tier * K + rng.integers(0, K, (T, N))
+    chosen = np.exp(rng.uniform(-8, 8, (T, N))).astype(np.float32)
+    return idx, chosen, K, L
+
+
+@pytest.mark.parametrize("case", [
+    "L 1", "L 128", "a tier with no rows", "every row in one tier", "N 1",
+    "N 4,097", "T 0", "T 2,048 x N 30", "the warp route's widest",
+    "past it: N 1,025", "past it: 33 tiers"])
+def test_usage_sum_kernel_edges_are_np_add_at_in_float32(card, case):
+    """The usage-sum kernel at the edges of its routes and tiles: the
+    float32 sums of ``np.add.at`` in row order, bit for bit, the same bits
+    on a second call, one launch a call (none for no tenant), exactly 0 for
+    a tier without rows."""
+    idx_np, chosen_np, K, L = _usage_case(case)
+    T, N = idx_np.shape
+    idx = torch.as_tensor(idx_np, device=card)
+    chosen = torch.as_tensor(chosen_np, device=card)
+    ops.reset_launch_counts()
+    got = ops.usage_sum(idx, chosen, K, L)
+    again = ops.usage_sum(idx, chosen, K, L)
+    torch.cuda.synchronize()
+    assert ops.launch_counts["usage_sum"] == (2 if T else 0)
+    want = np.zeros((T, L), np.float32)
+    np.add.at(want, (np.repeat(np.arange(T), N), (idx_np // K).ravel()),
+              chosen_np.ravel())
+    assert got.shape == (T, L) and got.dtype == torch.float32
+    assert np.array_equal(got.cpu().numpy().view(np.int32),
+                          want.view(np.int32))
+    assert torch.equal(got, again)
+    empty = np.bincount((idx_np // K).ravel(), minlength=L)[:L] == 0
+    assert not got.cpu().numpy()[:, empty].any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,Hq,Hkv,D,lens", [
     (4, 161, 40, 8, 128, [160, 1, 0, 77]),     # llama4-scout: rep 5
@@ -729,11 +781,25 @@ def test_ssd_kernel_matches_plain(card, b, s, h, p, g, n, chunk, skip, dtype):
     (1, 40, 40, 4, 2, 320, 288, True, None, None),     # D, Dv above 256
     (2, 33, 70, 4, 4, 272, 256, True, 20, 30.0),       # window, softcap
     (1, 24, 24, 2, 1, 128, 300, False, None, None),    # only Dv wide
+    (1, 100, 100, 4, 2, 320, 288, True, None, None),   # Sq not 64's multiple
+    (2, 70, 200, 4, 2, 320, 288, True, None, None),    # Sq < Sk
+    (1, 200, 200, 2, 2, 320, 320, True, 70, None),     # window across tiles
+    (1, 130, 130, 4, 4, 288, 288, True, None, 30.0),   # softcap
+    (2, 128, 128, 8, 2, 320, 320, True, None, None),   # GQA 4:1
+    (1, 96, 96, 4, 1, 320, 256, True, None, None),     # MQA
+    (1, 80, 80, 4, 2, 128, 300, True, None, None),     # Dv 300 with D 128
+    (1, 70, 70, 2, 1, 640, 512, True, None, None),     # D 640, Dv 512
+    (1, 100, 150, 4, 2, 320, 288, False, None, None),  # non-causal
+    (1, 100, 612, 4, 1, 640, 300, True, 70, 30.0),     # every tile edge
+    (1, 65, 90, 2, 1, 330, 290, True, 40, None),       # D, Dv not 8's
 ])
 def test_wide_flash_route_matches_plain(card, B, Sq, Sk, Hq, Hkv, D, Dv,
                                         causal, window, softcap, dtype):
-    """K5 above D or Dv 256 takes the wide route (attention_wide.cu),
-    within K5's tolerance of the plain version."""
+    """K5 above D or Dv 256 takes the wide route (bfloat16:
+    attention_wide_tc.cu, D in chunks and Dv in slices on mma.sync;
+    float32: attention_wide.cu), within K5's tolerance of the plain
+    version, one launch counted on ``flash_attention.wide``, the same bits
+    twice."""
     q, k, v = _randn(31, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv),
                      dtype=dtype, device=card)
     kw = dict(causal=causal, window=window, softcap=softcap)
@@ -743,8 +809,32 @@ def test_wide_flash_route_matches_plain(card, B, Sq, Sk, Hq, Hkv, D, Dv,
     assert dict(ops.launch_counts) == {"flash_attention": 1}
     assert dict(ops.route_counts) == {"flash_attention.wide": 1}
     assert out.dtype == dtype and out.shape == (B, Sq, Hq, Dv)
+    assert torch.equal(out, ops.flash_attention(q, k, v, **kw))
     _assert_close(out, tfa.flash_attention_plain(q, k, v, **kw),
                   ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("skew", ["q", "k", "v"])
+def test_wide_flash_bf16_route_takes_a_misaligned_base_pointer(card, skew):
+    """An operand whose base lies 2 bytes off the 16-byte grid (a
+    contiguous view one element into a buffer) stages through plain loads,
+    within K5's tolerance of the plain version."""
+    B, S, Hq, Hkv, D, Dv = 1, 90, 4, 2, 320, 288
+    shapes = {"q": (B, S, Hq, D), "k": (B, S, Hkv, D), "v": (B, S, Hkv, Dv)}
+    ts = dict(zip(shapes, _randn(36, *shapes.values(), dtype=torch.bfloat16,
+                                 device=card)))
+    flat = ts[skew].reshape(-1)
+    buf = torch.empty(flat.numel() + 1, dtype=torch.bfloat16, device=card)
+    buf[1:] = flat
+    ts[skew] = buf[1:].view(shapes[skew])
+    assert ts[skew].data_ptr() % 16 and ts[skew].is_contiguous()
+    ops.reset_launch_counts()
+    out = ops.flash_attention(ts["q"], ts["k"], ts["v"], window=50)
+    torch.cuda.synchronize()
+    assert dict(ops.route_counts) == {"flash_attention.wide": 1}
+    _assert_close(out, tfa.flash_attention_plain(ts["q"], ts["k"], ts["v"],
+                                                 window=50),
+                  ATTN_TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

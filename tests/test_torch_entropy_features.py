@@ -1,8 +1,9 @@
 """PyTorch port of the batched weighted-entropy features, held against
 ``repro``: the plain torch version against the Pallas kernel (interpret
 mode) to 1e-5 at 1 and 5 buckets, with ragged rows, an empty dtype class
-and a constant payload, and ``extract_features_batch`` parity. The CUDA
-kernel is held against the plain version in ``test_torch_cuda.py``."""
+and a constant payload, ``extract_features_batch`` parity, and both
+serialisation layouts byte for byte. The CUDA kernel is held against the
+plain version in ``test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -117,6 +118,27 @@ def test_encode_dtype_classes_is_a_faithful_copy():
         for f in ("codes", "n_valid", "n_rows", "n_cols", "lengths", "vocab"):
             np.testing.assert_array_equal(getattr(te[d], f),
                                           getattr(je[d], f))
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32, np.int64,
+                                   np.uint8, np.uint32, np.uint64,
+                                   np.float32, np.float64])
+def test_serialized_bytes_are_repros(dtype):
+    """Both layouts of a table (``Table._col_str`` for every column) give
+    ``repro``'s bytes, integers at their type's extremes included, and
+    the TPC-H lineitem table's too."""
+    info = (np.iinfo if np.dtype(dtype).kind in "iu" else np.finfo)(dtype)
+    rng = np.random.default_rng(5)
+    vals = np.concatenate([
+        np.array([info.min, info.max, 0, 1], dtype),
+        rng.integers(-100 if info.min < 0 else 0, 100, 60).astype(dtype)])
+    cols = {"v": vals, "s": rng.choice(STRS, vals.size)}
+    db = jtpch.generate(scale_rows=2_000, seed=0)
+    line = db.tables["lineitem"]
+    for jt, tt in ((jtables.Table("t", cols), ttables.Table("t", cols)),
+                   (line, ttables.Table(line.name, dict(line.columns)))):
+        for layout in ("row", "col"):
+            assert tt.serialize(layout) == jt.serialize(layout)
 
 
 @pytest.mark.parametrize("kind", ["weighted_entropy", "bucketed"])

@@ -50,6 +50,34 @@ def test_flash_at_d_320_dv_288_matches_pallas(Sq, Sk, Hq, Hkv, causal, window,
     _close(got, want)
 
 
+@pytest.mark.parametrize("Sq,Sk,Hq,Hkv,D,Dv,causal,window,softcap", [
+    (37, 37, 4, 2, 320, 288, True, None, None),    # Sq not a block's multiple
+    (24, 70, 4, 2, 320, 288, True, None, None),    # Sq < Sk
+    (70, 70, 2, 2, 320, 320, True, 20, None),      # window across blocks
+    (40, 40, 4, 4, 288, 288, True, None, 30.0),    # softcap
+    (32, 32, 8, 2, 320, 320, True, None, None),    # GQA 4:1
+    (32, 32, 4, 1, 320, 256, True, None, None),    # MQA
+    (24, 24, 4, 2, 128, 300, True, None, None),    # Dv 300 with D 128
+    (20, 20, 2, 1, 640, 512, True, None, None),    # D 640, Dv 512
+    (40, 100, 4, 1, 640, 300, True, 30, 30.0),     # every edge at once
+    (33, 50, 2, 1, 330, 290, True, 25, None),      # D, Dv not 8's multiples
+])
+def test_flash_wide_shapes_match_pallas(Sq, Sk, Hq, Hkv, D, Dv, causal,
+                                        window, softcap):
+    """The shapes that K5's bfloat16 wide route is held to on the card
+    (``test_torch_cuda.py``), at small size: the plain version against the
+    Pallas kernel in interpret mode."""
+    q, k, v = _randn(5, (1, Sq, Hq, D), (1, Sk, Hkv, D), (1, Sk, Hkv, Dv))
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal, window=window, softcap=softcap, block_q=16,
+                   block_k=32, interpret=True)
+    got = ops.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                              torch.as_tensor(v), causal=causal,
+                              window=window, softcap=softcap)
+    assert got.shape == (1, Sq, Hq, Dv)
+    _close(got, want)
+
+
 @pytest.mark.parametrize("Hq,Hkv,latent,window,softcap", [
     (8, 2, False, None, None),
     (4, 4, False, 20, 25.0),

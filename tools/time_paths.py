@@ -43,7 +43,7 @@ its uncapped footprint. Its arguments are caught from that tree's
 finish, and kept in ``--scan-inputs`` (``build/time_paths_scan.npz``).
 It gets its wall time per call (host clock to ``torch.cuda.synchronize()``,
 5 calls after one warm-up) and its device time from torch.profiler (one
-call). ``--scan-only`` times the dual ascent alone (no build, prefill, steps or
+call), in all and for its usage-sum kernel (one launch a step). ``--scan-only`` times the dual ascent alone (no build, prefill, steps or
 kernels), and ``--k6-only`` K6 alone (building only its library).
 
 Prints, as its last line, one JSON object: the tree, the card's name and
@@ -158,7 +158,9 @@ def scan_inputs(path: Path) -> dict:
 
 
 def scan_times(torch, a: dict) -> dict:
-    """The dual ascent's wall ms per call and device ms (torch.profiler)."""
+    """The dual ascent's wall ms per call and device ms (torch.profiler),
+    and the device ms of its usage-sum kernel launches, in all and per
+    launch (one a step)."""
     sys.path.insert(0, str(ROOT))
     from chip_smoke import device_ms
     from repro_torch.core import optassign
@@ -174,8 +176,13 @@ def scan_times(torch, a: dict) -> dict:
         torch.cuda.synchronize()
         if i:                                   # the first warms up
             wall.append(1e3 * (time.perf_counter() - t0))
-    return {"N": int(a["masked"].shape[0]), "iters": int(a["iters"]),
-            "wall_ms": wall, "device_ms": device_ms(fn, torch, iters=1)[0]}
+    dev_ms, by = device_ms(fn, torch, iters=1)
+    usage = {k.replace("(anonymous namespace)::", "").split("(")[0]: v
+             for k, v in by.items() if "usage" in k}
+    iters = int(a["iters"])
+    return {"N": int(a["masked"].shape[0]), "iters": iters, "wall_ms": wall,
+            "device_ms": dev_ms, "usage_sum_device_ms": usage,
+            "usage_sum_device_ms_per_launch": sum(usage.values()) / iters}
 
 
 def kernel_times(torch, fn) -> dict:
