@@ -341,13 +341,19 @@ non-zero (with no result line):
             cores, float32 through ``attention_wide.cu``; in bfloat16 also
             at Sq 100 of Sk 612, window 70, softcap 30, one KV head, D 640,
             Dv 300, which crosses every tile edge) and K6 at D 640 / Dv 576
-            with v inside k (and its partials mode) through
-            ``attention_wide.cu``, K7 in bfloat16 at n 320 through its
-            CUDA-core kernel, each in float32 and bfloat16 against its
-            plain version (K5/K6: 2e-5 and 2e-2; K7 1e-4 and 2e-2), timed
-            in bfloat16 beside the plain version and, for K5 and K6,
-            ``scaled_dot_product_attention``; K5's also beside
-            ``attention_wide.cu`` in bfloat16 and with its device time.
+            with v inside k (and its partials mode; bfloat16 through
+            ``decode_attention_wide_tc.cu``'s tensor cores, float32
+            through ``attention_wide.cu``), K7 at n 320 at chunk 64 and
+            128 (bfloat16 on the tensor-core route in slabs of n, float32
+            on the CUDA-core route), each in float32 and bfloat16 against
+            its plain version (K5/K6: 2e-5 and 2e-2; K7 1e-4 and 2e-2),
+            timed in bfloat16 beside the plain version, with its device
+            time, registers, spills and shared memory a block and, for K5
+            and K6, ``scaled_dot_product_attention`` and
+            ``attention_wide.cu`` in bfloat16. Then shapes past the kernels'
+            former limits: K2 over 70,000 partitions (two launches) and
+            at 24 buckets against its float64 plain version, and
+            ``usage_sum`` at 200 tiers bit for bit against ``np.add.at``.
 
 The script takes no arguments: the sizes are fixed. The last three lines
 are the kernel JSON line (K1-K7, ``usage_sum`` with its T 1 x N 16,000
@@ -393,6 +399,9 @@ SOURCES = {"overlap": ("src/repro_torch/kernels/csrc/overlap.cu",
                               "src/repro/kernels/flash_attention.py:103"),
            "attention_wide_tc": ("src/repro_torch/kernels/csrc/attention_wide_tc.cu",
                                  "src/repro/kernels/flash_attention.py:103"),
+           "decode_attention_wide_tc": (
+               "src/repro_torch/kernels/csrc/decode_attention_wide_tc.cu",
+               "src/repro/kernels/decode_attention.py:84"),
            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:97"),
            "quant_pack": ("src/repro_torch/kernels/csrc/quant_pack.cu",
@@ -427,29 +436,62 @@ def cuda_ms(fn, torch, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, torch, iters: int = 20):
+#: cycles of the sleep kernel that holds the card while the host enqueues
+#: the calls :func:`fenced_ms` times (about 50 ms at the H100's clock)
+FENCE_CYCLES = 100_000_000
+#: the key of :func:`device_ms`'s breakdown when it fell back to
+#: :func:`fenced_ms`
+FENCED = "(CUDA events behind a queued sleep)"
+
+
+def fenced_ms(fn, torch, iters: int = 20) -> float:
+    """Milliseconds per call of ``fn`` between CUDA events around ``iters``
+    calls queued behind a sleep kernel: the host enqueues every call while
+    the card sleeps, so no host time lies between them (for an ``fn`` that
+    does not wait for the card)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(FENCE_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, torch, iters: int = 20, tries: int = 3):
     """(milliseconds of device time per call of ``fn``, {device operation:
     ms per call}) from torch.profiler over ``iters`` calls after one
-    warm-up: the kernels alone, without the host's time between them;
-    (None, {}) when the trace holds no device time. Each operation's time
-    is its mean over the records the trace holds, times the records per
-    call (at least one): a long run can lose records, and that mean does
-    not move with them."""
+    warm-up: the kernels alone, without the host's time between them. Each
+    operation's time is its mean over the records the trace holds, times
+    the records per call (at least one): a long run can lose records, and
+    that mean does not move with them. A trace can also come back with no
+    device record at all (seen late in a long run); then a fresh profiler
+    tries again, up to ``tries`` in all, and if none holds a device record
+    the time is :func:`fenced_ms`'s, under the key :data:`FENCED`."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total, count = {}, {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            total[e.name] = total.get(e.name, 0.0) + e.device_time_total / 1e3
-            count[e.name] = count.get(e.name, 0) + 1
-    by = {k: total[k] / count[k] * max(1, round(count[k] / iters))
-          for k in total}
-    return (sum(by.values()) if by else None), by
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = {}, {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                total[e.name] = (total.get(e.name, 0.0)
+                                 + e.device_time_total / 1e3)
+                count[e.name] = count.get(e.name, 0) + 1
+        if total:
+            by = {k: total[k] / count[k] * max(1, round(count[k] / iters))
+                  for k in total}
+            return sum(by.values()), by
+    ms = fenced_ms(fn, torch, iters)
+    return ms, {FENCED: ms}
 
 
 #: the host's CUDA runtime calls that put an operation on the card
@@ -605,22 +647,38 @@ def phase_device(torch):
     return device, smi_line
 
 
+def ptxas_report(build, name):
+    """[(kernel, registers, spill line)] of source ``name`` from nvcc's
+    ``-Xptxas -v`` output in this process's build."""
+    out, fn, spill = [], None, ""
+    for line in build.build_log.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spill = m.group(1), ""
+        if "spill" in line:
+            spill = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), spill))
+            fn = None
+    return out
+
+
+def _ptxas_line(build, name, *parts) -> str:
+    """The registers and spills of the kernels of ``name`` whose mangled
+    names hold every one of ``parts``."""
+    rows = [f"{r} registers ({sp})" for fn, r, sp in ptxas_report(build, name)
+            if all(p in fn for p in parts)]
+    return "; ".join(rows) if rows else "not in this build's log"
+
+
 def phase_build(build):
     t0 = time.perf_counter()
     secs = build.build()
     for name in build.SOURCES:
         # one line per kernel: its registers and spills (-Xptxas -v)
-        fn, spill = None, ""
-        for line in build.build_log.get(name, "").splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn, spill = m.group(1), ""
-            if "spill" in line:
-                spill = line.strip()
-            m = re.search(r"Used (\d+) registers", line)
-            if m and fn:
-                say("build", f"{name}: {fn}: {m.group(1)} registers; {spill}")
-                fn = None
+        for fn, regs, spill in ptxas_report(build, name):
+            say("build", f"{name}: {fn}: {regs} registers; {spill}")
         say("build", f"{name}: nvcc {secs[name]:.1f} s")
     say("build", f"{len(build.SOURCES)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s (parallel nvcc)")
@@ -4702,12 +4760,16 @@ def phase_model_kernels(torch, recorded, launches):
 
 def phase_wide_kernels(torch):
     """The wide routes (on no config's path, so 0 launches on the main
-    path): K5 above D/Dv 256 and K6 above D 576 / Dv 512 in
-    ``csrc/attention_wide.cu``, K7 in bfloat16 above n 256 in
-    ``csrc/ssd_scan.cu``'s CUDA-core kernel. Each against its plain
-    version in bf16 and in float32, timed in bf16 beside the plain version
-    and, for K5 and K6, scaled_dot_product_attention."""
+    path): K5 above D/Dv 256 (bf16 ``csrc/attention_wide_tc.cu``) and K6
+    above D 576 / Dv 512 (bf16 ``csrc/decode_attention_wide_tc.cu``), both
+    float32 on ``csrc/attention_wide.cu``; K7 above n 256 (bf16 on the
+    tensor-core route in slabs of n, float32 on the CUDA-core route). Each
+    against its plain version in bf16 and in float32, timed in bf16 beside
+    the plain version and, for K5 and K6, scaled_dot_product_attention.
+    Then shapes past K2's and ``usage_sum``'s former limits: K2 over
+    65,535 partitions and at 24 buckets, ``usage_sum`` at 200 tiers."""
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels import attention_wide as aw
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -4791,7 +4853,8 @@ def phase_wide_kernels(torch):
                  "bound_by": by, "library_ms": lib})
 
     # K6: B 4, a latent cache of 1,024 slots, 16 query heads of 640 on one
-    # KV head, v its first 576 columns; and its partials mode on a slice
+    # KV head, v its first 576 columns; and its partials mode on a slice.
+    # bfloat16 takes decode_attention_wide_tc.cu, float32 attention_wide.cu
     B, S, Hq, D, Dv = 4, 1024, 16, 640, 576
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -4815,11 +4878,26 @@ def phase_wide_kernels(torch):
         acc_p, m_p, l_p = da.decode_attention_partials_plain(
             q, ks, ks[..., :Dv], local, offset=n, global_len=lens, window=300)
         seen = l_p > 0
-        check(torch.equal(seen, l > 0) and not acc[~seen].any(),
+        check(torch.equal(seen, l > 0) and not acc[~seen].any()
+              and torch.equal(m[~seen], m_p[~seen]),
               "K6 wide partials: rows without a visible key differ")
         _allclose(torch, acc[seen] / l[seen][:, None],
                   acc_p[seen] / l_p[seen][:, None], tol[dt])
+        _allclose(torch, m[seen], m_p[seen], 1e-5)
     ms = cuda_ms(lambda: da.decode_attention_kernel(q, k, v, lens), torch)
+    dev_ms, by_op = device_ms(lambda: da.decode_attention_kernel(q, k, v,
+                                                                 lens), torch)
+    fenced = fenced_ms(lambda: da.decode_attention_kernel(q, k, v, lens),
+                       torch)
+    enq = host_ms(lambda: da.decode_attention_kernel(q, k, v, lens), torch,
+                  iters=50)
+
+    def cuda_core():                 # the bf16 call on attention_wide.cu
+        o = torch.empty_like(out)
+        aw._launch(q, k, v, o, kv_len=lens, Sq=1)
+        return o
+    _allclose(torch, cuda_core(), out, tol[q.dtype])
+    before = cuda_ms(cuda_core, torch)
     plain = cuda_ms(lambda: da.decode_attention_plain(q, k, v, lens), torch,
                     iters=5)
     mask = (torch.arange(S, device=dev)[None, :]
@@ -4835,70 +4913,200 @@ def phase_wide_kernels(torch):
             "lengths": 4 * B, "o": out.numel() * el}
     n_ops = float(visible * Hq * (2 * D + 2 * Dv))
     b, by = bound_ms(float(sum(need.values())), n_ops, _rate(torch, q.dtype))
-    say("kernels", f"K6 wide route (attention_wide.cu) at q {tuple(q.shape)}, "
-        f"a latent cache {tuple(k.shape)} with v its first {Dv} columns, "
-        f"kv_len {lens.tolist()}: max abs err {errs[torch.float32]:.3e} "
-        f"(float32), {errs[torch.bfloat16]:.3e} (bf16), its partials mode on "
-        f"the second half with a window within tolerance in both; bf16 kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, scaled_dot_product_attention "
-        f"with a kv_len mask {lib:.4f} ms; bound {b:.5f} ms ({by}; "
-        f"{_counts(need)} bytes, {n_ops:.0f} ops), {100 * b / ms:.2f}% of "
-        f"the bound reached; on no config's path")
+    split = aw.decode_wide_split(B, S, Hq, 1, Dv,
+                                _build.sm_count(dev.index))
+    dev_txt = "not measured" if dev_ms is None else \
+        f"{dev_ms:.4f} ms ({_short(by_op)})"
+    say("kernels", f"K6 wide route at q {tuple(q.shape)}, a latent cache "
+        f"{tuple(k.shape)} with v its first {Dv} columns, kv_len "
+        f"{lens.tolist()}: max abs err {errs[torch.float32]:.3e} (float32, "
+        f"attention_wide.cu), {errs[torch.bfloat16]:.3e} (bf16, "
+        f"decode_attention_wide_tc.cu: {aw.decode_tc_smem_bytes():,} bytes "
+        f"of shared memory a block, {_ptxas_line(_build, 'decode_attention_wide_tc', 'decode_tc_kernel')}; "
+        f"splits of {split} keys, {-(-S // split)} splits x "
+        f"{aw.v_slices(Dv)} Dv slices a sequence, plus the merge launch), "
+        f"its partials mode on the second half with a window within "
+        f"tolerance in both; bf16 kernel {ms:.4f} ms (device {dev_txt}; "
+        f"{fenced:.4f} ms between events behind a queued sleep; "
+        f"host {enq:.4f} ms to enqueue), "
+        f"attention_wide.cu in bf16 {before:.4f} ms, plain {plain:.4f} ms, "
+        f"scaled_dot_product_attention with a kv_len mask {lib:.4f} ms "
+        f"({ms / lib:.3f} of it); bound {b:.5f} ms ({by}; {_counts(need)} "
+        f"bytes, {n_ops:.0f} ops), {100 * b / ms:.2f}% of the bound "
+        f"reached; on no config's path")
     rows.append({"name": "decode_attention.wide", "route": "cuda",
-                 "source": SOURCES["attention_wide"][0],
+                 "source": SOURCES["decode_attention_wide_tc"][0],
                  "replaces": SOURCES["decode_attention"][1], "launches": 0,
                  "max_abs_err": errs[torch.bfloat16], "ms": ms,
+                 "device_ms": dev_ms, "fenced_ms": fenced,
+                 "cuda_core_ms": before,
                  "plain_ms": plain, "bound_ms": b, "bound_by": by,
                  "library_ms": lib})
 
-    # K7: b 2, s 512, 8 heads of 64, state n 320, chunk 64
-    b_, s, h, p, n, chunk = 2, 512, 8, 64, 320, 64
-    errs = {}
-    for dt, route in ((torch.float32, "ssd_scan.f32"),
-                      (torch.bfloat16, "ssd_scan.wide")):
-        x = rnd(b_, s, h, p, dtype=dt)
-        Bm, Cm = rnd(b_, s, 1, n, dtype=dt, scale=0.3), \
-            rnd(b_, s, 1, n, dtype=dt, scale=0.3)
-        dtv = F.softplus(rnd(b_, s, h)) * 0.5
-        A = -torch.exp(rnd(h, scale=0.3))
-        Dk = torch.ones(h, device=dev)
-        y_k, st_k = one_route(route, lambda: ssd.ssd_scan_kernel(
-            x, dtv, A, Bm, Cm, Dk, chunk=chunk))
-        y_p, st_p = ssd.ssd_scan_plain(x, dtv, A, Bm, Cm, Dk, chunk=chunk)
-        errs[dt] = (_allclose(torch, y_k, y_p, 1e-4 if dt == torch.float32
-                              else 2e-2), _allclose(torch, st_k, st_p, 1e-4))
-    ms = cuda_ms(lambda: ssd.ssd_scan_kernel(x, dtv, A, Bm, Cm, Dk,
-                                             chunk=chunk), torch)
-    plain = cuda_ms(lambda: ssd.ssd_scan_plain(x, dtv, A, Bm, Cm, Dk,
-                                               chunk=chunk), torch, iters=5)
-    el = x.element_size()
-    need = {"x": x.numel() * el, "dt": dtv.numel() * 4, "A, D": 8 * h,
-            "B, C": 2 * Bm.numel() * el, "y": y_k.numel() * el,
-            "state": st_k.numel() * 4}
-    n_ops = 0.0
-    for c0 in range(0, s, chunk):
-        L = min(chunk, s - c0)
-        tri = L * (L + 1) // 2
-        n_ops += tri * 2 * n + tri * 2 * p + L * p * 2 * n + L * p * n * 2
-    n_ops *= b_ * h
-    b, by = bound_ms(float(sum(need.values())), n_ops, _rate(torch, x.dtype))
-    say("kernels", f"K7 wide route (bf16 at n {n}: the CUDA-core kernel "
-        f"reading bf16) at x {tuple(x.shape)} B/C {tuple(Bm.shape)} chunk "
-        f"{chunk}: max abs err y, state {errs[torch.bfloat16][0]:.3e}, "
-        f"{errs[torch.bfloat16][1]:.3e} (float32 route at the same shape: "
-        f"{errs[torch.float32][0]:.3e}, {errs[torch.float32][1]:.3e}); "
-        f"shared memory {ssd.ssd_scan_smem_bytes(chunk, p, n, x.dtype):,} "
-        f"bytes a block; kernel {ms:.4f} ms, plain {plain:.4f} ms, no single "
-        f"PyTorch call computes it; bound {b:.5f} ms ({by}; {_counts(need)} "
-        f"bytes, {n_ops:.0f} ops), {100 * b / ms:.2f}% of the bound "
-        f"reached; on no config's path")
-    rows.append({"name": "ssd_scan.wide", "route": "cuda",
-                 "source": SOURCES["ssd_scan"][0],
-                 "replaces": SOURCES["ssd_scan"][1], "launches": 0,
-                 "max_abs_err": errs[torch.bfloat16][0], "ms": ms,
-                 "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                 "library_ms": None})
+    # K7: b 2, s 512, 8 heads of 64, state n 320 (three 128-column slabs),
+    # chunk 64, and at chunk 128 (where the float32 CUDA-core kernel's
+    # shared memory once ran out)
+    b_, s, h, p, n = 2, 512, 8, 64, 320
+    errs, routes = {}, {}
+    for chunk in (128, 64):
+        for dt in (torch.float32, torch.bfloat16):
+            route = f"ssd_scan.{_build.ROUTES[dt]}"
+            x = rnd(b_, s, h, p, dtype=dt)
+            Bm, Cm = rnd(b_, s, 1, n, dtype=dt, scale=0.3), \
+                rnd(b_, s, 1, n, dtype=dt, scale=0.3)
+            dtv = F.softplus(rnd(b_, s, h)) * 0.5
+            A = -torch.exp(rnd(h, scale=0.3))
+            Dk = torch.ones(h, device=dev)
+            y_k, st_k = one_route(route, lambda: ssd.ssd_scan_kernel(
+                x, dtv, A, Bm, Cm, Dk, chunk=chunk))
+            routes[(chunk, dt)] = route
+            y_p, st_p = ssd.ssd_scan_plain(x, dtv, A, Bm, Cm, Dk, chunk=chunk)
+            errs[(chunk, dt)] = (
+                _allclose(torch, y_k, y_p, 1e-4 if dt == torch.float32
+                          else 2e-2), _allclose(torch, st_k, st_p, 1e-4))
+        kern = lambda: ssd.ssd_scan_kernel(x, dtv, A, Bm, Cm, Dk, chunk=chunk)
+        ms = cuda_ms(kern, torch)
+        dev_ms, by_op = device_ms(kern, torch)
+        fenced = fenced_ms(kern, torch)
+        enq = host_ms(kern, torch, iters=50)
+        plain = cuda_ms(lambda: ssd.ssd_scan_plain(x, dtv, A, Bm, Cm, Dk,
+                                                   chunk=chunk), torch,
+                        iters=5)
+        el = x.element_size()
+        need = {"x": x.numel() * el, "dt": dtv.numel() * 4, "A, D": 8 * h,
+                "B, C": 2 * Bm.numel() * el, "y": y_k.numel() * el,
+                "state": st_k.numel() * 4}
+        n_ops = 0.0
+        for c0 in range(0, s, chunk):
+            L = min(chunk, s - c0)
+            tri = L * (L + 1) // 2
+            n_ops += tri * 2 * n + tri * 2 * p + L * p * 2 * n + L * p * n * 2
+        n_ops *= b_ * h
+        b, by = bound_ms(float(sum(need.values())), n_ops,
+                         _rate(torch, x.dtype))
+        dev_txt = "not measured" if dev_ms is None else \
+            f"{dev_ms:.4f} ms ({_short(by_op)})"
+        say("kernels", f"K7 at n {n} (bf16: {routes[(chunk, torch.bfloat16)]} "
+            f"in {len(ssd.ssd_scan_plan(chunk, p, n, x.dtype)['n_slabs'])} "
+            f"slabs of n; float32: {routes[(chunk, torch.float32)]}) at x "
+            f"{tuple(x.shape)} B/C {tuple(Bm.shape)} chunk {chunk}: max abs "
+            f"err y, state {errs[(chunk, torch.bfloat16)][0]:.3e}, "
+            f"{errs[(chunk, torch.bfloat16)][1]:.3e} (float32 route at the "
+            f"same shape: {errs[(chunk, torch.float32)][0]:.3e}, "
+            f"{errs[(chunk, torch.float32)][1]:.3e}); shared memory "
+            f"{ssd.ssd_scan_smem_bytes(chunk, p, n, x.dtype):,} bytes a block "
+            f"(bf16), {ssd.ssd_scan_smem_bytes(chunk, p, n, torch.float32):,}"
+            f" (float32); bf16 kernel {ms:.4f} ms (device {dev_txt}; "
+            f"{fenced:.4f} ms between events behind a queued sleep; host "
+            f"{enq:.4f} ms to enqueue), plain "
+            f"{plain:.4f} ms, no single PyTorch call computes it; bound "
+            f"{b:.5f} ms ({by}; {_counts(need)} bytes, {n_ops:.0f} ops), "
+            f"{100 * b / ms:.2f}% of the bound reached; on no config's path")
+        if chunk == 64:                 # the row's shape, as before
+            row = {"name": "ssd_scan.wide_state", "route": "cuda",
+                   "source": SOURCES["ssd_scan"][0],
+                   "replaces": SOURCES["ssd_scan"][1], "launches": 0,
+                   "routes": {"bf16": routes[(64, torch.bfloat16)],
+                              "float32": routes[(64, torch.float32)]},
+                   "max_abs_err": errs[(64, torch.bfloat16)][0], "ms": ms,
+                   "device_ms": dev_ms, "fenced_ms": fenced,
+                   "plain_ms": plain, "bound_ms": b, "bound_by": by,
+                   "library_ms": None, "chunk_128": rows_k7_128}
+            rows.append(row)
+        else:
+            rows_k7_128 = {"ms": ms, "device_ms": dev_ms,
+                           "fenced_ms": fenced}
+    say("kernels", "K7 slab kernels: chunk_state_wide_kernel "
+        f"{_ptxas_line(_build, 'ssd_scan', 'chunk_state_wide_kernel')}; "
+        f"chunk_scan_wide_kernel (p tiles of 64) "
+        f"{_ptxas_line(_build, 'ssd_scan', 'chunk_scan_wide_kernelILi8')}; "
+        f"float32 ssd_kernel {_ptxas_line(_build, 'ssd_scan', 'f3210ssd_kernel')}")
+    _repaired_shapes(torch, dev)
     return rows
+
+
+def _repaired_shapes(torch, dev):
+    """K2 over 65,535 partitions and at 24 buckets, ``usage_sum`` at 200
+    tiers: shapes past their kernels' former limits, each held to its
+    plain version (K2 within 1e-5 normwise of float64 and, where the order
+    of its sums is the same, bit for bit; ``usage_sum`` bit for bit to
+    ``np.add.at`` in float32). It adds no kernel row: the rows of K2 and
+    ``usage_sum`` are their main paths'."""
+    from repro_torch.kernels import entropy_features as ef
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import usage_sum as us
+    rng = np.random.default_rng(SEED + 26)
+    # K2: 70,000 partitions of 8 codes over a shared vocabulary of 23
+    N, V, M = 70_000, 23, 8
+    n_cols = rng.integers(1, 3, N).astype(np.int32)
+    n_valid = (M // n_cols * n_cols).astype(np.int32)
+    codes = rng.integers(-1, V, (N, M)).astype(np.int32)
+    codes[np.arange(M)[None, :] >= n_valid[:, None]] = -1
+    t = [torch.as_tensor(a, device=dev) for a in
+         (codes, n_valid, n_valid // n_cols, n_cols,
+          rng.integers(1, 12, V).astype(np.float32))]
+    ops.reset_launch_counts()
+    s_k, b_k = ef.weighted_entropy_features_kernel(*t, n_buckets=3)
+    halves = [ef.weighted_entropy_features_kernel(
+        *[a[sl] for a in t[:4]], t[4], n_buckets=3)
+        for sl in (slice(0, N // 2), slice(N // 2, None))]
+    torch.cuda.synchronize()
+    check(ops.launch_counts["entropy_features"] == 3,
+          f"K2 launches {dict(ops.launch_counts)}")
+    check(torch.equal(s_k, torch.cat([x[0] for x in halves]))
+          and torch.equal(b_k, torch.cat([x[1] for x in halves])),
+          "K2 over 65,535 partitions: bits differ from the halves'")
+    s_d, b_d = ef.weighted_entropy_features_plain(*t, n_buckets=3,
+                                                  dtype=torch.float64)
+    e_many = max(_normwise(s_k.double(), s_d), _normwise(b_k.double(), b_d))
+    check(e_many <= 1e-5, f"K2 over 65,535 partitions: {e_many:.3e}")
+    ms_many = cuda_ms(lambda: ef.weighted_entropy_features_kernel(
+        *t, n_buckets=3), torch, iters=5)
+    # K2 at 24 buckets: 5 partitions of up to 12,000 codes, V 23
+    N, M = 5, 12_000
+    n_cols = np.array([3, 1, 2, 4, 1], np.int32)
+    n_valid = np.array([M, 7_001, 9_998, 0, 5], np.int32)
+    codes = rng.integers(-1, V, (N, M)).astype(np.int32)
+    codes[np.arange(M)[None, :] >= n_valid[:, None]] = -1
+    t = [torch.as_tensor(a, device=dev) for a in
+         (codes, n_valid, n_valid // n_cols, n_cols,
+          rng.integers(1, 12, (N, V)).astype(np.float32))]
+    s24, b24 = ef.weighted_entropy_features_kernel(*t, n_buckets=24)
+    s1, _ = ef.weighted_entropy_features_kernel(*t, n_buckets=1)
+    s_d, b_d = ef.weighted_entropy_features_plain(*t, n_buckets=24,
+                                                  dtype=torch.float64)
+    e24 = max(_normwise(s24.double(), s_d), _normwise(b24.double(), b_d))
+    check(e24 <= 1e-5 and torch.equal(s24, s1),
+          f"K2 at 24 buckets: {e24:.3e}, summary bits "
+          f"{'equal' if torch.equal(s24, s1) else 'differ'}")
+    info = ef.weighted_entropy_features_info(V, 24, M)
+    say("kernels", f"K2 at 70,000 partitions of {8} codes (past the 65,535 "
+        f"of a grid's second dimension): within {e_many:.3e} normwise of "
+        f"float64, each partition's bits the halves'; {ms_many:.4f} ms a "
+        f"call. At 24 buckets (5 x {M:,} codes): {e24:.3e} normwise, the "
+        f"summary's bits those of one bucket; plan "
+        f"{'replicated' if info['replicated'] else 'distributed'}, "
+        f"{info['passes']} pass(es), {info['smem_bytes']:,} bytes of shared "
+        f"memory a block, {info['registers']} registers")
+    # usage_sum at 200 tiers: two windows of the block route
+    T, N, L, K = 3, 6_000, 200, 3
+    idx = torch.as_tensor(rng.integers(0, L * K, (T, N)), device=dev)
+    chosen_np = np.exp(rng.uniform(-8, 8, (T, N))).astype(np.float32)
+    chosen = torch.as_tensor(chosen_np, device=dev)
+    ops.reset_launch_counts()
+    use = us.usage_sum_kernel(idx, chosen, K, L)
+    torch.cuda.synchronize()
+    want = np.zeros((T, L), np.float32)
+    np.add.at(want, (np.repeat(np.arange(T), N),
+                     (idx.cpu().numpy() // K).ravel()), chosen_np.ravel())
+    check(ops.launch_counts["usage_sum"] == 1
+          and np.array_equal(use.cpu().numpy().view(np.int32),
+                             want.view(np.int32)),
+          "usage_sum at 200 tiers: bits differ from np.add.at's")
+    ms_us = cuda_ms(lambda: us.usage_sum_kernel(idx, chosen, K, L), torch)
+    say("kernels", f"usage_sum at T {T} x N {N:,}, L {L} "
+        f"({len(us.tier_windows(L))} windows of at most {us.WINDOW} tiers): "
+        f"np.add.at's bits in float32; {ms_us:.4f} ms a call")
 
 
 # ------------------------------------------------------------- train phase
@@ -5355,6 +5563,7 @@ def phase_train_kernels(torch, trained):
     """K3 and K4 against their plain versions, at the shapes of the
     training step and of ``benchmarks/bench_kernels.py``, and edge cases;
     then their times and bounds."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import entropy_features as ef
     from repro_torch.kernels import quant_pack as qp
 
@@ -5473,7 +5682,7 @@ def phase_train_kernels(torch, trained):
         n_ops = float(n)        # one count per byte
         b, by = bound_ms(float(sum(need.values())), n_ops)
         say("kernels", f"K4 byte_entropy {tag} ({n:,} bytes, "
-            f"{ef.byte_entropy_blocks(n, ef._sm_count(dev.index))} blocks): "
+            f"{ef.byte_entropy_blocks(n, _build.sm_count(dev.index))} blocks): "
             f"{float(e):.6f} bits/byte, histogram identical, entropy rel "
             f"{rel:.3e}, identical on a second call, no host sync, "
             f"{n_launch:g} CUDA launch a call; kernel {ms:.4f} ms a call "

@@ -15,7 +15,7 @@ stream are passed as ``ctypes.c_void_p``, and every C entry returns
 it launches its kernel, and nowhere else, once per call whatever number of
 CUDA launches the call makes. A kernel with more than one route (K5 and K7:
 ``bf16_tc`` for bfloat16, ``f32`` for float32, :data:`ROUTES`; and ``wide``
-for K5, K6 and K7 above the widths those kernels take) also adds one to
+for K5 and K6 above the widths their kernels take) also adds one to
 ``route_counts["<name>.<route>"]``; :func:`reset_launch_counts` clears
 both.
 """
@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,8 +39,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("overlap", "entropy_features", "flash_attention",
            "decode_attention", "decode_attention_partials", "attention_wide",
-           "attention_wide_tc", "ssd_scan", "quant_pack", "byte_entropy",
-           "usage_sum")
+           "attention_wide_tc", "decode_attention_wide_tc", "ssd_scan",
+           "quant_pack", "byte_entropy", "usage_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -63,6 +64,12 @@ _lock = threading.Lock()
 def reset_launch_counts() -> None:
     launch_counts.clear()
     route_counts.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def build_dir() -> Path:

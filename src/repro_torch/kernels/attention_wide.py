@@ -1,5 +1,5 @@
-"""The wide route of K5 and K6: ``csrc/attention_wide_tc.cu`` and
-``csrc/attention_wide.cu``.
+"""The wide route of K5 and K6: ``csrc/attention_wide_tc.cu``,
+``csrc/decode_attention_wide_tc.cu`` and ``csrc/attention_wide.cu``.
 
 The Pallas kernels take heads of any width; the port's prefill kernel
 (``csrc/flash_attention.cu``) takes D and Dv up to 256 and its decode
@@ -12,11 +12,16 @@ kernels; no config's path reaches it.
 * K5 in bfloat16 launches ``attention_wide_tc.cu``: flash attention on the
   tensor cores with D cut into chunks and Dv into slices of at most 128
   columns, so it takes any width;
-* K5 in float32, K6 and K6's partials mode launch ``attention_wide.cu``'s
-  ``wide_kernel``, the simplest correct kernel (one block per query row
-  and head, the online softmax in float32 over the visible keys, looping
-  over D for the scores and over Dv for the output); for K5 it is the
-  float32 check route.
+* K6 in bfloat16, in both modes, launches ``decode_attention_wide_tc.cu``:
+  the heads of a KV group as the rows of an m16 tile on the tensor cores,
+  D in chunks and Dv in slices of at most 128 columns, the cache split
+  over blocks by key ranges (:func:`decode_wide_split`) and the splits
+  merged by ``decode_attention.cuh``'s merge launch;
+* float32 K5 and K6 (both modes) launch ``attention_wide.cu``'s
+  ``wide_kernel``, the float32 check route: the simplest correct kernel
+  (one block per query row and head, the online softmax in float32 over
+  the visible keys, looping over D for the scores and over Dv for the
+  output).
 
 The wrappers here take operands their callers have checked
 (``flash_attention.check_operands`` and ``decode_attention._check``).
@@ -25,6 +30,7 @@ The wrappers here take operands their callers have checked
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -65,6 +71,80 @@ def _tc_lib() -> ctypes.CDLL:
         lib.attention_wide_tc_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+def _dec_tc_lib() -> ctypes.CDLL:
+    lib = _build.load("decode_attention_wide_tc")
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, kv_len, o, glen; offset; acc, m, l, part; B, S, Hq, Hkv,
+        # D, Dv, ldv, window; softcap, scale; split; stream
+        lib.decode_wide_tc_launch.argtypes = [p] * 6 + [i] + [p] * 4 \
+            + [i] * 8 + [f, f, i, p]
+        lib.decode_wide_tc_launch.restype = ctypes.c_int
+        lib.decode_wide_tc_smem_bytes.argtypes = []
+        lib.decode_wide_tc_smem_bytes.restype = ctypes.c_longlong
+        lib.decode_wide_tc_error_string.argtypes = [ctypes.c_int]
+        lib.decode_wide_tc_error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+#: keys a tile of the bf16 K6 wide kernel, the unit of its splits (kBK)
+DECODE_TILE = 64
+#: query heads one block of it takes (kRows: an m16 tile)
+DECODE_ROWS = 16
+#: columns of the widest Dv slice (kVS)
+V_SLICE = 128
+#: blocks of it an SM holds at once (65,280 bytes of shared memory a
+#: block): a split aims at this many blocks for each SM of the card
+DECODE_BLOCKS_PER_SM = 3
+
+
+def v_slices(Dv: int) -> int:
+    """Dv slices of the bf16 K6 (and K5) wide kernels: the fewest of at
+    most :data:`V_SLICE` columns, of equal widths rounded up to 16."""
+    fewest = -(-Dv // V_SLICE)
+    width = -(-Dv // fewest)
+    width = -(-width // 16) * 16
+    return -(-Dv // width)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_wide_split(B: int, S: int, Hq: int, Hkv: int, Dv: int,
+                      sms: int) -> int:
+    """Keys a split of the bf16 K6 wide kernel for a (B, S, Hkv) cache, Hq
+    query heads and values of Dv on a card of ``sms`` SMs: the fewest, in
+    multiples of :data:`DECODE_TILE`, that still give at most about
+    :data:`DECODE_BLOCKS_PER_SM` blocks an SM."""
+    tiles = -(-(Hq // Hkv) // DECODE_ROWS)
+    base = max(B * Hkv * tiles * v_slices(Dv), 1)
+    units = max(-(-S // DECODE_TILE), 1)
+    nsplit = min(units, -(-DECODE_BLOCKS_PER_SM * sms // base))
+    return -(-units // nsplit) * DECODE_TILE
+
+
+def _launch_decode_tc(q, k, v, o, kv_len, *, glen=None, offset=0, acc=None,
+                      m=None, l=None, window, softcap):
+    B, Hq, D = q.shape
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    split = decode_wide_split(B, S, Hq, Hkv, Dv,
+                              _build.sm_count(q.device.index))
+    nsplit = -(-S // split)
+    # the splits' (acc, m, l); freed to PyTorch's stream-ordered allocator
+    # on return, after the launches on this stream
+    part = (torch.empty(B * Hq * nsplit * (Dv + 2), dtype=torch.float32,
+                        device=q.device) if nsplit > 1 else None)
+    lib = _dec_tc_lib()
+    rc = lib.decode_wide_tc_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), _ptr(o),
+        _ptr(glen), int(offset), _ptr(acc), _ptr(m), _ptr(l), _ptr(part), B,
+        S, Hq, Hkv, D, Dv, v.stride(-2), int(window or 0),
+        float(softcap or 0.0), 1.0 / math.sqrt(D), split,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wide decode kernel launch failed: "
+                           f"{lib.decode_wide_tc_error_string(rc).decode()}")
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -121,12 +201,19 @@ def prefill(q, k, v, *, causal, window, softcap) -> torch.Tensor:
 
 def decode(q, k, v, kv_len, *, window, softcap) -> torch.Tensor:
     """K6's function: (B, Hq, Dv) in q's dtype; v may be k's first
-    columns (its row stride is k's)."""
+    columns (its row stride is k's). bfloat16 on the tensor cores
+    (``decode_attention_wide_tc.cu``), float32 on the CUDA cores."""
     B, Hq, _ = q.shape
     out = torch.empty((B, Hq, v.shape[-1]), dtype=q.dtype, device=q.device)
     if out.numel():
-        _launch(q, k, v, out, kv_len=kv_len, Sq=1, window=window,
-                softcap=softcap)
+        if q.dtype != torch.bfloat16:
+            _launch(q, k, v, out, kv_len=kv_len, Sq=1, window=window,
+                    softcap=softcap)
+        elif k.shape[1] == 0:
+            return out.zero_()               # no key: o = 0, no launch
+        else:
+            _launch_decode_tc(q, k, v, out, kv_len, window=window,
+                              softcap=softcap)
         _build.launch_counts["decode_attention"] += 1
         _build.route_counts["decode_attention.wide"] += 1
     return out
@@ -134,12 +221,20 @@ def decode(q, k, v, kv_len, *, window, softcap) -> torch.Tensor:
 
 def partials(q, k, v, local_len, acc, m, l, *, offset, global_len, window,
              softcap) -> None:
-    """K6's partials mode into ``acc``, ``m``, ``l`` (filled in place)."""
+    """K6's partials mode into ``acc``, ``m``, ``l`` (filled in place;
+    they arrive as 0, -1e30 and 0, what a slice with no key keeps)."""
     if acc.numel():
-        _launch(q, k, v, None, kv_len=local_len, glen=global_len,
-                offset=offset, acc=acc, m=m, l=l, Sq=1,
-                window=window if global_len is not None else None,
-                softcap=softcap)
+        window = window if global_len is not None else None
+        if q.dtype != torch.bfloat16:
+            _launch(q, k, v, None, kv_len=local_len, glen=global_len,
+                    offset=offset, acc=acc, m=m, l=l, Sq=1, window=window,
+                    softcap=softcap)
+        elif k.shape[1] == 0:
+            return                           # no key, no launch
+        else:
+            _launch_decode_tc(q, k, v, None, local_len, glen=global_len,
+                              offset=offset, acc=acc, m=m, l=l,
+                              window=window, softcap=softcap)
         _build.launch_counts["decode_attention"] += 1
         _build.route_counts["decode_attention.partials_wide"] += 1
 
@@ -154,3 +249,9 @@ def tc_smem_bytes() -> int:
     """Shared memory one block of K5's bfloat16 wide route takes, the same
     at every width (CUDA build needed)."""
     return int(_tc_lib().attention_wide_tc_smem_bytes())
+
+
+def decode_tc_smem_bytes() -> int:
+    """Shared memory one block of K6's bfloat16 wide route takes, the same
+    at every width (CUDA build needed)."""
+    return int(_dec_tc_lib().decode_wide_tc_smem_bytes())

@@ -1,4 +1,5 @@
-// Attention at any head width, CUDA for sm_90a: the wide route of K5 and K6.
+// Attention at any head width on the CUDA cores, CUDA for sm_90a: the
+// float32 check route of K5's and K6's wide routes.
 //
 // Replaces: the Pallas TPU kernels repro/kernels/flash_attention.py
 //   flash_attention and repro/kernels/decode_attention.py decode_attention
@@ -6,8 +7,8 @@
 //   decode_attention.cu (D <= 576, Dv <= 512, and a float32 stage within
 //   the shared memory) take. The Pallas kernels take any width; the
 //   wrappers (kernels/flash_attention.py, kernels/decode_attention.py)
-//   send a call here only above those limits, so no config's path reaches
-//   this file.
+//   send a float32 call here only above those limits, so no config's path
+//   reaches this file.
 //
 // What it computes, per (batch b, query row i, query head h), with the
 //   query's KV head h / (Hq / Hkv) and keys j in [lo, hi):
@@ -26,6 +27,12 @@
 //   contiguous v, D where v is k's first Dv columns, MLA's latent cache),
 //   so the latent cache is never copied.
 //
+// Route: kernels/attention_wide.py sends it float32 K5 and K6 (both
+//   modes) alone; bfloat16 K5 takes attention_wide_tc.cu and bfloat16 K6
+//   decode_attention_wide_tc.cu, both on the tensor cores. Its bfloat16
+//   instantiation is launched by no wrapper: chip_smoke.py times the
+//   tensor-core kernels against it in the same run.
+//
 // Design: the simplest correct kernel, not a fast one. One block of four
 //   warps per (b, i, h). The block holds q (scaled) and its Dv float32
 //   accumulators in shared memory, so the widths are bounded only by the
@@ -36,8 +43,8 @@
 //   rule (m' = max(m, tile max), acc = acc e^(m - m') + sum_j p_j v_j,
 //   l = l e^(m - m') + sum_j p_j), each thread updating the output dims
 //   tid + 128 t. K and V are read from global memory once per query head,
-//   with no reuse across the heads of a GQA group; that is its cost, and
-//   its times are in PERF.md.
+//   with no reuse across the heads of a GQA group; that is its cost (a
+//   check route's), and its times are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

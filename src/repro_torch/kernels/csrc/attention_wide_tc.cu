@@ -4,7 +4,9 @@
 //   flash_attention where its heads are wider than flash_attention.cu
 //   takes (D or Dv above 256). kernels/attention_wide.py sends a bfloat16
 //   call here; a float32 call keeps attention_wide.cu's wide_kernel (the
-//   check route), and so do K6's wide decode and its partials mode.
+//   check route). K6's wide decode in bfloat16 is
+//   decode_attention_wide_tc.cu's, which stages its pieces with this
+//   file's copy loop (tc::stage_vec).
 //
 // What it computes, per (batch b, query row i, query head h), with the
 //   query's KV head h / (Hq / Hkv):
@@ -83,51 +85,6 @@ constexpr int kSlot = (kBQ + kBK) * kLDQ;    // a Q and a K chunk, elements
 static_assert(kBK * kLDV <= kSlot, "a V slice must fit a ring slot");
 constexpr size_t kSmem = sizeof(bf16) * kStages * (size_t)kSlot;
 
-// 16 bytes global -> shared (a shared-space address), asynchronously;
-// bytes 0 writes 16 zeros
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           int bytes)
-{
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-
-// Stage rows [0, rows) of a matrix whose row r (`width` elements, a
-// multiple of 8) starts at src + r * stride (16-byte aligned) into dst
-// (row stride ld) by 16-byte cp.async; rows at or past rows_valid become
-// zeros, and so do columns [width, width_pad). Each thread keeps one
-// column piece and steps over rows, so its copies' addresses are
-// independent of one another and the loop unrolls: the address arithmetic
-// of one copy does not wait on the last (tc::stage_rows's running row and
-// column made each copy wait on a chain of integer operations, ~30% of
-// this kernel's time).
-__device__ __forceinline__ void stage_vec(bf16* dst, int ld, const bf16* src,
-                                          size_t stride, int rows,
-                                          int rows_valid, int width,
-                                          int width_pad, int tid)
-{
-    const int n_copy = width >> 3;           // 16-byte pieces a row
-    const int dr = kThreads / n_copy;        // rows a pass
-    const int r0 = tid / n_copy, col = (tid - r0 * n_copy) * 8;
-    if (r0 < dr) {
-        const unsigned s0 = tc::smem_u32(dst + r0 * ld + col);
-        const unsigned ds = (unsigned)(dr * ld * sizeof(bf16));
-        const bf16* g0 = src + (size_t)r0 * stride + col;
-        const size_t dg = (size_t)dr * stride;
-        int k = 0;
-#pragma unroll 4
-        for (int r = r0; r < rows; r += dr, ++k) {
-            const bool ok = r < rows_valid;
-            cp_async16(s0 + k * ds, ok ? g0 + k * dg : src, ok ? 16 : 0);
-        }
-    }
-    const int pad = width_pad - width;
-    for (int e = tid; e < rows * pad; e += kThreads) {
-        const int r = e / pad;
-        dst[r * ld + width + (e - r * pad)] = tc::zero_of<bf16>();
-    }
-}
-
 struct Args {
     const bf16* q; const bf16* k; const bf16* v; bf16* o;
     int Sq, Sk, Hq, Hkv, D, Dv, causal, window;
@@ -187,7 +144,8 @@ wide_tc_kernel(Args a)
         // the Q chunk, then the K chunk; or of the V slice
         auto stage = [&](bf16* d, int ld, const bf16* g, size_t st, int rows,
                          int valid, int w, int wp) {
-            if (vec) stage_vec(d, ld, g, st, rows, valid, w, wp, tid);
+            if (vec) tc::stage_vec<kThreads>(d, ld, g, st, rows, valid, w,
+                                                  wp, tid);
             else tc::stage_rows(d, ld, g, st, rows, valid, w, wp, false, tid,
                                 kThreads);
         };

@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the bfloat16 routes of
-// flash_attention.cu and ssd_scan.cu (sm_90a): 16-byte cp.async, ldmatrix
-// and mma.sync.m16n8k16 with bf16 operands and f32 accumulators.
+// flash_attention.cu, ssd_scan.cu, attention_wide_tc.cu and
+// decode_attention_wide_tc.cu (sm_90a): 16-byte cp.async, ldmatrix and
+// mma.sync.m16n8k16 with bf16 operands and f32 accumulators.
 // decode_attention.cu takes its cp.async staging and allow_smem, and
 // entropy_features.cu its allow_smem.
 //
@@ -196,6 +197,53 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
             }
             dst[r * ld + width + c] = zero_of<T>();
         }
+    }
+}
+
+// 16 bytes global -> shared (a shared-space address), asynchronously;
+// bytes 0 writes 16 zeros
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int bytes)
+{
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+// Stage rows [0, rows) of a bf16 matrix whose row r (`width` elements, a
+// multiple of 8) starts at src + r * stride (16-byte aligned) into dst
+// (row stride ld) by 16-byte cp.async, with kThreads threads of which this
+// is tid; rows at or past rows_valid become zeros, and so do columns
+// [width, width_pad). Each thread keeps one column piece and steps over
+// rows, so its copies' addresses are independent of one another and the
+// loop unrolls: the address arithmetic of one copy does not wait on the
+// last (stage_rows's running row and column made each copy wait on a
+// chain of integer operations, ~30% of K5 wide's time). width / 8 at most
+// kThreads.
+template <int kThreads>
+__device__ __forceinline__ void stage_vec(bf16* dst, int ld, const bf16* src,
+                                          size_t stride, int rows,
+                                          int rows_valid, int width,
+                                          int width_pad, int tid)
+{
+    const int n_copy = width >> 3;           // 16-byte pieces a row
+    const int dr = kThreads / n_copy;        // rows a pass
+    const int r0 = tid / n_copy, col = (tid - r0 * n_copy) * 8;
+    if (r0 < dr) {
+        const unsigned s0 = smem_u32(dst + r0 * ld + col);
+        const unsigned ds = (unsigned)(dr * ld * sizeof(bf16));
+        const bf16* g0 = src + (size_t)r0 * stride + col;
+        const size_t dg = (size_t)dr * stride;
+        int k = 0;
+#pragma unroll 4
+        for (int r = r0; r < rows; r += dr, ++k) {
+            const bool ok = r < rows_valid;
+            cp_async16(s0 + k * ds, ok ? g0 + k * dg : src, ok ? 16 : 0);
+        }
+    }
+    const int pad = width_pad - width;
+    for (int e = tid; e < rows * pad; e += kThreads) {
+        const int r = e / pad;
+        dst[r * ld + width + (e - r * pad)] = zero_of<bf16>();
     }
 }
 

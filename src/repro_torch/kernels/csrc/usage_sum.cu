@@ -31,7 +31,11 @@
 //   below L K). No atomics: two calls give the same bits, and so does the
 //   CPU's np.add.at in float32. Two routes by shape:
 //   * block route (more than kWarpMaxN rows, or more than 32 tiers): one
-//     block per tenant. Eight producer warps stage a tile of 4,096 rows
+//     block per (tenant, window of 128 tiers); a window's block lists only
+//     the rows of its tiers (the others go to the bin past its end), so
+//     every tier's chain is still its own rows in row order, at any number
+//     of tiers (up to 128 tiers, one window). Eight producer warps stage
+//     a tile of 4,096 rows
 //     (512 each, with the next tile's loads in flight), compact it and
 //     hand it over through named barriers to one walker warp per 32 tiers,
 //     thread l walking tier l. The lists are double-buffered, so the
@@ -49,8 +53,9 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxTiers = 128;              // the most tiers a call takes
-constexpr int kBins = kMaxTiers + 1;        // + rows past the end or invalid
+constexpr int kMaxTiers = 128;              // tiers a window of the block route
+constexpr int kBins = kMaxTiers + 1;        // + rows of other tiers or invalid
+constexpr int kMaxWindows = 65535;          // gridDim.y
 // block route
 constexpr int kProducers = 8;               // warps that stage and compact
 constexpr int kChunks = 16;                 // 32-row chunks a producer warp
@@ -70,6 +75,14 @@ __device__ __forceinline__ int tier_of(long long cell, int L, int K)
 {
     if (cell < 0 || cell >= (long long)L * K) return L;
     return (int)((unsigned)cell / (unsigned)K);
+}
+
+// The tier of `cell` within the window of Lw tiers whose first cell is
+// first (its first tier times K); Lw for a cell outside it
+__device__ __forceinline__ int tier_in(long long cell, long long first,
+                                       int Lw, int K)
+{
+    return tier_of(cell - first, Lw, K);
 }
 
 __device__ __forceinline__ unsigned lanemask_lt()
@@ -122,8 +135,12 @@ __device__ __forceinline__ float walk(const float* p, int n, float acc)
 __global__ void __launch_bounds__(32 * (kProducers + kMaxTiers / 32))
 usage_block_kernel(const int64_t* __restrict__ idx,
                    const float* __restrict__ chosen, float* __restrict__ use,
-                   int N, int L, int K)
+                   int N, int L_all, int K)
 {
+    // this block's window: tiers [l0, l0 + L)
+    const int l0 = blockIdx.y * kMaxTiers;
+    const int L = min(kMaxTiers, L_all - l0);
+    const long long first_cell = (long long)l0 * K;
     __shared__ __align__(16) float list[2][kList];  // each tier's rows
     __shared__ int base[2][kBins];          // where each tier's list starts
     __shared__ int tot[2][kBins];           // and its length
@@ -145,7 +162,7 @@ usage_block_kernel(const int64_t* __restrict__ idx,
             __syncwarp();
             if (i + 2 < n_tiles) bar_arrive(kBarEmpty + b, everyone);
         }
-        if (l < L) use[(size_t)t * L + l] = acc;
+        if (l < L) use[(size_t)t * L_all + l0 + l] = acc;
         return;
     }
 
@@ -165,7 +182,7 @@ usage_block_kernel(const int64_t* __restrict__ idx,
         float v[kChunks];
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
-            tier[c] = tier_of(cell[c], L, K);
+            tier[c] = tier_in(cell[c], first_cell, L, K);
             v[c] = val[c];
         }
 #pragma unroll
@@ -307,12 +324,14 @@ usage_warp_kernel(const int64_t* __restrict__ idx,
 }  // namespace
 
 // idx: (T, N) int64 flat cells in [0, L * K); chosen: (T, N) float32;
-// use: (T, L) float32, written whole. L at most 128.
+// use: (T, L) float32, written whole. Any L: the block route takes it in
+// windows of 128 tiers, one block each.
 extern "C" int usage_sum_launch(const int64_t* idx, const float* chosen,
                                 float* use, int T, int N, int L, int K,
                                 void* stream)
 {
-    if (T < 0 || N < 0 || L < 1 || L > kMaxTiers || K < 1
+    const int windows = (L + kMaxTiers - 1) / kMaxTiers;
+    if (T < 0 || N < 0 || L < 1 || K < 1 || windows > kMaxWindows
         || (long long)L * K > 0x7fffffffLL)
         return (int)cudaErrorInvalidValue;
     if (T == 0) return 0;
@@ -322,8 +341,10 @@ extern "C" int usage_sum_launch(const int64_t* idx, const float* chosen,
         usage_warp_kernel<<<blocks, 32 * kTenantsPerBlock, 0, s>>>(
             idx, chosen, use, T, N, L, K);
     } else {
-        const int threads = 32 * (kProducers + (L + 31) / 32);
-        usage_block_kernel<<<T, threads, 0, s>>>(idx, chosen, use, N, L, K);
+        const int widest = L < kMaxTiers ? L : kMaxTiers;
+        const int threads = 32 * (kProducers + (widest + 31) / 32);
+        usage_block_kernel<<<dim3(T, windows), threads, 0, s>>>(
+            idx, chosen, use, N, L, K);
     }
     return (int)cudaGetLastError();
 }

@@ -44,8 +44,10 @@ columns whose value is its first 512. There v is a view of k
 and never copies v, and :func:`decode_attention_split` takes v from k's
 columns in the same way. Wider heads, and float32 heads whose one stage
 does not fit the shared memory (:func:`split_fits`), take the wide route
-in both modes (``wide`` and ``partials_wide``: ``csrc/attention_wide.cu``,
-:mod:`repro_torch.kernels.attention_wide`), the Pallas kernel's any width.
+in both modes (``wide`` and ``partials_wide``, the Pallas kernel's any
+width, :mod:`repro_torch.kernels.attention_wide`): bfloat16 on the tensor
+cores (``csrc/decode_attention_wide_tc.cu``, split over keys like this
+kernel), float32 on the CUDA cores (``csrc/attention_wide.cu``).
 """
 
 from __future__ import annotations

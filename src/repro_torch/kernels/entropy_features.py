@@ -28,7 +28,9 @@ the b-th 1/n_buckets of rows.
 The kernel keeps each partition's histogram on chip in a cluster of 8
 blocks (:func:`_plan` chooses how): replicated in every block where the
 (n_buckets, V) bins fit one block's shared memory, else spread over the
-cluster's blocks, in vocabulary slices where 8 blocks do not hold them.
+cluster's blocks, in vocabulary slices where 8 blocks do not hold them;
+above :data:`PASS_BUCKETS` buckets it counts them in passes of that many.
+It takes any number of partitions and of buckets.
 
 ``byte_entropy``: for a (n,) uint8 payload, its 256-bin histogram (int32)
 and Shannon entropy in bits per byte (float32 scalar),
@@ -45,16 +47,21 @@ and Shannon entropy in bits per byte (float32 scalar),
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-MAX_BUCKETS = 16        # kMaxBuckets in csrc/entropy_features.cu
 CLUSTER = 8             # kCluster: blocks per cluster
 MAX_BINS = 49152        # kMaxBins: int32 bins one block holds
+PASS_BUCKETS = 4096     # kPassBuckets: the most buckets a pass counts
+EDGE_BUCKETS = 16       # kEdgeBuckets: buckets found by an edge table
+#: static shared memory of the kernels: the block sums, and up to
+#: EDGE_BUCKETS buckets the tables of totals and edges
+STATIC_SMEM = 512
+EDGE_SMEM = 3 * 4 * EDGE_BUCKETS
+LAUNCH_ROWS = 65535     # kMaxLaunchRows: partitions a launch (gridDim.y)
 
 
 #: codes of the largest partition one block of a distributed plan should
@@ -62,21 +69,61 @@ MAX_BINS = 49152        # kMaxBins: int32 bins one block holds
 CODES_PER_BLOCK = 1 << 16
 
 
-def _plan(V: int, n_buckets: int, M: int = 0) -> Tuple[bool, int, int]:
-    """``(replicated, slices, span)`` of the kernel for a vocabulary of V
-    values and partitions of at most M codes: the vocabulary is cut into
-    ``slices`` slices of ``span`` values, one cluster each. Replicated
-    (one slice) when a block holds all (n_buckets, V) bins, else the bins
-    spread over the cluster's blocks in as many slices as they need, or
-    as give each block at most ``CODES_PER_BLOCK`` of the largest
-    partition's codes to add (each slice's cluster reads all the codes
-    and adds those of its slice), but no more slices than blocks have
-    values."""
-    if n_buckets * V <= MAX_BINS:
-        return True, 1, V
-    slices = max(-(-n_buckets * V // (CLUSTER * MAX_BINS)),
+def _plan(V: int, n_buckets: int,
+          M: int = 0) -> Tuple[bool, int, int, int]:
+    """``(replicated, slices, span, per_pass)`` of the kernel for a
+    vocabulary of V values, ``n_buckets`` buckets and partitions of at most
+    M codes: the buckets are counted ``per_pass`` at a time (all of them up
+    to :data:`PASS_BUCKETS`), and the vocabulary is cut into ``slices``
+    slices of ``span`` values, one cluster each. Replicated (one slice)
+    when a block holds all (per_pass, V) bins, else the bins spread over
+    the cluster's blocks in as many slices as they need (each block at
+    most ``MAX_BINS // per_pass`` values), or as give each block at most
+    ``CODES_PER_BLOCK`` of the largest partition's codes to add (each
+    slice's cluster reads all the codes and adds those of its slice), but
+    no more slices than blocks have values."""
+    per_pass = min(n_buckets, PASS_BUCKETS)
+    if per_pass * V <= MAX_BINS:
+        return True, 1, V, per_pass
+    held = MAX_BINS // per_pass              # values a block holds
+    slices = max(-(-V // (CLUSTER * held)),
                  min(-(-M // (CLUSTER * CODES_PER_BLOCK)), -(-V // CLUSTER)))
-    return False, slices, CLUSTER * -(-V // (CLUSTER * slices))
+    return False, slices, CLUSTER * -(-V // (CLUSTER * slices)), per_pass
+
+
+def plan_smem_bytes(V: int, n_buckets: int, M: int = 0) -> int:
+    """Shared memory (static and dynamic) a block of the kernel takes at
+    :func:`_plan`'s plan, as ``csrc/entropy_features.cu`` lays it out:
+    the bins and the block sums; up to :data:`EDGE_BUCKETS` buckets its
+    static tables of totals and edges, above them the per-bucket totals
+    twice and, with more than one pass, each owned value's count over the
+    passes (:func:`owned_values` of them)."""
+    repl, _, span, per_pass = _plan(V, n_buckets, M)
+    ints = per_pass * (span if repl else span // CLUSTER)
+    if n_buckets > EDGE_BUCKETS:
+        ints += 2 * per_pass + (owned_values(span) if per_pass < n_buckets
+                                else 0)
+        return 4 * ints + STATIC_SMEM
+    return 4 * ints + STATIC_SMEM + EDGE_SMEM
+
+
+def owned_values(span: int) -> int:
+    """The most values of a slice of ``span`` one block of the cluster
+    owns: block rank r owns offsets r, r + CLUSTER, ..., so
+    ceil(span / CLUSTER)."""
+    return -(-span // CLUSTER)
+
+
+def partition_pieces(N: int) -> List[Tuple[int, int]]:
+    """``(first partition, partitions)`` of the kernel's cluster launches:
+    at most :data:`LAUNCH_ROWS` each."""
+    return [(i, min(LAUNCH_ROWS, N - i)) for i in range(0, N, LAUNCH_ROWS)]
+
+
+def bucket_passes(n_buckets: int) -> List[Tuple[int, int]]:
+    """``(first bucket, buckets)`` of each of the kernel's passes."""
+    per = min(n_buckets, PASS_BUCKETS)
+    return [(b, min(per, n_buckets - b)) for b in range(0, n_buckets, per)]
 
 
 def _batched_lengths(lengths: torch.Tensor, n: int) -> torch.Tensor:
@@ -175,10 +222,13 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("entropy_features")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
+        # codes, n_valid, n_rows, n_cols, lengths; len_stride; n, m, v,
+        # n_buckets, per_pass, repl, slices, span; partials, summary,
+        # bucket_h, stream
         lib.wef_launch.argtypes = [p, p, p, p, p, ctypes.c_longlong,
-                                   i, i, i, i, i, i, i, p, p, p, p]
+                                   i, i, i, i, i, i, i, i, p, p, p, p]
         lib.wef_launch.restype = ctypes.c_int
-        lib.wef_info.argtypes = [i] * 5 + [p]
+        lib.wef_info.argtypes = [i] * 6 + [p]
         lib.wef_info.restype = ctypes.c_int
         lib.wef_error_string.argtypes = [ctypes.c_int]
         lib.wef_error_string.restype = ctypes.c_char_p
@@ -192,7 +242,8 @@ def weighted_entropy_features_kernel(codes: torch.Tensor, n_valid: torch.Tensor,
                                      n_buckets: int = 1,
                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/entropy_features.cu`` (cluster histogram and reduction,
-    then the partials' combine).
+    one launch per :func:`partition_pieces` piece, then the partials'
+    combine).
 
     codes int32 (N, M); n_valid / n_rows / n_cols int32 (N,); lengths
     float32 (N, V) or (V,); all contiguous on one CUDA device. Returns
@@ -225,19 +276,19 @@ def weighted_entropy_features_kernel(codes: torch.Tensor, n_valid: torch.Tensor,
     else:
         raise ValueError(f"lengths must be (N, V) or (V,), got "
                          f"{tuple(lengths.shape)}")
-    if not 1 <= n_buckets <= MAX_BUCKETS:
-        raise ValueError(f"n_buckets must lie in [1, {MAX_BUCKETS}]")
-    if V < 1 or N > 65535:
-        raise ValueError(f"need V >= 1 and at most 65535 partitions, got "
-                         f"V={V}, N={N}")
-    # (read on the host only where there are edges: it synchronises)
-    if N and n_buckets > 1 and (n_buckets - 1) * int(n_rows.max()) >= 2 ** 31:
+    if n_buckets < 1 or V < 1:
+        raise ValueError(f"need n_buckets >= 1 and V >= 1, got "
+                         f"n_buckets={n_buckets}, V={V}")
+    # the edge table's b*n_rows in int32 (read on the host only where
+    # there is one: it synchronises); above it the kernel divides in 64 bits
+    if N and 1 < n_buckets <= EDGE_BUCKETS \
+            and (n_buckets - 1) * int(n_rows.max()) >= 2 ** 31:
         raise ValueError("bucket edges b*n_rows overflow int32")
     summary = torch.empty((N, 4), dtype=torch.float32, device=dev)
     bucket_h = torch.empty((N, n_buckets), dtype=torch.float32, device=dev)
     if N == 0:
         return summary, bucket_h
-    repl, slices, span = _plan(V, n_buckets, M)
+    repl, slices, span, per_pass = _plan(V, n_buckets, M)
     # each block's 4 + n_buckets float64 sums; freed to PyTorch's
     # stream-ordered allocator on return, after the kernels on this stream
     partials = torch.empty(N * slices * CLUSTER * (4 + n_buckets),
@@ -246,7 +297,8 @@ def weighted_entropy_features_kernel(codes: torch.Tensor, n_valid: torch.Tensor,
     rc = lib.wef_launch(
         codes.data_ptr(), n_valid.data_ptr(), n_rows.data_ptr(),
         n_cols.data_ptr(), lengths.data_ptr(), stride, N, M, V, n_buckets,
-        int(repl), slices, span, partials.data_ptr(), summary.data_ptr(),
+        per_pass, int(repl), slices, span, partials.data_ptr(),
+        summary.data_ptr(),
         bucket_h.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"entropy-features kernel launch failed: "
@@ -257,20 +309,21 @@ def weighted_entropy_features_kernel(codes: torch.Tensor, n_valid: torch.Tensor,
 
 def weighted_entropy_features_info(V: int, n_buckets: int = 1,
                                    M: int = 0) -> dict:
-    """The kernel's plan at a vocabulary of V values and partitions of at
-    most M codes (replicated or distributed, slices, values a slice holds)
-    with its registers, shared
-    memory per block, cluster size and the clusters that fit on the card
-    at once (``cudaOccupancyMaxActiveClusters``), from the built library;
-    it launches nothing."""
-    repl, slices, span = _plan(V, n_buckets, M)
+    """The kernel's plan at a vocabulary of V values, ``n_buckets``
+    buckets and partitions of at most M codes (replicated or distributed,
+    slices, values a slice holds, bucket passes) with its registers,
+    shared memory per block, cluster size and the clusters that fit on the
+    card at once (``cudaOccupancyMaxActiveClusters``), from the built
+    library; it launches nothing."""
+    repl, slices, span, per_pass = _plan(V, n_buckets, M)
     attr = (ctypes.c_int * 4)()
     lib = _lib()
-    rc = lib.wef_info(V, n_buckets, int(repl), slices, span, attr)
+    rc = lib.wef_info(V, n_buckets, per_pass, int(repl), slices, span, attr)
     if rc != 0:
         raise RuntimeError(f"entropy-features info failed: "
                            f"{lib.wef_error_string(rc).decode()}")
     return {"replicated": repl, "slices": slices, "span": span,
+            "passes": len(bucket_passes(n_buckets)),
             "registers": attr[0], "smem_bytes": attr[1], "cluster": attr[2],
             "max_active_clusters": attr[3]}
 
@@ -309,11 +362,6 @@ def byte_entropy_blocks(n: int, sms: int) -> int:
     and fewer where each thread would take under ``BYTES_PER_THREAD``
     bytes."""
     return max(1, min(sms, -(-n // (BYTE_THREADS * BYTES_PER_THREAD))))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _byte_totals_for(dev: torch.device, stream: int) -> torch.Tensor:
@@ -358,7 +406,7 @@ def byte_entropy_kernel(data: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     if n >= 2 ** 31:
         raise ValueError(f"{n} bytes overflow the int32 bins")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    blocks = byte_entropy_blocks(n, _sm_count(dev.index))
+    blocks = byte_entropy_blocks(n, _build.sm_count(dev.index))
     acc = _byte_totals_for(dev, stream)
     hist = torch.empty(256, dtype=torch.int32, device=dev)
     ent = torch.empty((), dtype=torch.float32, device=dev)

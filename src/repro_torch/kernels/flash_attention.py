@@ -12,8 +12,9 @@ softcap comes after the scale and before the mask, and with ``causal`` a
   CUDA tensors (it raises for anything else): bfloat16 takes the
   tensor-core route (``bf16_tc``: mma.sync, cp.async), float32 the
   CUDA-core kernel (``f32``); heads wider than :data:`MAX_HEAD_DIM` take
-  the wide route (``wide``, ``csrc/attention_wide.cu``,
-  :mod:`repro_torch.kernels.attention_wide`) in either dtype;
+  the wide route (``wide``, :mod:`repro_torch.kernels.attention_wide`:
+  ``csrc/attention_wide_tc.cu`` in bfloat16, ``csrc/attention_wide.cu`` in
+  float32);
 * :func:`flash_attention_plain` is the same function in tensor ops, with
   the (B, Hkv, rep, Sq, Sk) scores materialised, used for CPU tensors and
   as the kernel's yardstick on the card;
@@ -103,7 +104,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q, k, v contiguous, of one float dtype, on one CUDA device; Hq a
     multiple of Hkv. D or Dv above :data:`MAX_HEAD_DIM` launches the wide
-    route (``csrc/attention_wide.cu``) instead.
+    route (:mod:`repro_torch.kernels.attention_wide`) instead.
     """
     dev = q.device
     if dev.type != "cuda":

@@ -16,15 +16,17 @@ and the scan returns (y (b, s, h, p) in x's dtype, final state
 
 * :func:`ssd_scan_kernel` launches ``csrc/ssd_scan.cu`` on CUDA tensors
   (it raises for anything else): bfloat16 takes the tensor-core route
-  (``bf16_tc``: a chunk pass, a state pass and a scan pass), float32 the
-  CUDA-core kernel (``f32``), and bfloat16 at n above
-  :data:`BF16_TC_MAX_STATE` the CUDA-core kernel reading bfloat16
-  (``wide``: float32 arithmetic, y in bfloat16, the state in float32);
+  (``bf16_tc``: a chunk pass, a state pass and a scan pass; above n
+  :data:`WHOLE_STATE` B, C and the state in slabs of :data:`SLAB`
+  columns), float32 the CUDA-core kernel (``f32``, the float32 check
+  route: every operand through 32 x 32 tiles, so it takes every chunk, p
+  and n); :func:`ssd_scan_plan` gives the tiles and shared memory of
+  either;
 * :func:`ssd_scan_plain` is the chunked algorithm in tensor ops, used for
   CPU tensors and as the kernel's yardstick on the card;
 * :func:`ssd_scan_chunked` is the ``bf16_tc`` route's three passes in
-  tensor ops, optionally with its bfloat16 hi/lo splits emulated, for the
-  tests (nothing on the main path calls it);
+  tensor ops, in its slabs of n, optionally with its bfloat16 hi/lo splits
+  emulated, for the tests (nothing on the main path calls it);
 * :class:`SSDScanFn` gives the kernel a gradient: its forward launches
   the kernel, its backward recomputes :func:`ssd_scan_plain` under
   autograd. The TPU kernel has no backward kernel (the JAX package
@@ -38,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -47,8 +49,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import check_operands
 
 _MAX_SMEM = 227 * 1024          # per-block shared memory on Hopper
-#: the widest state of the tensor-core route (``kMaxState`` in the source)
-BF16_TC_MAX_STATE = 256
+#: the widest state the tensor-core route stages whole (``kMaxState``)
+WHOLE_STATE = 256
+#: columns of n a slab of the tensor-core route above it (``kSlab``)
+SLAB = 128
+#: rows, columns, p and n of a tile of the float32 route (``f32::kT``)
+F32_TILE = 32
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -104,6 +110,41 @@ def _split_bf16(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (v - hi).to(torch.bfloat16).to(v.dtype)
 
 
+def _pieces(total: int, width: int) -> List[Tuple[int, int]]:
+    """``(start, length)`` of consecutive pieces of at most ``width`` that
+    cover ``[0, total)`` once."""
+    return [(s, min(width, total - s)) for s in range(0, total, width)]
+
+
+def ssd_scan_plan(chunk: int, p: int, n: int, dtype: torch.dtype) -> dict:
+    """The kernel's tiles at a chunk, head width p and state n, as
+    ``csrc/ssd_scan.cu`` lays them out: ``smem_bytes`` a block takes (its
+    ``ssd_scan_smem_bytes``), ``p_slices`` (the columns of p each block
+    takes) and ``n_slabs`` (the columns of n staged at once). float32:
+    blocks of 32 columns of p and 32 x 32 tiles, the same 21,120 bytes at
+    every shape. bfloat16: one block a head; n whole up to
+    :data:`WHOLE_STATE`, else in slabs of :data:`SLAB`; its bytes grow with
+    the chunk and p (the wrapper raises above 227 KB)."""
+    if dtype == torch.float32:
+        t = F32_TILE
+        return {"smem_bytes": 4 * 5 * t * (t + 1), "p_slices": _pieces(p, t),
+                "n_slabs": _pieces(n, t)}
+    up16 = lambda v: -(-v // 16) * 16
+    q, pp, nn = up16(chunk), up16(p), up16(n)
+    if n <= WHOLE_STATE:
+        pass1 = 2 * (q * (max(pp, nn) + 8) + q * (nn + 8))
+        pass3 = 2 * (q * (pp + 8) + q * (nn + 8)) + 4 * pp * (nn + 4)
+        slabs = [(0, n)]
+    else:
+        pass1 = 2 * (q * (max(pp, SLAB) + 8) + q * (SLAB + 8))
+        pass3 = 2 * (q * (pp + 8) + 64 * (SLAB + 8)) \
+            + 4 * min(pp, 128) * (SLAB + 4)
+        slabs = _pieces(n, SLAB)
+    cum = 4 * (2 * q + 32)                  # cum, dt and 32 warp totals
+    return {"smem_bytes": max(pass1, pass3) + cum, "p_slices": [(0, p)],
+            "n_slabs": slabs}
+
+
 def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      B: torch.Tensor, C: torch.Tensor,
                      D: Optional[torch.Tensor] = None, *, chunk: int = 128,
@@ -117,6 +158,11 @@ def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
        keeping the state entering each chunk;
     3. scan pass: ``y = exp(cum_i) C_i . state_in^T + W . X + D x`` with
        ``W = (C B^T) o exp(cum_i - cum_j) o dt_j`` for ``j <= i``.
+
+    Above n :data:`WHOLE_STATE`, ``C B^T`` and ``C_i . state_in^T`` are
+    sums of their slabs' products over n in slab order
+    (:func:`ssd_scan_plan`), as the route's slab kernels add them
+    (``S_loc``'s columns need no sum across slabs).
 
     With ``split_bf16`` each float32 operand the kernel forms itself (``w o
     X``, ``W``, ``state_in``) enters its products as ``hi . Y + lo . Y``
@@ -159,12 +205,22 @@ def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = torch.exp(last[:, c, 0])[..., None, None] * state + s_loc[:, c]
     state_in = torch.stack(state_in, dim=1)                   # (b,nc,h,p,n)
     # 3. scan pass
-    y = product("bchpn,bcihn->bcihp", state_in, Cq) \
+    slabs = ssd_scan_plan(chunk, p, n, torch.bfloat16)["n_slabs"]
+
+    def over_slabs(eq, u, v, split):         # sum over n, slab after slab
+        out = 0
+        for n0, nw in slabs:
+            u_s, v_s = u[..., n0:n0 + nw], v[..., n0:n0 + nw]
+            out = out + (product(eq, u_s, v_s) if split
+                         else torch.einsum(eq, u_s, v_s))
+        return out
+
+    y = over_slabs("bchpn,bcihn->bcihp", state_in, Cq, True) \
         * torch.exp(cum)[..., None]
     above = torch.ones(chunk, chunk, dtype=torch.bool,
                        device=x.device).triu(1)[:, :, None]
     li = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (b,nc,i,j,h)
-    W = torch.einsum("bcihn,bcjhn->bcijh", Cq, Bq) \
+    W = over_slabs("bcihn,bcjhn->bcijh", Cq, Bq, False) \
         * torch.exp(li.masked_fill(above, float("-inf"))) * dtq[:, :, None]
     y = y + product("bcijh,bcjhp->bcihp", W, xq)
     y = y.reshape(b, nc * chunk, h, p)[:, :s]
@@ -192,7 +248,9 @@ def ssd_scan_scratch_bytes(b: int, s: int, h: int, p: int, g: int, n: int,
 def ssd_scan_smem_bytes(chunk: int, p: int, n: int,
                         dtype: torch.dtype) -> int:
     """Shared memory one block of the kernel takes (the larger of the
-    chunk and scan passes in the bf16 route; CUDA build needed)."""
+    chunk and scan passes in the bf16 route), from the built library
+    (CUDA build needed); :func:`ssd_scan_plan` computes the same on the
+    host."""
     return int(_lib().ssd_scan_smem_bytes(chunk, p, n,
                                           _build.DTYPE_CODES[dtype]))
 
@@ -222,9 +280,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        # x, dt, A, B, C, D, y, state, s_loc, decay, cbuf; b, s, h, p, g,
-        # n, chunk, dtype; stream
-        lib.ssd_scan_launch.argtypes = [p] * 11 + [i] * 8 + [p]
+        # x, dt, A, B, C, D, y, state, s_loc, decay, cbuf, scr; b, s, h,
+        # p, g, n, chunk, dtype; stream
+        lib.ssd_scan_launch.argtypes = [p] * 12 + [i] * 8 + [p]
         lib.ssd_scan_launch.restype = ctypes.c_int
         lib.ssd_scan_smem_bytes.argtypes = [i, i, i, i]
         lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
@@ -243,10 +301,11 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     x, B, C contiguous and of one float dtype; dt, A, D contiguous
     float32; all on one CUDA device; h a multiple of g. bfloat16 takes the
-    tensor-core route, which also takes :func:`ssd_scan_scratch_bytes` of
-    float32 scratch, up to n :data:`BF16_TC_MAX_STATE`; a wider bfloat16
-    state takes the CUDA-core kernel (the ``wide`` route), which takes no
-    scratch.
+    tensor-core route at any n, with :func:`ssd_scan_scratch_bytes` of
+    float32 scratch, while its blocks' shared memory (set by the chunk and
+    p, :func:`ssd_scan_plan`) fits; float32 takes the CUDA-core route at
+    every shape, with 3 min(chunk, s) floats of scratch a block (a chunk
+    longer than s runs as a chunk of s, the same scan).
     """
     dev = x.device
     if dev.type != "cuda":
@@ -265,36 +324,39 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"{h} heads are not a multiple of {g} groups")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    lib = _lib()
-    code = _build.DTYPE_CODES[x.dtype]
-    smem = lib.ssd_scan_smem_bytes(chunk, p, n, code)
-    # the CUDA-core kernel (f32 and wide routes) holds a chunk of x and B,
-    # a 32-row tile of C and of weights and the (p, n) state: at p 64 it
-    # takes n up to 202 at chunk 128, 323 at chunk 64 and 429 at chunk 32
-    # (the tensor-core route's bound is its chunk and scan passes')
-    if smem > _MAX_SMEM:
-        raise ValueError(f"chunk {chunk}, p {p}, n {n} need {smem} bytes of "
-                         f"shared memory, more than {_MAX_SMEM}")
+    if x.dtype == torch.float32 and s:
+        # a chunk longer than the sequence is one chunk of the sequence
+        # (the steps past it are zeros): the same scan, in less scratch
+        chunk = min(chunk, s)
+    plan = ssd_scan_plan(chunk, p, n, x.dtype)
+    if plan["smem_bytes"] > _MAX_SMEM:
+        raise ValueError(f"chunk {chunk}, p {p} need {plan['smem_bytes']} "
+                         f"bytes of shared memory in the bf16 route, more "
+                         f"than {_MAX_SMEM}")
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
     if b * h == 0:
         return y, state
-    wide = x.dtype == torch.bfloat16 and n > BF16_TC_MAX_STATE
-    scratch = [None] * 3                     # s_loc, decay, cbuf
-    if x.dtype == torch.bfloat16 and not wide:
-        scratch = [torch.empty(shape, dtype=torch.float32, device=dev)
-                   for shape in _scratch_shapes(b, s, h, p, g, n, chunk)]
+    scratch = [None] * 4                     # s_loc, decay, cbuf, scr
+    if x.dtype == torch.bfloat16:
+        scratch[:3] = [torch.empty(shape, dtype=torch.float32, device=dev)
+                       for shape in _scratch_shapes(b, s, h, p, g, n, chunk)]
+    elif s > 0:
+        blocks = b * h * len(plan["p_slices"])
+        scratch[3] = torch.empty(blocks * 3 * chunk, dtype=torch.float32,
+                                 device=dev)
+    lib = _lib()
     ptr = lambda t: t.data_ptr() if t is not None else None
     rc = lib.ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
         ptr(D), y.data_ptr(), state.data_ptr(), *map(ptr, scratch), b, s, h,
-        p, g, n, chunk, code, torch.cuda.current_stream(dev).cuda_stream)
+        p, g, n, chunk, _build.DTYPE_CODES[x.dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"SSD scan kernel launch failed: "
                            f"{lib.ssd_scan_error_string(rc).decode()}")
     _build.launch_counts["ssd_scan"] += 1
-    route = "wide" if wide else _build.ROUTES[x.dtype]
-    _build.route_counts[f"ssd_scan.{route}"] += 1
+    _build.route_counts[f"ssd_scan.{_build.ROUTES[x.dtype]}"] += 1
     return y, state
 
 

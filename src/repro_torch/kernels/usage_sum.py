@@ -13,8 +13,9 @@ reference's multipliers.
 * :func:`usage_sum_kernel` launches ``csrc/usage_sum.cu`` on CUDA tensors
   (it raises for anything else): each tile of a tenant's rows is compacted
   by tier in shared memory, stably, and one thread per (tenant, tier)
-  walks only its tier's list, in order (a block a tenant above
-  :data:`WARP_MAX_N` rows or 32 tiers, else a warp a tenant);
+  walks only its tier's list, in order (a block a tenant and window of
+  :data:`WINDOW` tiers, :func:`tier_windows`, above :data:`WARP_MAX_N`
+  rows or 32 tiers, else a warp a tenant), at any number of tiers;
 * :func:`usage_sum_plain` is ``np.add.at`` in float32 on the host, which
   adds in index order; the kernel gives the same bits.
 """
@@ -22,14 +23,22 @@ reference's multipliers.
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
-MAX_TIERS = 128             # kMaxTiers in csrc/usage_sum.cu
+WINDOW = 128                # kMaxTiers: tiers a block of the block route
 WARP_MAX_N = 1024           # kWarpMaxN: the most rows of the warp route
+MAX_WINDOWS = 65535         # kMaxWindows: the grid's second dimension
+
+
+def tier_windows(L: int) -> List[Tuple[int, int]]:
+    """``(first tier, tiers)`` of the block route's windows over L tiers:
+    one block a tenant and window, each summing only its own tiers."""
+    return [(l0, min(WINDOW, L - l0)) for l0 in range(0, L, WINDOW)]
 
 
 def usage_sum_plain(idx: torch.Tensor, chosen: torch.Tensor, K: int,
@@ -59,7 +68,7 @@ def usage_sum_kernel(idx: torch.Tensor, chosen: torch.Tensor, K: int,
                      L: int) -> torch.Tensor:
     """Launch ``csrc/usage_sum.cu``: (T, L) float32. ``idx`` contiguous
     int64 (T, N) with cells in [0, L K), ``chosen`` contiguous float32
-    (T, N), both on one CUDA device; L at most 128 tiers."""
+    (T, N), both on one CUDA device; any L up to 65,535 windows of 128."""
     dev = idx.device
     if dev.type != "cuda" or chosen.device != dev:
         raise ValueError(f"usage sum kernel needs CUDA tensors on one "
@@ -72,8 +81,9 @@ def usage_sum_kernel(idx: torch.Tensor, chosen: torch.Tensor, K: int,
                          f"{tuple(idx.shape)} and {chosen.dtype} "
                          f"{tuple(chosen.shape)}")
     T, N = idx.shape
-    if not 1 <= L <= MAX_TIERS:
-        raise ValueError(f"the kernel takes 1 to {MAX_TIERS} tiers, got {L}")
+    if not 1 <= L <= MAX_WINDOWS * WINDOW:
+        raise ValueError(f"the kernel takes 1 to {MAX_WINDOWS * WINDOW} "
+                         f"tiers, got {L}")
     use = torch.empty((T, L), dtype=torch.float32, device=dev)
     if use.numel() == 0:
         return use

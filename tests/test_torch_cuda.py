@@ -634,6 +634,10 @@ def _usage_case(case):
         "the warp route's widest": (9, 1_024, 32, 2, None),
         "past it: N 1,025": (4, 1_025, 32, 2, None),
         "past it: 33 tiers": (4, 300, 33, 2, None),
+        "L 129": (3, 5_000, 129, 3, None),
+        "L 256": (2, 4_500, 256, 2, None),
+        "L 1,000": (2, 9_000, 1_000, 3, None),
+        "L 200, tiers past 128 only": (3, 700, 200, 2, list(range(128, 200))),
     }[case]
     rng = np.random.default_rng(len(case))
     tier = rng.choice(np.arange(L) if tiers is None else np.array(tiers),
@@ -646,7 +650,8 @@ def _usage_case(case):
 @pytest.mark.parametrize("case", [
     "L 1", "L 128", "a tier with no rows", "every row in one tier", "N 1",
     "N 4,097", "T 0", "T 2,048 x N 30", "the warp route's widest",
-    "past it: N 1,025", "past it: 33 tiers"])
+    "past it: N 1,025", "past it: 33 tiers", "L 129", "L 256", "L 1,000",
+    "L 200, tiers past 128 only"])
 def test_usage_sum_kernel_edges_are_np_add_at_in_float32(card, case):
     """The usage-sum kernel at the edges of its routes and tiles: the
     float32 sums of ``np.add.at`` in row order, bit for bit, the same bits
@@ -900,13 +905,13 @@ def test_wide_decode_partials_route_matches_plain(card, offset, window,
                   acc_p[seen] / l_p[seen][:, None], ATTN_TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wide"),
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "bf16_tc"),
                                          (torch.float32, "f32")])
 @pytest.mark.parametrize("s,chunk", [(150, 64), (70, 32)])
 def test_wide_ssd_state_matches_plain(card, s, chunk, dtype, route):
-    """K7 at n 320: bfloat16 takes the CUDA-core kernel reading bfloat16
-    (the wide route: float32 arithmetic, y in bfloat16, the state in
-    float32), float32 its own route; both within K7's tolerance."""
+    """K7 at n 320: bfloat16 takes the tensor-core route with B, C and the
+    state in slabs of 128 columns, float32 the CUDA-core route; both
+    within K7's tolerance."""
     b, h, p, g, n = 2, 4, 64, 1, 320
     rng = np.random.default_rng(34)
     x, B, C = _randn(34, (b, s, h, p), (b, s, g, n), (b, s, g, n),
@@ -924,6 +929,161 @@ def test_wide_ssd_state_matches_plain(card, s, chunk, dtype, route):
     assert y.dtype == dtype and st.dtype == torch.float32
     _assert_close(y, y_p, SSD_TOL[dtype])
     _assert_close(st, st_p, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (2, 300, 4, 64, 1, 320, 128),    # n 320 at chunk 128 (f32 raised)
+    (1, 256, 2, 256, 1, 64, 128),    # p 256 with n 64
+    (2, 300, 2, 64, 1, 128, 256),    # chunk 256 with n 128
+    (1, 200, 3, 40, 1, 600, 64),     # n 600: five slabs, p not 16's
+    (1, 128, 2, 256, 1, 320, 64),    # p 256 at n 320: two p blocks a slab
+    (1, 90, 2, 20, 1, 260, 112),     # a chunk longer than the sequence
+])
+def test_ssd_kernel_at_any_shape_matches_plain(card, b, s, h, p, g, n, chunk,
+                                               dtype):
+    """K7 at shapes its kernels once refused: the float32 CUDA-core route
+    in 32 x 32 tiles and the bfloat16 tensor-core route (B, C and the
+    state in slabs above n 256) within K7's tolerance of the plain
+    version, each shape's shared memory the host plan's."""
+    rng = np.random.default_rng(35)
+    x, B, C = _randn(35, (b, s, h, p), (b, s, g, n), (b, s, g, n),
+                     dtype=dtype, device=card)
+    B, C = B * 0.3, C * 0.3
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    dt = f32(np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.5)
+    A = f32(-np.exp(rng.standard_normal(h) * 0.3))
+    D = f32(np.ones(h))
+    ops.reset_launch_counts()
+    y, st = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert dict(ops.route_counts) == {f"ssd_scan.{_build.ROUTES[dtype]}": 1}
+    y_p, st_p = tssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
+    _assert_close(y, y_p, SSD_TOL[dtype])
+    _assert_close(st, st_p, 1e-4)
+    assert tssd.ssd_scan_smem_bytes(chunk, p, n, dtype) == \
+        tssd.ssd_scan_plan(chunk, p, n, dtype)["smem_bytes"]
+
+
+def _small_partitions(N, V=23, M=8, seed=0):
+    rng = np.random.default_rng(seed)
+    n_cols = rng.integers(1, 3, N).astype(np.int32)
+    n_rows = (M // n_cols).astype(np.int32)
+    n_valid = n_rows * n_cols
+    codes = rng.integers(-1, V, (N, M)).astype(np.int32)
+    codes[np.arange(M)[None, :] >= n_valid[:, None]] = -1
+    lengths = rng.integers(1, 12, V).astype(np.float32)
+    return codes, n_valid, n_rows, n_cols, lengths
+
+
+def _normwise(got, want):
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def test_entropy_kernel_over_65535_partitions(card):
+    """K2 on 70,000 small partitions (two cluster launches, past the 65,535
+    of a grid's second dimension): within 1e-5 normwise of the float64
+    plain version, and each partition's bits those of the kernel on the
+    first and second 35,000 alone."""
+    args = [torch.as_tensor(a, device=card) for a in _small_partitions(70_000)]
+    ops.reset_launch_counts()
+    s, b = tef.weighted_entropy_features_kernel(*args, n_buckets=3)
+    halves = [tef.weighted_entropy_features_kernel(
+        *[a[sl] for a in args[:4]], args[4], n_buckets=3)
+        for sl in (slice(0, 35_000), slice(35_000, None))]
+    torch.cuda.synchronize()
+    assert ops.launch_counts["entropy_features"] == 3
+    assert torch.equal(s, torch.cat([h[0] for h in halves]))
+    assert torch.equal(b, torch.cat([h[1] for h in halves]))
+    s_d, b_d = tef.weighted_entropy_features_plain(*args, n_buckets=3,
+                                                   dtype=torch.float64)
+    assert _normwise(s, s_d) <= 1e-5 and _normwise(b, b_d) <= 1e-5
+
+
+@pytest.mark.parametrize("n_buckets,V", [(24, 23), (5_000, 23),
+                                         (24, 30_000), (5_000, 5),
+                                         (5_000, 12)])
+def test_entropy_kernel_over_16_buckets(card, n_buckets, V):
+    """K2 at 24 buckets (the bucket arrays sized in dynamic shared memory;
+    a replicated plan at V 23, a distributed one at V 30,000) and at 5,000
+    (two passes of at most 4,096: distributed at V 23, replicated at V 5
+    and 12, where a block owns ceil(V / 8) values): within 1e-5 normwise
+    of the float64 plain version, the same bits twice; where both plans
+    are replicated, the summary has the bits of the one-bucket call (the
+    same order, each value's count summed over the passes exactly)."""
+    rng = np.random.default_rng(n_buckets + V)
+    N, M = 5, 12_000
+    n_cols = np.array([3, 1, 2, 4, 1], np.int32)
+    n_valid = np.array([M, 7_001, 9_998, 0, 5], np.int32)
+    codes = rng.integers(-1, V, (N, M)).astype(np.int32)
+    codes[np.arange(M)[None, :] >= n_valid[:, None]] = -1
+    args = [torch.as_tensor(a, device=card) for a in
+            (codes, n_valid, n_valid // n_cols, n_cols,
+             rng.integers(1, 12, (N, V)).astype(np.float32))]
+    s1, b1 = tef.weighted_entropy_features_kernel(*args, n_buckets=n_buckets)
+    s2, b2 = tef.weighted_entropy_features_kernel(*args, n_buckets=n_buckets)
+    torch.cuda.synchronize()
+    assert torch.equal(s1, s2) and torch.equal(b1, b2)
+    s_d, b_d = tef.weighted_entropy_features_plain(
+        *args, n_buckets=n_buckets, dtype=torch.float64)
+    assert _normwise(s1, s_d) <= 1e-5 and _normwise(b1, b_d) <= 1e-5
+    if tef._plan(V, n_buckets, M)[0]:
+        one, _ = tef.weighted_entropy_features_kernel(*args, n_buckets=1)
+        assert torch.equal(s1, one)
+    info = tef.weighted_entropy_features_info(V, n_buckets, M)
+    assert info["passes"] == len(tef.bucket_passes(n_buckets))
+    assert info["smem_bytes"] == tef.plan_smem_bytes(V, n_buckets, M)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D,Dv,latent,window,softcap,lens", [
+    (2, 130, 4, 1, 640, 520, False, None, None, [130, 0]),  # rows padded
+    (2, 200, 40, 1, 600, 576, True, 50, None, [200, 77]),  # 3 head tiles
+    (3, 1030, 16, 1, 640, 576, True, 300, 20.0, [1030, 700, 5]),  # splits
+    (1, 300, 8, 2, 580, 516, False, None, None, [1000]),  # kv_len past S
+    (2, 96, 8, 1, 644, 522, False, 40, None, [96, 3]),    # Dv not 8's
+    (3, 50, 16, 1, 640, 576, True, None, None, [50, 17, 0]),  # one split
+])
+def test_wide_decode_bf16_tensor_cores_edges(card, B, S, Hq, Hkv, D, Dv,
+                                             latent, window, softcap, lens):
+    """K6's bfloat16 wide route (decode_attention_wide_tc.cu) at its
+    edges: heads padded in an m16 tile or over several tiles, key splits
+    with a window that leaves splits empty, kv_len past the cache, Dv and
+    D off the 16-byte grid (plain loads); within K6's bf16 tolerance of
+    the plain version, 0 where no key is visible, the same bits twice;
+    and its partials mode on the same operands."""
+    dtype = torch.bfloat16
+    if latent:
+        q, cache = _randn(37, (B, Hq, D), (B, S, D), dtype=dtype,
+                          device=card)
+        k = cache[:, :, None, :]
+        v = k[..., :Dv]
+    else:
+        q, k, v = _randn(37, (B, Hq, D), (B, S, Hkv, D), (B, S, Hkv, Dv),
+                         dtype=dtype, device=card)
+    kv_len = torch.as_tensor(lens, dtype=torch.int32, device=card)
+    kw = dict(window=window, softcap=softcap)
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, k, v, kv_len, **kw)
+    again = ops.decode_attention(q, k, v, kv_len, **kw)
+    local = torch.clamp(kv_len, 0, S).to(torch.int32)
+    acc, m, l = ops.decode_attention_partials(q, k, v, local, offset=0,
+                                              global_len=kv_len, **kw)
+    torch.cuda.synchronize()
+    assert dict(ops.route_counts) == {"decode_attention.wide": 2,
+                                      "decode_attention.partials_wide": 1}
+    assert torch.equal(out, again)
+    _assert_close(out, tda.decode_attention_plain(q, k, v, kv_len, **kw),
+                  ATTN_TOL[dtype])
+    assert not out[kv_len == 0].float().any()
+    acc_p, m_p, l_p = tda.decode_attention_partials_plain(
+        q, k, v, local, offset=0, global_len=kv_len, **kw)
+    seen = l_p > 0
+    assert torch.equal(seen, l > 0)
+    assert torch.equal(m[~seen], m_p[~seen]) and not acc[~seen].any()
+    _assert_close(m[seen], m_p[seen], 1e-5)
+    _assert_close(l[seen], l_p[seen], 1e-4)
+    _assert_close(acc[seen] / l[seen][:, None],
+                  acc_p[seen] / l_p[seen][:, None], ATTN_TOL[dtype])
 
 
 def test_zamba2_serving_on_card_matches_cpu(card):

@@ -115,8 +115,8 @@ def test_sliced_edge_cases_match_pallas(case, width):
     (4_000, 16, 10 ** 9, (False, 500, 8)),  # no more slices than values
 ])
 def test_plan_holds_every_value_on_chip(V_, n_buckets, M, want):
-    repl, slices, span = tef._plan(V_, n_buckets, M)
-    assert (repl, slices, span) == want
+    repl, slices, span, per_pass = tef._plan(V_, n_buckets, M)
+    assert (repl, slices, span) == want and per_pass == n_buckets
     assert slices * span >= V_
     per_block = span if repl else span // tef.CLUSTER
     assert n_buckets * per_block <= tef.MAX_BINS

@@ -5,7 +5,7 @@ GPU, for comparing two source trees in one run on one card.
 
     python tools/time_paths.py [--src SRC] [--k2-inputs FILE]
         [--k1-inputs FILE] [--k4-inputs FILE] [--scan-inputs FILE]
-        [--scan-only | --k6-only]
+        [--scan-only | --k6-only | --bits-only]
 
 ``--src`` is the ``src`` directory of the tree to time (default: this
 checkout's); its kernels are built from that tree's sources into
@@ -43,8 +43,15 @@ its uncapped footprint. Its arguments are caught from that tree's
 finish, and kept in ``--scan-inputs`` (``build/time_paths_scan.npz``).
 It gets its wall time per call (host clock to ``torch.cuda.synchronize()``,
 5 calls after one warm-up) and its device time from torch.profiler (one
-call), in all and for its usage-sum kernel (one launch a step). ``--scan-only`` times the dual ascent alone (no build, prefill, steps or
+call), in all and for its usage-sum kernel (one launch a step).
+``--scan-only`` times the dual ascent alone (no build, prefill, steps or
 kernels), and ``--k6-only`` K6 alone (building only its library).
+``--bits-only`` prints the sha256 of the outputs of K7 at zamba2's prefill
+shape (x (4, 512, 80, 64) bf16, n 64, chunk 128, from seed 0: y and the
+state; and the same values in float32, K7's float32 route), of K2 on seeded codes at 1, 5 and 16 buckets, replicated and
+distributed (V 15,005 and 400,000), and of the usage sum at T 1 x N 16,000,
+L 12 and T 1,024 x N 239, L 4, with each call's time: two trees whose
+hashes agree compute those calls bit for bit alike.
 
 Prints, as its last line, one JSON object: the tree, the card's name and
 ``nvidia-smi`` power limit, the prefill seconds, the step seconds, the
@@ -211,6 +218,69 @@ def k6_times(torch, cfg, da) -> dict:
     return out
 
 
+def _sha(torch, *ts) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def bits_and_times(torch) -> dict:
+    """{call: {"sha256": first 16 hex digits of its outputs' bytes, "ms",
+    "device_ms"}} for the calls ``--bits-only`` names."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import entropy_features as ef
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.kernels import usage_sum as us
+    _build.build(["ssd_scan", "entropy_features", "usage_sum"])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+
+    def record(name, fn):
+        res = fn()
+        torch.cuda.synchronize()
+        res = res if isinstance(res, tuple) else (res,)
+        out[name] = {"sha256": _sha(torch, *res), **kernel_times(torch, fn)}
+
+    b, s, h, p, n = BATCH, SEQ, 80, 64, 64      # zamba2's prefill
+    x = torch.randn((b, s, h, p), generator=g, device=dev).bfloat16()
+    Bm, Cm = (torch.randn((b, s, 1, n), generator=g, device=dev)
+              .mul(0.5).bfloat16() for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g,
+                                                  device=dev)) * 0.5
+    A = -torch.exp(torch.randn(h, generator=g, device=dev) * 0.3)
+    D = torch.ones(h, device=dev)
+    record("K7 zamba2 prefill", lambda: ssd.ssd_scan_kernel(
+        x, dt, A, Bm, Cm, D, chunk=128))
+    xf, Bf, Cf = x.float(), Bm.float(), Cm.float()
+    record("K7 zamba2 prefill, float32", lambda: ssd.ssd_scan_kernel(
+        xf, dt, A, Bf, Cf, D, chunk=128))
+
+    rng = np.random.default_rng(SEED)
+    for V, M in ((15_005, 200_000), (400_000, 300_000)):
+        N = 3
+        codes = np.minimum(rng.zipf(1.3, (N, M)) - 1, V - 1).astype(np.int32)
+        n_valid = np.array([M, M // 2 + 1, 7], np.int32)
+        n_cols = np.array([3, 1, 2], np.int32)
+        args = [torch.as_tensor(a, device=dev) for a in
+                (codes, n_valid, n_valid // n_cols, n_cols,
+                 rng.integers(1, 12, (N, V)).astype(np.float32))]
+        for nb in (1, 5, 16):
+            record(f"K2 V {V} at {nb} buckets", lambda: (
+                ef.weighted_entropy_features_kernel(*args, n_buckets=nb)))
+
+    for T, N, L, K in ((1, 16_000, 12, 3), (1_024, 239, 4, 3)):
+        idx = torch.as_tensor(rng.integers(0, L * K, (T, N)), device=dev)
+        chosen = torch.as_tensor(np.exp(rng.uniform(-8, 8, (T, N)))
+                                 .astype(np.float32), device=dev)
+        record(f"usage_sum T {T} x N {N}, L {L}",
+               lambda: us.usage_sum_kernel(idx, chosen, K, L))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
@@ -225,6 +295,7 @@ def main() -> int:
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--scan-only", action="store_true")
     only.add_argument("--k6-only", action="store_true")
+    only.add_argument("--bits-only", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -236,6 +307,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    if args.bits_only:
+        print(json.dumps({"src": str(src),
+                          "device": torch.cuda.get_device_name(0),
+                          "nvidia_smi": smi, "bits": bits_and_times(torch)}))
+        return 0
     if args.k6_only:
         from repro_torch.configs.registry import get_config
         from repro_torch.kernels import _build
