@@ -18,13 +18,15 @@ non-zero (with no result line):
 
 1. device   the card's name and count, and ``nvidia-smi``'s name and power
             limit; no card is a failure.
-2. build    all eleven sources from ``src/repro_torch/kernels/csrc`` (the
-            seven TPU kernels, K6's partials mode, the two wide attention
-            routes and the fleet scan's usage sum), one
-            nvcc per source, all started together (``-Xptxas -v``
-            register/shared-memory lines, build seconds); K6's split kernel
-            at the serve loop's cache (registers, shared memory, stages,
-            splits) and K2's cluster kernel at a replicated and a
+2. build    all thirteen sources from ``src/repro_torch/kernels/csrc``
+            (the seven TPU kernels, K5's wgmma kernel, K6's partials
+            mode, the three wide attention sources and the fleet scan's
+            usage sum), one nvcc per source, all started together
+            (``-Xptxas -v`` register/shared-memory lines, build seconds);
+            K6's split kernel at the serve loop's cache (registers, shared
+            memory, stages, splits), K5's wgmma kernel at the zoo's and
+            zamba2's widths (registers, spilled bytes, shared memory, keys
+            a tile) and K2's cluster kernel at a replicated and a
             distributed plan (registers, shared memory, cluster size and
             the clusters that fit on the card at once).
 3. main     TPC-H SF0.1 (600,000 lineitem rows, 440 queries, 500 rows per
@@ -237,7 +239,9 @@ non-zero (with no result line):
             encoder's); the serve loop (B 4, prompt 128, 32 new tokens:
             159 decode steps, whisper's with its encoded frames), K5 and K6
             counted at every step (K6 once per self-attention block, K5
-            once per cross-attention); logits finite, the bf16 prefill
+            once per cross-attention, on ``flash_attention.split``; every
+            prefill's K5 calls on ``flash_attention.wgmma``); logits
+            finite, the bf16 prefill
             within 0.15 of the same prefill through the plain versions and
             greedy tokens equal except at near-ties; for deepseek one more
             decode step with K6's latent mode (v read inside k) against
@@ -245,8 +249,12 @@ non-zero (with no result line):
             same bits twice); prefill seconds, ms a step, peak memory and
             the card's busy share. Phase kernels then times K5 and K6 at
             every shape the zoo gave them, and K6's latent mode at kv_len
-            4,096 too, against their bounds and SDPA; the kernel JSON line
-            carries these rows under "zoo".
+            4,096 too, against their bounds and SDPA (K5's rows with their
+            route, the profiler's device time, mma.sync's (``bf16_tc``)
+            device time at the same call and SDPA's); the kernel JSON line
+            carries these rows under "zoo", and a row of each of K5's two
+            zoo routes (``flash_attention.wgmma``, ``flash_attention.split``)
+            at its largest shape, its launches summed over the zoo.
 7. train    zamba2-2.7b at full width and depth, bfloat16, random weights
             from seed 0, ``TrainConfig(remat=True, compressed_grads=True)``
             with default AdamW; 16 Zipf token shards of 32 x 513 in the
@@ -356,8 +364,9 @@ non-zero (with no result line):
             ``usage_sum`` at 200 tiers bit for bit against ``np.add.at``.
 
 The script takes no arguments: the sizes are fixed. The last three lines
-are the kernel JSON line (K1-K7, ``usage_sum`` with its T 1 x N 16,000
-row of phase reopt under ``scale_solve``, and the three wide routes), the
+are the kernel JSON line (K1-K7, K5's wgmma and split routes,
+``usage_sum`` with its T 1 x N 16,000 row of phase reopt under
+``scale_solve``, and the three wide routes), the
 ``nvidia-smi`` line and ``{"ok": true, "device": {...}}``.
 """
 
@@ -384,6 +393,9 @@ F32_OPS_PER_S = 67e12              # H100 SXM float32, outside tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bfloat16 tensor cores, dense
 ARCH = "zamba2-2.7b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 512, 32   # 33 tokens out
+#: K5's route at zamba2's bf16 prefill and training step (32 heads of 80:
+#: TMA addresses it, the wgmma kernel takes it)
+ZAMBA2_K5_ROUTE = "flash_attention.wgmma"
 VARIANTS = ("Default (store on premium)", "SCOPe (No capacity constraint)",
             "SCOPe (Total cost focused)")
 CARD = "cuda"                      # the device the main path runs on
@@ -393,6 +405,9 @@ SOURCES = {"overlap": ("src/repro_torch/kernels/csrc/overlap.cu",
                                 "src/repro/kernels/entropy_features.py:183"),
            "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:103"),
+           "flash_attention_wgmma": (
+               "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+               "src/repro/kernels/flash_attention.py:103"),
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:84"),
            "attention_wide": ("src/repro_torch/kernels/csrc/attention_wide.cu",
@@ -709,6 +724,14 @@ def phase_build(build):
         f"memory per block, {il['stages']} stage(s) a warp, {il['group']} "
         f"query heads a block; splits of {il['split']} keys, "
         f"{il['splits']} splits")
+    # K5's wgmma kernel at the widths the zoo and zamba2 give it
+    from repro_torch.kernels import flash_attention as fa
+    for D, Dv in ((64, 64), (80, 80), (128, 128), (192, 128), (256, 256)):
+        i5 = fa.flash_attention_wgmma_info(D, Dv)
+        say("build", f"flash_attention_wgmma at D {D}, Dv {Dv}: "
+            f"{i5['registers']} registers, {i5['spill_bytes']} bytes spilled "
+            f"a thread, {i5['smem_bytes']:,} bytes of shared memory a block, "
+            f"{i5['block_k']} keys a tile")
     # the main path's class 2 and class 1 shapes (V values, M codes)
     for V, M in ((15_005, 1_200_000), (583_182, 1_800_000)):
         i2 = ef.weighted_entropy_features_info(V, M=M)
@@ -2751,11 +2774,10 @@ def phase_serve(torch, recorded):
     check(prefill_launches == {"flash_attention": n_attn, "ssd_scan": n_mamba},
           f"prefill launches {prefill_launches}, want flash_attention "
           f"{n_attn} and ssd_scan {n_mamba}")
-    want_routes = {"flash_attention.bf16_tc": n_attn,
-                   "ssd_scan.bf16_tc": n_mamba}
+    want_routes = {ZAMBA2_K5_ROUTE: n_attn, "ssd_scan.bf16_tc": n_mamba}
     check(prefill_routes == want_routes,
           f"bf16 prefill routes {prefill_routes}, want {want_routes}")
-    say("serve", f"prefill routes: {want_routes} (the tensor-core route)")
+    say("serve", f"prefill routes: {want_routes} (the tensor-core routes)")
     loop_s = res.prompt_s + res.decode_s
     step_ms = loop_s / steps * 1e3
     say("serve", f"serve loop: {steps} decode steps ({P} prompt + {T - 1} "
@@ -2804,9 +2826,10 @@ def phase_serve(torch, recorded):
             torch.cuda.synchronize()
             n = sum(ops.launch_counts.values())
             route = _build.ROUTES[dtype_of(c.dtype)]
+            k5 = (ZAMBA2_K5_ROUTE if route == "bf16_tc"
+                  else f"flash_attention.{route}")
             check(use_plain or dict(ops.route_counts) == {
-                f"flash_attention.{route}": n_attn,
-                f"ssd_scan.{route}": n_mamba},
+                k5: n_attn, f"ssd_scan.{route}": n_mamba},
                   f"{c.dtype} prefill routes {dict(ops.route_counts)}")
         finally:
             if orig_p:
@@ -3523,7 +3546,7 @@ def phase_tp(torch, smi_line):
         pre = o["prefill"]
         check(pre["launches"] == {"flash_attention": n_attn,
                                   "ssd_scan": n_mamba}
-              and pre["routes"] == {"flash_attention.bf16_tc": n_attn,
+              and pre["routes"] == {ZAMBA2_K5_ROUTE: n_attn,
                                     "ssd_scan.bf16_tc": n_mamba}
               and pre["collectives"] == coll(False)
               and pre["reduced"] == {"cuda": sum(coll(False).values())},
@@ -4141,6 +4164,11 @@ def _zoo_one(torch, arch, keep, P, smi_line, recorded):
         check(pre_counts == {"flash_attention": n_k5},
               f"{cfg.name} prefill launches {pre_counts}, want "
               f"flash_attention {n_k5}")
+        # every zoo head is whole 64-column panels on 16-byte bases
+        pre_routes = dict(ops.route_counts)
+        check(pre_routes == {"flash_attention.wgmma": n_k5},
+              f"{cfg.name} prefill routes {pre_routes}, want "
+              f"flash_attention.wgmma {n_k5}")
         # the serve loop: K5 and K6 counted step by step
         enc = ctx
         if cfg.encoder_stages is not None:
@@ -4152,7 +4180,7 @@ def _zoo_one(torch, arch, keep, P, smi_line, recorded):
         def counted(*a):
             ops.reset_launch_counts()
             out = step(*a)
-            per_step.append(dict(ops.launch_counts))
+            per_step.append((dict(ops.launch_counts), dict(ops.route_counts)))
             return out
 
         cache = tr.init_cache(cfg, B, max_seq=ZOO_PROMPT + T + 1, device=CARD)
@@ -4162,11 +4190,14 @@ def _zoo_one(torch, arch, keep, P, smi_line, recorded):
         _swap(ops, orig)
     want_step = {k: v for k, v in (("flash_attention", step_k5),
                                    ("decode_attention", step_k6)) if v}
-    bad = [i for i, c in enumerate(per_step) if c != want_step]
+    # a cross-attention block's K5 call at one query: K6's split kernel
+    want_routes = {"flash_attention.split": step_k5} if step_k5 else {}
+    bad = [i for i, c in enumerate(per_step) if c != (want_step, want_routes)]
     steps = ZOO_PROMPT + T - 1
     check(len(per_step) == steps and not bad,
           f"{cfg.name}: {len(per_step)} decode steps, steps {bad[:5]} "
-          f"launched {[per_step[i] for i in bad[:5]]}, want {want_step}")
+          f"launched {[per_step[i] for i in bad[:5]]}, want {want_step} "
+          f"on {want_routes}")
     V = tr.padded_vocab(cfg)
     check(tuple(logits.shape) == (B, P, V) and bool(logits.isfinite().all()),
           f"{cfg.name} prefill logits not finite of ({B}, {P}, {V})")
@@ -4267,7 +4298,9 @@ def _zoo_one(torch, arch, keep, P, smi_line, recorded):
         f"({B * P / prefill_s:.1f} tokens/s), K5 {n_k5} launches; serve loop "
         f"B {B}, prompt {ZOO_PROMPT} + {T} new tokens, {steps} decode steps "
         f"in {loop_s:.3f} s, {step_ms:.3f} ms a step, every step K5 "
-        f"{step_k5} and K6 {step_k6} launches; peak device memory "
+        f"{step_k5} and K6 {step_k6} launches"
+        + (" (K5 on flash_attention.split)" if step_k5 else "")
+        + f", the prefill's K5 on flash_attention.wgmma; peak device memory "
         f"{peak:.3f} GB; the card busy {share(busy)} of a decode step"
         + (f" ({n_ops / N_PROFILED:.0f} device operations a step)"
            if busy is not None else "")
@@ -4355,6 +4388,7 @@ def phase_zoo_kernels(torch, zoo):
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
 
     runs = {r["name"]: r for r in zoo["runs"]}
     rows = {"flash_attention": [], "decode_attention": []}
@@ -4374,10 +4408,19 @@ def phase_zoo_kernels(torch, zoo):
         else:
             q, k, v = (t.contiguous() for t in a)
             causal = kw.get("causal", True)
+            route = fa.choose_route(q, k, v)
+            ops.reset_launch_counts()
             out = fa.flash_attention_kernel(q, k, v, **kw)
+            check(dict(ops.route_counts) == {f"flash_attention.{route}": 1},
+                  f"K5 {key}: routes {dict(ops.route_counts)}, want {route}")
             err = _allclose(torch, out, fa.flash_attention_plain(q, k, v, **kw),
                             2e-2)
             ms = cuda_ms(lambda: fa.flash_attention_kernel(q, k, v, **kw), torch)
+            dev = device_ms(lambda: fa.flash_attention_kernel(q, k, v, **kw),
+                            torch)[0]
+            # mma.sync (the route these shapes took before) in the same run
+            tc_dev = device_ms(lambda: fa.launch_route("bf16_tc", q, k, v,
+                                                       **kw), torch)[0]
             plain = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
                             torch, iters=5)
             B, Sq, Hq, D = q.shape
@@ -4386,10 +4429,11 @@ def phase_zoo_kernels(torch, zoo):
             sdpa = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal and Sq == Sk,
                 enable_gqa=Hq != Hkv)
-            lib = None
+            lib = lib_dev = None
             if not causal or Sq == Sk:
                 _allclose(torch, sdpa().transpose(1, 2), out, 2e-2)
                 lib = cuda_ms(sdpa, torch)
+                lib_dev = device_ms(sdpa, torch)[0]
             el = q.element_size()
             need = {"q": q.numel() * el, "k": k.numel() * el,
                     "v": v.numel() * el, "o": out.numel() * el}
@@ -4401,9 +4445,11 @@ def phase_zoo_kernels(torch, zoo):
             what = (f"{arch} {'prefill' if Sq > 1 else 'decode step'}: q "
                     f"{tuple(q.shape)} k {tuple(k.shape)} v "
                     f"{tuple(v.shape)} causal {causal}")
-            row = {"shape": what, "max_abs_err": err, "ms": ms,
-                   "plain_ms": plain, "bound_ms": b, "bound_by": by,
-                   "library_ms": lib, "need": need, "ops": n_ops}
+            row = {"shape": what, "route": f"flash_attention.{route}",
+                   "max_abs_err": err, "ms": ms, "device_ms": dev,
+                   "bf16_tc_device_ms": tc_dev, "plain_ms": plain,
+                   "bound_ms": b, "bound_by": by, "library_ms": lib,
+                   "library_device_ms": lib_dev, "need": need, "ops": n_ops}
         row["launches"] = launches
         rows[name].append(row)
     # K6's latent mode on a long cache: B 4, one KV head, kv_len 4,096
@@ -4421,24 +4467,57 @@ def phase_zoo_kernels(torch, zoo):
     rows["decode_attention"].append(row)
     info = da.decode_attention_info(ZOO_LATENT_KV, 16, 1, 576, 512,
                                     torch.bfloat16, B=B, aliased=True)
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
     for name, rs in rows.items():
         for r in rs:
-            say("kernels", f"{'K5' if name == 'flash_attention' else 'K6'} "
-                f"at {r['shape']}: {r['launches']} launches in phase zoo; max "
+            k5 = name == "flash_attention"
+            say("kernels", f"{'K5' if k5 else 'K6'} "
+                f"at {r['shape']}: {r['launches']} launches in phase zoo"
+                + (f" on {r['route']}" if k5 else "") + f"; max "
                 f"abs err {r['max_abs_err']:.3e}; "
-                f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                f"kernel {r['ms']:.4f} ms"
+                + (f" (device {fmt(r['device_ms'])}; mma.sync, bf16_tc, "
+                   f"device {fmt(r['bf16_tc_device_ms'])})" if k5 else "")
+                + f", plain {r['plain_ms']:.4f} ms, "
                 f"scaled_dot_product_attention "
                 + ("not comparable (causal with Sq < Sk)" if r["library_ms"]
-                   is None else f"{r['library_ms']:.4f} ms")
+                   is None else f"{r['library_ms']:.4f} ms"
+                   + (f" (device {fmt(r['library_device_ms'])})" if k5
+                      else ""))
                 + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}; "
                 f"{_counts(r.pop('need'))} bytes, {r.pop('ops'):.0f} ops), "
-                f"{100 * r['bound_ms'] / r['ms']:.2f}% of the bound reached")
+                f"{100 * r['bound_ms'] / r['ms']:.2f}% of the bound reached"
+                + (f" ({100 * r['bound_ms'] / r['device_ms']:.2f}% in device "
+                   f"time)" if k5 and r["device_ms"] else ""))
     say("kernels", f"K6 latent mode at kv_len {ZOO_LATENT_KV}: "
         f"{info['registers']} registers, {info['smem_bytes']:,} bytes of "
         f"shared memory per block, {info['stages']} stage(s) a warp, "
         f"{info['group']} query heads a block, splits of {info['split']} "
         f"keys ({info['splits']} splits) plus one merge launch")
     return rows
+
+
+def _k5_route_rows(rows):
+    """The kernel JSON line's rows of K5's two routes for the zoo's shapes:
+    each at its zoo row of the largest bound (the most work), its launches
+    summed over the zoo's prefills and serve loops, its error the largest
+    of its rows'."""
+    out = []
+    for route, src in (("flash_attention.wgmma", "flash_attention_wgmma"),
+                       ("flash_attention.split", "decode_attention")):
+        mine = [r for r in rows if r["route"] == route]
+        check(bool(mine), f"no call of the zoo took {route}")
+        top = max(mine, key=lambda r: r["bound_ms"])
+        out.append({"name": route, "route": "cuda",
+                    "source": SOURCES[src][0],
+                    "replaces": SOURCES["flash_attention"][1],
+                    "launches": sum(r["launches"] for r in mine),
+                    "max_abs_err": max(r["max_abs_err"] for r in mine),
+                    **{k: top[k] for k in (
+                        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "library_device_ms",
+                        "bf16_tc_device_ms", "shape")}})
+    return out
 
 
 # ------------------------------------------------------ model kernels (5)
@@ -4467,6 +4546,19 @@ def _flash_pairs(Sq, Sk, causal, window) -> int:
     return n
 
 
+def _k5_route(bf16: bool, Sq: int, D: int, Dv: int) -> str:
+    """K5's route for contiguous operands on fresh (aligned) allocations
+    with heads up to 256: bfloat16 at one query on K6's split kernel, at
+    more on the wgmma kernel where D and Dv are multiples of 8 of at least
+    32, else on mma.sync; float32 on the CUDA cores."""
+    if not bf16:
+        return "f32"
+    if Sq == 1:
+        return "split"
+    return "wgmma" if D % 8 == 0 and Dv % 8 == 0 and min(D, Dv) >= 32 \
+        else "bf16_tc"
+
+
 def phase_model_kernels(torch, recorded, launches):
     import torch.nn.functional as F
     from repro_torch.kernels import _build, ops
@@ -4480,12 +4572,12 @@ def phase_model_kernels(torch, recorded, launches):
         torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
     attn_tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
-    def routed(name, fn, dtype):
+    def routed(name, fn, dtype, route=None):
         """fn() after zeroing the counts; the call must have taken
-        ``dtype``'s route of kernel ``name``, once."""
+        ``route`` (default: ``dtype``'s route) of kernel ``name``, once."""
         ops.reset_launch_counts()
         out = fn()
-        route = f"{name}.{_build.ROUTES[dtype]}"
+        route = f"{name}.{route or _build.ROUTES[dtype]}"
         check(dict(ops.launch_counts) == {name: 1}
               and dict(ops.route_counts) == {route: 1},
               f"{name} in {dtype}: counts {dict(ops.launch_counts)}, routes "
@@ -4510,9 +4602,15 @@ def phase_model_kernels(torch, recorded, launches):
                 rnd(B, Sk, Hkv, Dv, dtype=dt)
             kw = dict(causal=causal, window=window, softcap=cap)
             out = routed("flash_attention",
-                         lambda: fa.flash_attention_kernel(q, k, v, **kw), dt)
-            _allclose(torch, out, fa.flash_attention_plain(q, k, v, **kw),
-                      attn_tol[dt])
+                         lambda: fa.flash_attention_kernel(q, k, v, **kw), dt,
+                         _k5_route(dt == torch.bfloat16, Sq, D, Dv))
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            _allclose(torch, out, want, attn_tol[dt])
+            if dt == torch.bfloat16:     # mma.sync at every edge case too
+                _allclose(torch, routed("flash_attention",
+                                        lambda: fa.launch_route(
+                                            "bf16_tc", q, k, v, **kw),
+                                        dt, "bf16_tc"), want, attn_tol[dt])
             n_edge += 1
         for B, S, Hq, Hkv, D, window, cap in (
                 (2, 256, 8, 2, 64, None, None), (1, 512, 4, 1, 128, None, None),
@@ -4564,7 +4662,9 @@ def phase_model_kernels(torch, recorded, launches):
         f"query heads a KV head, identical on a second call, "
         f"grouped B/C, tail chunks, p = n = 8 at chunk 16, 80 heads on one "
         f"group, n = 128, no skip) in float32 (f32 route) and bfloat16 "
-        f"(bf16_tc route), all within tolerance of the plain versions")
+        f"(K5 on wgmma where its heads are 8-column multiples of at least "
+        f"32, else on bf16_tc, and on bf16_tc by name at every case; K7 on "
+        f"bf16_tc), all within tolerance of the plain versions")
 
     rows = []
     # ---- K5 at the prefill's shape
@@ -4607,7 +4707,7 @@ def phase_model_kernels(torch, recorded, launches):
         attn_tol[torch.float32])
     say("kernels", f"K5 flash_attention at the prefill's shape q "
         f"{tuple(q.shape)} k/v {tuple(k.shape)} {str(q.dtype)[6:]} {kw}: max "
-        f"abs err {err:.3e} ({_build.ROUTES[q.dtype]} route; f32 route on the "
+        f"abs err {err:.3e} ({fa.choose_route(q, k, v)} route; f32 route on the "
         f"same values cast {err32:.3e}); kernel {ms:.4f} ms, plain "
         f"{plain:.4f} ms, scaled_dot_product_attention "
         f"{lib if lib is None else f'{lib:.4f}'} ms"
@@ -5399,7 +5499,7 @@ def phase_train(torch, smi_line):
     state = res.state
     want = {"flash_attention": 2 * n_attn, "ssd_scan": 2 * n_mamba,
             "quant_pack": n_leaves}
-    want_routes = {"flash_attention.bf16_tc": 2 * n_attn,
+    want_routes = {ZAMBA2_K5_ROUTE: 2 * n_attn,
                    "ssd_scan.bf16_tc": 2 * n_mamba}
     for i, (loss, sec, (counts, routes)) in enumerate(
             zip(res.losses, res.step_s, per_step), 1):
@@ -5749,6 +5849,7 @@ def main() -> int:
     kernels += phase_train_kernels(torch, trained)
     kernels += phase_wide_kernels(torch)
     zoo_rows = phase_zoo_kernels(torch, zoo)
+    kernels += _k5_route_rows(zoo_rows["flash_attention"])
     for row in kernels:                 # K5 and K6 at the zoo's shapes
         if row["name"] == "overlap":    # K1's row slabs over two ranks
             row["mesh_launches"] = slabs

@@ -14,8 +14,10 @@ stream are passed as ``ctypes.c_void_p``, and every C entry returns
 ``launch_counts`` counts launches per kernel: each wrapper adds one where
 it launches its kernel, and nowhere else, once per call whatever number of
 CUDA launches the call makes. A kernel with more than one route (K5 and K7:
-``bf16_tc`` for bfloat16, ``f32`` for float32, :data:`ROUTES`; and ``wide``
-for K5 and K6 above the widths their kernels take) also adds one to
+``bf16_tc`` for bfloat16, ``f32`` for float32, :data:`ROUTES`; K5's
+bfloat16 calls also ``split`` at one query and ``wgmma`` at more, chosen
+by shape in ``flash_attention.choose_route``; and ``wide`` for K5 and K6
+above the widths their kernels take) also adds one to
 ``route_counts["<name>.<route>"]``; :func:`reset_launch_counts` clears
 both.
 """
@@ -38,7 +40,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("overlap", "entropy_features", "flash_attention",
-           "decode_attention", "decode_attention_partials", "attention_wide",
+           "flash_attention_wgmma", "decode_attention",
+           "decode_attention_partials", "attention_wide",
            "attention_wide_tc", "decode_attention_wide_tc", "ssd_scan",
            "quant_pack", "byte_entropy", "usage_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -29,7 +29,10 @@ counts kernel launches by name: ``"overlap"`` (K1),
 float32 usage sum, :func:`usage_sum`, which replaces a jitted scatter-add
 and no Pallas kernel). ``route_counts`` counts the calls of K5 and K7 by
 the route their dtype chose: ``"<name>.bf16_tc"`` (bfloat16, the
-tensor-core kernels) or ``"<name>.f32"`` (float32, the CUDA-core kernels).
+tensor-core kernels) or ``"<name>.f32"`` (float32, the CUDA-core kernels);
+K5's bfloat16 calls go by shape to ``"flash_attention.split"`` (one
+query: K6's split kernel) or ``"flash_attention.wgmma"`` (more: the
+warpgroup kernel) where those take the heads.
 """
 
 from __future__ import annotations

@@ -116,33 +116,48 @@ def _pieces(total: int, width: int) -> List[Tuple[int, int]]:
     return [(s, min(width, total - s)) for s in range(0, total, width)]
 
 
-def ssd_scan_plan(chunk: int, p: int, n: int, dtype: torch.dtype) -> dict:
-    """The kernel's tiles at a chunk, head width p and state n, as
-    ``csrc/ssd_scan.cu`` lays them out: ``smem_bytes`` a block takes (its
-    ``ssd_scan_smem_bytes``), ``p_slices`` (the columns of p each block
-    takes) and ``n_slabs`` (the columns of n staged at once). float32:
-    blocks of 32 columns of p and 32 x 32 tiles, the same 21,120 bytes at
-    every shape. bfloat16: one block a head; n whole up to
-    :data:`WHOLE_STATE`, else in slabs of :data:`SLAB`; its bytes grow with
-    the chunk and p (the wrapper raises above 227 KB)."""
-    if dtype == torch.float32:
-        t = F32_TILE
-        return {"smem_bytes": 4 * 5 * t * (t + 1), "p_slices": _pieces(p, t),
-                "n_slabs": _pieces(n, t)}
+def _bf16_smem(chunk: int, p: int, n: int) -> int:
+    """Shared memory a block of the ``bf16_tc`` route takes at a chunk,
+    head width p and state n: the larger of its chunk and scan passes."""
     up16 = lambda v: -(-v // 16) * 16
     q, pp, nn = up16(chunk), up16(p), up16(n)
     if n <= WHOLE_STATE:
         pass1 = 2 * (q * (max(pp, nn) + 8) + q * (nn + 8))
         pass3 = 2 * (q * (pp + 8) + q * (nn + 8)) + 4 * pp * (nn + 4)
-        slabs = [(0, n)]
     else:
         pass1 = 2 * (q * (max(pp, SLAB) + 8) + q * (SLAB + 8))
         pass3 = 2 * (q * (pp + 8) + 64 * (SLAB + 8)) \
             + 4 * min(pp, 128) * (SLAB + 4)
-        slabs = _pieces(n, SLAB)
     cum = 4 * (2 * q + 32)                  # cum, dt and 32 warp totals
-    return {"smem_bytes": max(pass1, pass3) + cum, "p_slices": [(0, p)],
-            "n_slabs": slabs}
+    return max(pass1, pass3) + cum
+
+
+def ssd_scan_plan(chunk: int, p: int, n: int, dtype: torch.dtype) -> dict:
+    """The kernel's tiles at a chunk, head width p and state n, as
+    ``csrc/ssd_scan.cu`` lays them out: ``smem_bytes`` a block takes (its
+    ``ssd_scan_smem_bytes`` at the slab's p), ``p_slices`` (the columns of
+    p each block takes), ``n_slabs`` (the columns of n staged at once) and
+    ``p_slabs`` (the columns of p the wrapper runs as calls of their own).
+    float32: blocks of 32 columns of p and 32 x 32 tiles, the same 21,120
+    bytes at every shape, one p slab. bfloat16: one block a head; n whole
+    up to :data:`WHOLE_STATE`, else in slabs of :data:`SLAB`; its bytes
+    grow with the chunk and p, so where the whole p would pass 227 KB the
+    columns of p go in the fewest equal slabs (multiples of 16 but the
+    last) that fit: each column of y and of the state depends on its own
+    column of x alone. A chunk too long for even 16 columns leaves
+    ``smem_bytes`` above 227 KB (the wrapper raises)."""
+    if dtype == torch.float32:
+        t = F32_TILE
+        return {"smem_bytes": 4 * 5 * t * (t + 1), "p_slices": _pieces(p, t),
+                "n_slabs": _pieces(n, t), "p_slabs": [(0, p)]}
+    up16 = lambda v: -(-v // 16) * 16
+    for parts in range(1, -(-p // 16) + 1):
+        width = up16(-(-p // parts))
+        if _bf16_smem(chunk, width, n) <= _MAX_SMEM:
+            break
+    slabs = _pieces(n, SLAB) if n > WHOLE_STATE else [(0, n)]
+    return {"smem_bytes": _bf16_smem(chunk, width, n), "p_slices": [(0, p)],
+            "n_slabs": slabs, "p_slabs": _pieces(p, width)}
 
 
 def ssd_scan_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -302,8 +317,10 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     x, B, C contiguous and of one float dtype; dt, A, D contiguous
     float32; all on one CUDA device; h a multiple of g. bfloat16 takes the
     tensor-core route at any n, with :func:`ssd_scan_scratch_bytes` of
-    float32 scratch, while its blocks' shared memory (set by the chunk and
-    p, :func:`ssd_scan_plan`) fits; float32 takes the CUDA-core route at
+    float32 scratch; where its blocks' shared memory (set by the chunk and
+    p) would pass 227 KB it runs slabs of p as launches of their own
+    (:func:`ssd_scan_plan`'s ``p_slabs``, :func:`over_p_slabs`), counted
+    as one call; float32 takes the CUDA-core route at
     every shape, with 3 min(chunk, s) floats of scratch a block (a chunk
     longer than s runs as a chunk of s, the same scan).
     """
@@ -330,13 +347,48 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         chunk = min(chunk, s)
     plan = ssd_scan_plan(chunk, p, n, x.dtype)
     if plan["smem_bytes"] > _MAX_SMEM:
-        raise ValueError(f"chunk {chunk}, p {p} need {plan['smem_bytes']} "
-                         f"bytes of shared memory in the bf16 route, more "
-                         f"than {_MAX_SMEM}")
+        raise ValueError(f"chunk {chunk} needs {plan['smem_bytes']} bytes of "
+                         f"shared memory in the bf16 route at 16 columns of "
+                         f"p, more than {_MAX_SMEM}")
+    if b * h == 0:
+        return torch.empty_like(x), torch.empty(
+            (b, h, p, n), dtype=torch.float32, device=dev)
+    run = lambda xs: _launch(xs, dt, A, B, C, D, chunk, plan)
+    y, state = (run(x) if len(plan["p_slabs"]) == 1
+                else over_p_slabs(run, x, plan["p_slabs"]))
+    _build.launch_counts["ssd_scan"] += 1
+    _build.route_counts[f"ssd_scan.{_build.ROUTES[x.dtype]}"] += 1
+    return y, state
+
+
+def over_p_slabs(run: Callable, x: torch.Tensor,
+                 slabs: List[Tuple[int, int]],
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, state) of an SSD scan over x (b, s, h, p) from ``run`` on each
+    slab of p columns (``(start, width)``, :func:`ssd_scan_plan`'s
+    ``p_slabs``), each slab's x copied contiguous: y and the state of a
+    column depend on that column of x alone (D is per head), so the slabs'
+    y and states side by side are the whole scan's."""
+    b, s, h, p = x.shape
+    y = torch.empty_like(x)
+    state = None
+    for p0, w in slabs:
+        y_s, st_s = run(x[..., p0:p0 + w].contiguous())
+        if state is None:
+            state = torch.empty(st_s.shape[:2] + (p,) + st_s.shape[3:],
+                                dtype=st_s.dtype, device=st_s.device)
+        y[..., p0:p0 + w] = y_s
+        state[:, :, p0:p0 + w] = st_s
+    return y, state
+
+
+def _launch(x, dt, A, B, C, D, chunk, plan):
+    """One launch of ``csrc/ssd_scan.cu`` over x's columns: (y, state)."""
+    dev = x.device
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    if b * h == 0:
-        return y, state
     scratch = [None] * 4                     # s_loc, decay, cbuf, scr
     if x.dtype == torch.bfloat16:
         scratch[:3] = [torch.empty(shape, dtype=torch.float32, device=dev)
@@ -355,8 +407,6 @@ def ssd_scan_kernel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"SSD scan kernel launch failed: "
                            f"{lib.ssd_scan_error_string(rc).decode()}")
-    _build.launch_counts["ssd_scan"] += 1
-    _build.route_counts[f"ssd_scan.{_build.ROUTES[x.dtype]}"] += 1
     return y, state
 
 

@@ -21,7 +21,10 @@ plans those kernels follow.
 * The plans: each shape's shared memory within a block's 227 KB, and the
   pieces (K7's columns of p and slabs of n, K2's slices, bucket passes and
   launches of partitions, the usage sum's tier windows, the K6 wide
-  route's key splits) covering their range exactly once.
+  route's key splits) covering their range exactly once; bf16 K7's slabs
+  of p where a block of the whole p would not fit (chunk 256 x p 512,
+  chunk 128 x p 1,024), and its slab loop around the plain version
+  against the Pallas kernel.
 """
 
 import jax.numpy as jnp
@@ -189,6 +192,51 @@ def test_ssd_plans_fit_and_cover(chunk, p, n):
         assert all(w <= tssd.SLAB for _, w in bf["n_slabs"])
     if chunk <= 256 and p <= 256:
         assert bf["smem_bytes"] <= MAX_SMEM
+
+
+@pytest.mark.parametrize("chunk,p,n,widths", [
+    (256, 512, 64, [176, 176, 160]),          # chunk 256 x p 512
+    (128, 1024, 64, [352, 352, 320]),         # chunk 128 x p 1,024
+    (256, 1024, 320, [256, 256, 256, 256]),   # with n in slabs too
+    (128, 80, 64, [80]),                      # zamba2's: p whole
+    (128, 256, 64, [256]),                    # fits whole: one slab
+])
+def test_ssd_p_slabs_fit_and_cover(chunk, p, n, widths):
+    """bf16 K7 where a block of the whole p would pass 227 KB: the fewest
+    equal slabs of p (multiples of 16 but the last) whose block fits,
+    covering p once; a shape that fits keeps p whole. float32 never
+    slabs p."""
+    plan = tssd.ssd_scan_plan(chunk, p, n, torch.bfloat16)
+    _covers(plan["p_slabs"], p)
+    assert [w for _, w in plan["p_slabs"]] == widths
+    assert all(w % 16 == 0 for _, w in plan["p_slabs"][:-1])
+    assert plan["smem_bytes"] <= MAX_SMEM
+    assert plan["smem_bytes"] == tssd.ssd_scan_plan(
+        chunk, widths[0], n, torch.bfloat16)["smem_bytes"]
+    if len(widths) > 1:       # one slab fewer would not fit whole
+        wider = -(-p // (len(widths) - 1) // 16) * 16
+        assert len(tssd.ssd_scan_plan(chunk, wider, n, torch.bfloat16)[
+            "p_slabs"]) > 1
+    assert tssd.ssd_scan_plan(chunk, p, n, torch.float32)["p_slabs"] == \
+        [(0, p)]
+
+
+@pytest.mark.parametrize("slabs", [[(0, 16), (16, 16), (32, 8)],
+                                   [(0, 32), (32, 8)]])
+def test_ssd_scan_over_p_slabs_matches_pallas(slabs):
+    """The wrapper's slab loop (``over_p_slabs``) around the plain version
+    gives the Pallas kernel's y and state within K7's float32 tolerance:
+    a column of y and of the state depends on its own column of x."""
+    b, s, h, p, g, n, chunk = 1, 160, 2, 40, 1, 16, 64
+    a = _ssd_inputs(28, b, s, h, p, g, n, bf16_operands=False)
+    x, dt, A, B, C, D = (torch.as_tensor(v) for v in a)
+    y, st = tssd.over_p_slabs(
+        lambda xs: tssd.ssd_scan_plain(xs, dt, A, B, C, D, chunk=chunk), x,
+        slabs)
+    y_j, st_j = j_ssd(*(jnp.asarray(v) for v in a), chunk=chunk,
+                      interpret=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **SSD_F32_TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(st_j), **SSD_F32_TOL)
 
 
 @pytest.mark.parametrize("V,n_buckets,M", [

@@ -378,6 +378,20 @@ def _assert_close(got, want, tol):
                                want.float().cpu().numpy(), rtol=tol, atol=tol)
 
 
+def _k5_route(dtype, Sq, D, Dv):
+    """K5's route for contiguous operands on fresh (aligned) allocations:
+    bfloat16 at one query on K6's split kernel, at more on the wgmma
+    kernel where D and Dv are multiples of 8 of at least 32 columns, else
+    on mma.sync; float32 on the CUDA cores."""
+    if dtype != torch.bfloat16:
+        return "flash_attention.f32"
+    if Sq == 1:
+        return "flash_attention.split"
+    if D % 8 == 0 and Dv % 8 == 0 and min(D, Dv) >= 32:
+        return "flash_attention.wgmma"
+    return "flash_attention.bf16_tc"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,Dv,causal,window,softcap", [
     (1, 128, 128, 4, 4, 64, 64, True, None, None),     # MHA
@@ -402,8 +416,7 @@ def test_flash_kernel_matches_plain(card, B, Sq, Sk, Hq, Hkv, D, Dv, causal,
     out = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert ops.launch_counts["flash_attention"] == 1
-    assert dict(ops.route_counts) == {
-        f"flash_attention.{_build.ROUTES[dtype]}": 1}
+    assert dict(ops.route_counts) == {_k5_route(dtype, Sq, D, Dv): 1}
     assert out.dtype == dtype and out.shape == (B, Sq, Hq, Dv)
     _assert_close(out, tfa.flash_attention_plain(q, k, v, **kw),
                   ATTN_TOL[dtype])
@@ -710,10 +723,133 @@ def test_flash_kernel_at_the_zoo_shapes(card, B, Sq, Sk, Hq, Hkv, D, Dv,
     ops.reset_launch_counts()
     out = ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert dict(ops.route_counts) == {
-        f"flash_attention.{_build.ROUTES[dtype]}": 1}
+    assert dict(ops.route_counts) == {_k5_route(dtype, Sq, D, Dv): 1}
     _assert_close(out, tfa.flash_attention_plain(q, k, v, causal=causal),
                   ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("B,Sk,Hq,Hkv,D,Dv,causal,window,softcap", [
+    (4, 1500, 12, 12, 64, 64, False, None, None),   # whisper's cross decode
+    (4, 4100, 64, 8, 128, 128, False, None, None),  # vision's: rep 8
+    (2, 1500, 40, 8, 128, 128, True, 300, None),    # causal, a window, rep 5
+    (1, 4100, 16, 16, 192, 128, True, None, 30.0),  # Dv != D, softcap
+    (1, 777, 8, 1, 80, 80, False, 50, None),        # window ignored; B Hkv 1
+    (2, 300, 4, 1, 320, 288, True, 40, None),       # above 256: split too
+])
+def test_flash_split_route_matches_plain(card, B, Sk, Hq, Hkv, D, Dv, causal,
+                                         window, softcap):
+    """K5 at one bfloat16 query runs K6's split kernel and merge with kv_len
+    Sk (the window only when causal): within K5's bf16 tolerance of the
+    plain version, identical bits on a second call, counted once under
+    ``flash_attention.split`` and never under ``decode_attention``."""
+    q, k, v = _randn(41, (B, 1, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv),
+                     dtype=torch.bfloat16, device=card)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert dict(ops.launch_counts) == {"flash_attention": 1}
+    assert dict(ops.route_counts) == {"flash_attention.split": 1}
+    assert out.shape == (B, 1, Hq, Dv) and out.dtype == torch.bfloat16
+    assert torch.equal(out, ops.flash_attention(q, k, v, **kw))
+    _assert_close(out, tfa.flash_attention_plain(q, k, v, **kw),
+                  ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,Dv,causal,window,softcap", [
+    (2, 300, 1500, 4, 2, 64, 64, False, None, None),    # Sk 1,500
+    (1, 200, 4100, 8, 1, 128, 128, False, None, None),  # Sk 4,100, rep 8
+    (2, 256, 256, 4, 4, 80, 80, True, None, None),      # zamba2's D 80
+    (1, 300, 300, 4, 2, 192, 128, True, None, None),    # D 192, Dv 128
+    (1, 200, 200, 2, 2, 256, 256, True, 70, 30.0),      # D 256: tiles of 64
+    (1, 130, 700, 4, 2, 128, 64, True, 100, None),      # fully masked tiles
+    (1, 64, 64, 1, 1, 128, 128, True, None, None),      # B Hkv 1, one tile
+    (1, 129, 129, 10, 2, 64, 96, True, None, None),     # Dv 96, rep 5
+])
+def test_flash_wgmma_route_matches_plain(card, B, Sq, Sk, Hq, Hkv, D, Dv,
+                                         causal, window, softcap):
+    """K5 with more than one bfloat16 query on TMA-addressable heads runs
+    the wgmma kernel: within K5's bf16 tolerance of the plain version,
+    identical bits on a second call, one launch on ``flash_attention.wgmma``
+    (Dv 256 in two CUDA launches); its registers spill nothing, and its
+    tile, ring, shared memory and launches are the host plan's."""
+    q, k, v = _randn(42, (B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv),
+                     dtype=torch.bfloat16, device=card)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert dict(ops.launch_counts) == {"flash_attention": 1}
+    assert dict(ops.route_counts) == {"flash_attention.wgmma": 1}
+    assert torch.equal(out, ops.flash_attention(q, k, v, **kw))
+    _assert_close(out, tfa.flash_attention_plain(q, k, v, **kw),
+                  ATTN_TOL[torch.bfloat16])
+    info = tfa.flash_attention_wgmma_info(D, Dv)
+    assert info["spill_bytes"] == 0
+    assert (info["block_k"], info["stages"], info["smem_bytes"],
+            info["launches"]) == tfa.wgmma_plan(D, Dv)
+
+
+@pytest.mark.parametrize("case", ["q off 16 bytes", "k off 16 bytes",
+                                  "v off 16 bytes", "D 20", "D 40, Dv 24"])
+def test_flash_bf16_tc_takes_what_tma_cannot_address(card, case):
+    """A base off the 16-byte grid (a contiguous view one element into a
+    buffer) and D 20 (off the 8-column grid), which TMA cannot address,
+    and D 40 with Dv 24 (narrower than wgmma's 32 columns) stay on
+    mma.sync (``bf16_tc``), within K5's bf16 tolerance of the plain
+    version."""
+    D, Dv = {"D 20": (20, 20), "D 40, Dv 24": (40, 24)}.get(case, (64, 64))
+    B, S, Hq, Hkv = 2, 150, 4, 2
+    shapes = {"q": (B, S, Hq, D), "k": (B, S, Hkv, D), "v": (B, S, Hkv, Dv)}
+    ts = dict(zip(shapes, _randn(43, *shapes.values(), dtype=torch.bfloat16,
+                                 device=card)))
+    if case.endswith("16 bytes"):
+        name = case[0]
+        flat = ts[name].reshape(-1)
+        buf = torch.empty(flat.numel() + 1, dtype=torch.bfloat16, device=card)
+        buf[1:] = flat
+        ts[name] = buf[1:].view(shapes[name])
+        assert ts[name].data_ptr() % 16 and ts[name].is_contiguous()
+    ops.reset_launch_counts()
+    out = ops.flash_attention(ts["q"], ts["k"], ts["v"], window=60)
+    torch.cuda.synchronize()
+    assert dict(ops.launch_counts) == {"flash_attention": 1}
+    assert dict(ops.route_counts) == {"flash_attention.bf16_tc": 1}
+    _assert_close(out, tfa.flash_attention_plain(ts["q"], ts["k"], ts["v"],
+                                                 window=60),
+                  ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [
+    (1, 512, 2, 512, 1, 64, 256),      # chunk 256 x p 512: three p slabs
+    (1, 300, 2, 1024, 1, 64, 128),     # chunk 128 x p 1,024: three slabs
+])
+def test_ssd_bf16_in_slabs_of_p_matches_plain(card, b, s, h, p, g, n, chunk):
+    """bf16 K7 where one block of the whole p would pass 227 KB runs slabs
+    of p as launches of their own (counted as one call on ``bf16_tc``):
+    within K7's bf16 tolerance of the plain version, the state within
+    1e-4, each slab's shared memory the host plan's."""
+    rng = np.random.default_rng(44)
+    x, B, C = _randn(44, (b, s, h, p), (b, s, g, n), (b, s, g, n),
+                     dtype=torch.bfloat16, device=card)
+    B, C = B * 0.3, C * 0.3
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=card)
+    dt = f32(np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.5)
+    A = f32(-np.exp(rng.standard_normal(h) * 0.3))
+    D = f32(np.ones(h))
+    plan = tssd.ssd_scan_plan(chunk, p, n, torch.bfloat16)
+    assert len(plan["p_slabs"]) > 1
+    ops.reset_launch_counts()
+    y, st = ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert dict(ops.launch_counts) == {"ssd_scan": 1}
+    assert dict(ops.route_counts) == {"ssd_scan.bf16_tc": 1}
+    y_p, st_p = tssd.ssd_scan_plain(x, dt, A, B, C, D, chunk=chunk)
+    _assert_close(y, y_p, SSD_TOL[torch.bfloat16])
+    _assert_close(st, st_p, 1e-4)
+    width = plan["p_slabs"][0][1]
+    assert tssd.ssd_scan_smem_bytes(chunk, width, n, torch.bfloat16) == \
+        plan["smem_bytes"]
 
 
 @pytest.mark.parametrize("V,n_buckets", [(400_000, 1), (400_000, 16),
@@ -1111,8 +1247,8 @@ def test_zamba2_serving_on_card_matches_cpu(card):
 
 
 def test_zamba2_bf16_prefill_takes_the_tensor_core_route(card):
-    """The smoke-size zamba2 in bfloat16 on the card: K5 and K7 run their
-    tensor-core route, and the logits agree with the same prefill through
+    """The smoke-size zamba2 in bfloat16 on the card: K5 runs its wgmma
+    route and K7 its tensor-core route, and the logits agree with the same prefill through
     the plain versions within chip_smoke.py's bfloat16 bar (0.15
     normwise)."""
     cfg = get_config("zamba2-2.7b", smoke=True).scaled(dtype="bfloat16")
@@ -1124,7 +1260,7 @@ def test_zamba2_bf16_prefill_takes_the_tensor_core_route(card):
     logits = make_prefill_step(cfg)(params, prompts)
     torch.cuda.synchronize()
     assert dict(ops.launch_counts) == {"flash_attention": 2, "ssd_scan": 12}
-    assert dict(ops.route_counts) == {"flash_attention.bf16_tc": 2,
+    assert dict(ops.route_counts) == {"flash_attention.wgmma": 2,
                                       "ssd_scan.bf16_tc": 12}
     swapped = {"flash_attention": tfa.flash_attention_plain,
                "ssd_scan": lambda *a, **k: tssd.ssd_scan_plain(*a, **k)}

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's zamba2-2.7b prefill and training step, the K1, K2, K4
-and K6 kernels, and the capacitated solver's dual ascent, on one NVIDIA
+"""Time the port's zamba2-2.7b prefill and training step, the K1, K2, K4,
+K5 and K6 kernels, and the capacitated solver's dual ascent, on one NVIDIA
 GPU, for comparing two source trees in one run on one card.
 
     python tools/time_paths.py [--src SRC] [--k2-inputs FILE]
         [--k1-inputs FILE] [--k4-inputs FILE] [--scan-inputs FILE]
-        [--scan-only | --k6-only | --bits-only]
+        [--scan-only | --k6-only | --k5-only | --bits-only]
 
 ``--src`` is the ``src`` directory of the tree to time (default: this
 checkout's); its kernels are built from that tree's sources into
@@ -46,6 +46,14 @@ It gets its wall time per call (host clock to ``torch.cuda.synchronize()``,
 call), in all and for its usage-sum kernel (one launch a step).
 ``--scan-only`` times the dual ascent alone (no build, prefill, steps or
 kernels), and ``--k6-only`` K6 alone (building only its library).
+``--k5-only`` times K5 (``flash_attention_kernel``, wrapper included) at
+every shape the zoo's and zamba2's main paths give it (:data:`K5_SHAPES`,
+bf16 from seed 0), building only the attention libraries: the CUDA-event
+mean over 50 calls, the profiler's device time, the route the wrapper
+took, and ``scaled_dot_product_attention``'s device time where it computes
+the same function (non-causal, or causal with Sq equal to Sk). A tree
+whose ``flash_attention`` module has ``launch_route`` also gets the device
+time of each route that takes the shape, so one run compares them.
 ``--bits-only`` prints the sha256 of the outputs of K7 at zamba2's prefill
 shape (x (4, 512, 80, 64) bf16, n 64, chunk 128, from seed 0: y and the
 state; and the same values in float32, K7's float32 route), of K2 on seeded codes at 1, 5 and 16 buckets, replicated and
@@ -79,6 +87,31 @@ BATCH, SEQ, SEED = 4, 512, 0
 PREFILLS, STEPS = 10, 4             # timed calls, after one warm-up each
 CACHE, KV_LENS = 546, (64, 272, 544)  # the serve loop's cache and its range
 ROOT = Path(__file__).resolve().parents[1]
+#: K5's calls on the main paths: (name, q, k, v shapes, causal); B 4, the
+#: zoo's prefills at 512 tokens (whisper's decoder at its prompt of 128),
+#: the cross-attention decode steps at Sq 1, and zamba2's prefill
+K5_SHAPES = (
+    ("zamba2 prefill", (4, 512, 32, 80), (4, 512, 32, 80), (4, 512, 32, 80),
+     True),
+    ("deepseek prefill", (4, 512, 16, 192), (4, 512, 16, 192),
+     (4, 512, 16, 128), True),
+    ("whisper encoder", (4, 1500, 12, 64), (4, 1500, 12, 64),
+     (4, 1500, 12, 64), False),
+    ("whisper decoder self", (4, 128, 12, 64), (4, 128, 12, 64),
+     (4, 128, 12, 64), True),
+    ("whisper cross prefill", (4, 128, 12, 64), (4, 1500, 12, 64),
+     (4, 1500, 12, 64), False),
+    ("whisper cross decode", (4, 1, 12, 64), (4, 1500, 12, 64),
+     (4, 1500, 12, 64), False),
+    ("llama4 prefill", (4, 512, 40, 128), (4, 512, 8, 128),
+     (4, 512, 8, 128), True),
+    ("vision prefill", (4, 512, 64, 128), (4, 512, 8, 128),
+     (4, 512, 8, 128), True),
+    ("vision cross prefill", (4, 512, 64, 128), (4, 4100, 8, 128),
+     (4, 4100, 8, 128), False),
+    ("vision cross decode", (4, 1, 64, 128), (4, 4100, 8, 128),
+     (4, 4100, 8, 128), False),
+)
 
 
 def placement_inputs(k2_path: Path, k1_path: Path):
@@ -218,6 +251,42 @@ def k6_times(torch, cfg, da) -> dict:
     return out
 
 
+def k5_times(torch) -> dict:
+    """K5 at each of :data:`K5_SHAPES` (see ``--k5-only``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import device_ms
+    _build.build([n for n in ("flash_attention", "flash_attention_wgmma",
+                              "decode_attention") if n in _build.SOURCES])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for name, qs, ks, vs, causal in K5_SHAPES:
+        q, k, v = (torch.randn(s, generator=g, device=dev).bfloat16()
+                   for s in (qs, ks, vs))
+        call = lambda: fa.flash_attention_kernel(q, k, v, causal=causal)
+        _build.reset_launch_counts()
+        call()
+        torch.cuda.synchronize()
+        row = {"route": sorted(_build.route_counts), **kernel_times(torch, call)}
+        for route in getattr(fa, "ROUTES_BF16", ()):
+            if fa.route_takes(route, q, k, v):
+                row[f"device_ms {route}"] = device_ms(
+                    lambda: fa.launch_route(route, q, k, v, causal=causal),
+                    torch)[0]
+        if not causal or qs[1] == ks[1]:
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            row["sdpa_device_ms"] = device_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=qs[2] != ks[2]),
+                torch)[0]
+        out[name] = row
+        del q, k, v
+    return out
+
+
 def _sha(torch, *ts) -> str:
     import hashlib
     h = hashlib.sha256()
@@ -295,6 +364,7 @@ def main() -> int:
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--scan-only", action="store_true")
     only.add_argument("--k6-only", action="store_true")
+    only.add_argument("--k5-only", action="store_true")
     only.add_argument("--bits-only", action="store_true")
     args = ap.parse_args()
     import torch
@@ -311,6 +381,11 @@ def main() -> int:
         print(json.dumps({"src": str(src),
                           "device": torch.cuda.get_device_name(0),
                           "nvidia_smi": smi, "bits": bits_and_times(torch)}))
+        return 0
+    if args.k5_only:
+        print(json.dumps({"src": str(src),
+                          "device": torch.cuda.get_device_name(0),
+                          "nvidia_smi": smi, "k5": k5_times(torch)}))
         return 0
     if args.k6_only:
         from repro_torch.configs.registry import get_config
